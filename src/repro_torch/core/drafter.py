@@ -1,0 +1,224 @@
+"""P-EAGLE drafter and the AR EAGLE-3 baseline, inference only (PyTorch).
+
+Counterpart of the JAX package's ``core/drafter.py``. The drafter is a
+LLaMA-style transformer conditioned on target hidden states: taps from
+target layers (2, L/2, L-1) are concatenated (3·D_t), projected by ``fc`` to
+the drafter width and fused with the token embedding through ``fuse``
+([emb; hidden] → D), then run through N blocks.
+
+Drafter RoPE position p carries (taps[p], emb(token[p+1])) and predicts
+token[p+2]. An MTP slot at depth g > 0 lacks both and takes the
+hidden-state variant's input and the mask-token embedding instead.
+
+Parameters are plain dicts; ``blocks`` is a list of per-layer dicts and the
+cache is ``{"blocks": [layer cache, ...]}``. Both attention phases of every
+block go through the decode kernel (``kernels.ops.decode_attention``).
+Caches are updated in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import DrafterConfig, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+Tensor = torch.Tensor
+
+
+def mask_token_id(tcfg: ModelConfig) -> int:
+    return tcfg.vocab_size - 1          # reserved unused id (paper §4.3)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_params(dcfg: DrafterConfig, tcfg: ModelConfig,
+                generator: torch.Generator, *, device="cuda",
+                dtype=torch.float32) -> dict:
+    d, H, KV, hd = dcfg.d_model, dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
+
+    def dense(shape):
+        return L.dense_init(shape, generator, device=device, dtype=dtype)
+
+    def block():
+        ones = torch.ones(d, dtype=torch.float32, device=device)
+        return {"ln1": ones, "ln2": ones.clone(),
+                "attn": {"wq": dense((d, H * hd)), "wk": dense((d, KV * hd)),
+                         "wv": dense((d, KV * hd)), "wo": dense((H * hd, d))},
+                "mlp": L.mlp_init(d, dcfg.d_ff, generator, device=device,
+                                  dtype=dtype)}
+
+    def normal(shape):
+        return (0.02 * torch.randn(shape, generator=generator, device=device,
+                                   dtype=torch.float32)).to(dtype)
+
+    params = {
+        "embed": L.embed_init(tcfg.vocab_size, d, generator, device=device,
+                              dtype=dtype),
+        "fc": dense((dcfg.num_taps * tcfg.d_model, d)),
+        "fuse": dense((2 * d, d)),
+        "h_shared": normal((d,)),
+        "blocks": [block() for _ in range(dcfg.n_layers)],
+        "final_norm": torch.ones(d, dtype=torch.float32, device=device),
+        "lm_head": dense((d, tcfg.vocab_size)),
+    }
+    v = dcfg.hidden_state_variant
+    if v in ("depth_encoding", "ntp_hidden_depth"):
+        params["depth_emb"] = normal((max(dcfg.k_train, dcfg.k_infer) + 1, d))
+    if v in ("ntp_hidden", "ntp_hidden_depth", "regularized"):
+        params["ntp_proj"] = dense((d, d))
+    if v == "regularized":
+        params["alpha"] = torch.tensor(0.1, dtype=torch.float32, device=device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _block_apply(dcfg: DrafterConfig, p: dict, x: Tensor, *,
+                 positions: Tensor, cache: dict, mode: str) -> Tensor:
+    """mode: "draft" commits only slot 0 (the NTP position) to the cache,
+    "extend" commits every slot (depth-0 tokens)."""
+    B, T, _ = x.shape
+    H, KV, hd = dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
+    h = L.rms_norm(x, p["ln1"], dcfg.norm_eps)
+    sin, cos = L.rope_sincos(positions.clamp_min(0), hd, dcfg.rope_theta)
+    q = L.apply_rope((h @ p["attn"]["wq"]).reshape(B, T, H, hd), sin, cos)
+    k = L.apply_rope((h @ p["attn"]["wk"]).reshape(B, T, KV, hd), sin, cos)
+    v = (h @ p["attn"]["wv"]).reshape(B, T, KV, hd)
+    # two-phase: [old cache] + [current block], merged by LSE; the block is
+    # a single chain, so causal-by-position masking applies
+    old_kpos = torch.where(cache["positions"] >= positions[:, :1], -1,
+                           cache["positions"])
+    o1, m1, l1 = ops.decode_attention(
+        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
+        positions, scale=hd ** -0.5, return_stats=True)
+    o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
+                                      scale=hd ** -0.5, return_stats=True)
+    out = L.merge_attention(o1, m1, l1, o2, m2, l2)
+    if mode == "draft":
+        L.cache_update(cache, k[:, :1], v[:, :1], positions[:, 0])
+    else:
+        L.cache_update(cache, k, v, positions[:, 0])
+    x = x + out.reshape(B, T, H * hd) @ p["attn"]["wo"]
+    h = L.rms_norm(x, p["ln2"], dcfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h, "swiglu")
+
+
+def _run_blocks(dcfg, params, x, *, positions, cache, mode):
+    """All blocks in order; the layer caches are updated in place."""
+    for bp, bc in zip(params["blocks"], cache["blocks"]):
+        x = _block_apply(dcfg, bp, x, positions=positions, cache=bc,
+                         mode=mode)
+    return x
+
+
+def _head(dcfg, params, x):
+    h = L.rms_norm(x, params["final_norm"], dcfg.norm_eps)
+    return (h @ params["lm_head"]).float(), h
+
+
+def make_cache(dcfg: DrafterConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    return {"blocks": [L.make_kv_cache(batch, max_len, dcfg.n_kv_heads,
+                                       dcfg.head_dim, dtype=dtype,
+                                       device=device)
+                       for _ in range(dcfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# input construction
+# ---------------------------------------------------------------------------
+
+def _hidden_inputs(dcfg: DrafterConfig, params: dict, fc_taps: Tensor,
+                   depth: Tensor, anchor_fc: Tensor) -> Tensor:
+    """Per-position drafter 'hidden' input: fc(taps) at depth 0, the variant
+    formula at MTP depths (inference: the regularized variant's dropout is
+    off). fc_taps (B,M,D) is fc(taps) at each position; anchor_fc (B,M,D)
+    fc(taps) at each anchor; depth (M,) or (B, M)."""
+    v = dcfg.hidden_state_variant
+    h = params["h_shared"].to(fc_taps.dtype).expand_as(fc_taps)
+    if v in ("depth_encoding", "ntp_hidden_depth"):
+        de = params["depth_emb"][depth.clamp(0, params["depth_emb"].shape[0] - 1)]
+        h = h + de.to(h.dtype)
+    if v in ("ntp_hidden", "ntp_hidden_depth", "regularized"):
+        inj = anchor_fc @ params["ntp_proj"]
+        if v == "regularized":
+            inj = params["alpha"].to(inj.dtype) * inj
+        h = h + inj
+    is_ntp = depth == 0
+    if is_ntp.dim() == 1:
+        is_ntp = is_ntp[None, :]
+    return torch.where(is_ntp[..., None], fc_taps, h)
+
+
+# ---------------------------------------------------------------------------
+# inference: extend / parallel draft / AR draft
+# ---------------------------------------------------------------------------
+
+def extend(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict, cache: dict,
+           tokens_next: Tensor, taps: Tensor, positions: Tensor) -> dict:
+    """Commit T depth-0 positions: position p carries (taps[p], emb(t_{p+1})).
+
+    tokens_next (B, T) = tokens p+1 aligned to taps (B, T, 3D_t);
+    positions (B, T) int32."""
+    fc = taps.to(params["fc"].dtype) @ params["fc"]
+    x = torch.cat([params["embed"][tokens_next], fc], dim=-1) @ params["fuse"]
+    _run_blocks(dcfg, params, x, positions=positions, cache=cache,
+                mode="extend")
+    return cache
+
+
+def draft_block_inputs(dcfg, tcfg, params, token_next, taps_last, anchor_pos,
+                       K):
+    """The K-slot parallel draft block (slot 0 = NTP, 1..K-1 = MTP)."""
+    B = token_next.shape[0]
+    fc = (taps_last.to(params["fc"].dtype) @ params["fc"])[:, None]   # (B,1,D)
+    depth = torch.arange(K, dtype=torch.int32, device=token_next.device)
+    fc_b = fc.expand(B, K, fc.shape[-1])
+    hid = _hidden_inputs(dcfg, params, fc_b, depth, fc_b)
+    tok = torch.where((depth == 0)[None, :], token_next[:, None],
+                      mask_token_id(tcfg))
+    x = torch.cat([params["embed"][tok], hid], dim=-1) @ params["fuse"]
+    positions = anchor_pos[:, None] + depth[None, :]
+    return x, positions
+
+
+def draft_parallel(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
+                   cache: dict, token_next: Tensor, taps_last: Tensor,
+                   anchor_pos: Tensor, K: int):
+    """P-EAGLE: one forward pass drafts K tokens (argmax per slot).
+
+    Returns (draft_tokens (B,K) int32, draft_logits (B,K,V) f32, cache)."""
+    x, positions = draft_block_inputs(dcfg, tcfg, params, token_next,
+                                      taps_last, anchor_pos, K)
+    x = _run_blocks(dcfg, params, x, positions=positions, cache=cache,
+                    mode="draft")
+    logits, _ = _head(dcfg, params, x)
+    return logits.argmax(-1).to(torch.int32), logits, cache
+
+
+def draft_ar(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
+             cache: dict, token_next: Tensor, taps_last: Tensor,
+             anchor_pos: Tensor, K: int):
+    """AR EAGLE-3 baseline: K sequential single-position forwards; step i
+    feeds (token d_i, drafter hidden h_i) into step i+1 (argmax)."""
+    hid = taps_last.to(params["fc"].dtype) @ params["fc"]           # (B, D)
+    tok = token_next
+    toks, logits_all = [], []
+    for i in range(K):
+        emb = params["embed"][tok[:, None]]                          # (B,1,D)
+        x = torch.cat([emb, hid[:, None]], dim=-1) @ params["fuse"]
+        positions = (anchor_pos + i)[:, None]
+        x = _run_blocks(dcfg, params, x, positions=positions, cache=cache,
+                        mode="extend")
+        logits, h = _head(dcfg, params, x)
+        tok = logits[:, 0].argmax(-1).to(torch.int32)
+        hid = h[:, 0]
+        toks.append(tok)
+        logits_all.append(logits[:, 0])
+    return torch.stack(toks, 1), torch.stack(logits_all, 1), cache
+

@@ -1,0 +1,157 @@
+"""Dispatch to the attention kernels: the CUDA kernel for a CUDA tensor, the
+plain PyTorch version for a CPU tensor.
+
+Counterpart of the JAX package's ``kernels/ops.py``. A CUDA tensor always
+launches the hand-written kernel (``csrc/*.cu``, built at first use by
+``kernels/build.py``) or raises: it never reaches the plain version. The
+kernels mask the ragged end of a sequence themselves (key index >= S reads
+nothing; flash masks key index >= kv_len), so no operand is copied to pad
+it to a block size.
+
+``launches`` counts kernel launches per kernel, so a run can show that the
+serving path went through the kernels; ``reset_launches`` zeroes it. The
+plain versions stay callable as ``*_plain`` for the card tests and the
+chip smoke test, which hold each kernel against its plain version.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models import layers as L
+
+launches: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0}
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_HEAD_DIMS = (32, 64, 128)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention on {t.device} is not supported")
+    return t.device.type
+
+
+def _check_operands(q, k, v):
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"head_dim must be one of {_HEAD_DIMS}, got "
+                         f"{q.shape[-1]}/{k.shape[-1]}")
+    if q.shape[2] % k.shape[2] or k.shape != v.shape or q.shape[0] != k.shape[0]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _raise_on(lib, err: int, name: str):
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.repro_attn_error_string(err).decode()} "
+                           f"(cudaError {err})")
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+def decode_attention_plain(q, k, v, k_positions, q_positions, *, scale,
+                           window=0, return_stats=False):
+    """Plain version of the decode kernel: q (B,T,H,hd) against k/v
+    (B,S,KV,hd) holding absolute positions k_positions (B,S) (-1 = empty),
+    queries at q_positions (B,T). Returns out (B,T,H,hd), and with
+    return_stats the f32 (m, l), each (B, KV, G, T)."""
+    mask = L.cache_mask_fn(q_positions, k_positions, window=window)
+    out, m, l = L.blocked_attention(q, k, v, scale=scale, mask_fn=mask,
+                                    return_stats=True)
+    return (out, m, l) if return_stats else out
+
+
+def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
+                     return_stats=False):
+    """Decode attention (see ``decode_attention_plain``): the CUDA kernel of
+    ``csrc/decode_attention.cu`` for CUDA tensors."""
+    if _device_kind(q) == "cpu":
+        return decode_attention_plain(q, k, v, k_positions, q_positions,
+                                      scale=scale, window=window,
+                                      return_stats=return_stats)
+    _check_operands(q, k, v)
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    for name, t, shape in (("k_positions", k_positions, (B, S)),
+                           ("q_positions", q_positions, (B, T))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 {shape} on "
+                             f"{q.device}")
+    out = torch.empty_like(q)
+    m = torch.empty((B, KV, H // KV, T), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    lib = build.library("decode_attention")
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_positions.data_ptr(),
+        q_positions.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, T, H, KV, S, hd, float(scale), int(window),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    launches["decode_attention"] += 1
+    _raise_on(lib, err, "decode_attention")
+    return (out, m, l) if return_stats else out
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def flash_attention_plain(q, k, v, *, scale, causal=True, window=0,
+                          softcap=0.0, kv_len=0):
+    """Plain version of the flash kernel: q (B,Sq,H,hd) against k/v
+    (B,Skv,KV,hd) by index, causal and/or sliding-window, optional tanh
+    softcap, keys at index >= kv_len masked (0 = all keys real)."""
+    kv_len = kv_len or k.shape[1]
+
+    def mask(q_idx, k_idx):
+        ok = (k_idx < kv_len)[None, :]
+        if causal:
+            ok = ok & (q_idx[:, None] >= k_idx[None, :])
+        if window > 0:
+            ok = ok & ((q_idx[:, None] - k_idx[None, :]) < window)
+        return ok
+
+    return L.blocked_attention(q, k, v, scale=scale, mask_fn=mask,
+                               logit_cap=softcap)
+
+
+def flash_attention(q, k, v, *, scale, causal=True, window=0, softcap=0.0,
+                    kv_len=0):
+    """Flash attention (see ``flash_attention_plain``): the CUDA kernel of
+    ``csrc/flash_attention.cu`` for CUDA tensors."""
+    if _device_kind(q) == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                     window=window, softcap=softcap,
+                                     kv_len=kv_len)
+    _check_operands(q, k, v)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = build.library("flash_attention")
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Skv, H, KV, hd, float(scale), int(causal), int(window),
+        float(softcap), int(kv_len or Skv), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    launches["flash_attention"] += 1
+    _raise_on(lib, err, "flash_attention")
+    return out

@@ -1,0 +1,50 @@
+"""Plain-PyTorch twins of the JAX package's attention oracles
+(``kernels/ref.py``): dense-mask softmax attention, the ground truth the
+kernels and their plain versions are held against."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _attend(q, k, v, ok, scale, softcap=0.0):
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd); ok broadcastable to
+    (B, KV, G, Sq, Skv)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qr = q.reshape(B, Sq, KV, G, hd).float()
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qr, k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqj,bjkd->bkgqd", p, v.float())
+    out = torch.where(ok.any(-1)[..., None], out, 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention_reference(q, k, v, *, scale, causal=True, window=0,
+                        softcap=0.0):
+    """Index-causal (or sliding-window, or full) attention."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qp >= kp
+    if window > 0:
+        ok &= (qp - kp) < window
+    return _attend(q, k, v, ok, scale, softcap)
+
+
+def decode_reference(q, k, v, k_positions, q_positions, *, scale, window=0):
+    """q (B,T,H,hd) against cache k/v (B,S,KV,hd) with per-slot absolute
+    positions (B,S) (-1 = empty) and query positions (B,T)."""
+    kp = k_positions[:, None, :]
+    qp = q_positions[:, :, None]
+    ok = (kp <= qp) & (kp >= 0)
+    if window > 0:
+        ok &= (qp - kp) < window
+    return _attend(q, k, v, ok[:, None, None], scale)

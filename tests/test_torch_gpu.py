@@ -1,0 +1,115 @@
+"""Card-only tests of the port: each CUDA kernel against its plain version
+on the card, and the engine's greedy losslessness through the kernels.
+
+Marked ``gpu``; each test decides inside the ``card`` fixture whether a
+card exists and skips without one. The card's machine has no JAX, which
+``tests/conftest.py`` imports, so run them there without the conftest:
+
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
+
+Inputs: q ~ 2 N(0, 1), k, v ~ N(0, 1), so scores have a std of 2 and
+attention is peaked, as in a trained model. Tolerances, elementwise
+|kernel - plain| <= atol + rtol |plain|: in bfloat16 atol 1e-4, rtol 2^-6
+(both compute in float32 and round the output once, so they differ by at
+most one rounding step of the output; two are allowed); in float32 atol
+1e-4 (sums in another order)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _qkv(g, q_shape, kv_shape, dtype, device):
+    return tuple((scale * torch.randn(s, generator=g, device=device)).to(dtype)
+                 for scale, s in ((2.0, q_shape), (1.0, kv_shape),
+                                  (1.0, kv_shape)))
+
+
+def _tol(dtype):
+    """(atol, rtol) of the kernel against its plain version."""
+    return (1e-4, 2 ** -6) if dtype == torch.bfloat16 else (1e-4, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KV,hd,S,valid,window", [
+    (8, 6, 12, 2, 128, 1024, 600, 0),      # target verify, phase 1
+    (8, 5, 12, 12, 128, 1024, 600, 0),     # drafter draft, phase 1
+    (8, 511, 12, 12, 128, 511, 511, 0),    # drafter prefill extend, phase 2
+    (8, 511, 12, 12, 128, 1024, 0, 0),     # ... phase 1: empty cache
+    (2, 6, 4, 2, 64, 256, 192, 64),        # window
+    (1, 8, 2, 1, 128, 96, 72, 0),          # ragged key tail
+    (1, 1, 4, 4, 32, 512, 384, 0),
+])
+def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
+                                     window):
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = _qkv(g, (B, T, H, hd), (B, S, KV, hd), dtype, card)
+    kpos = torch.arange(S, dtype=torch.int32, device=card)[None].repeat(B, 1)
+    kpos = torch.where(kpos < valid, kpos, -1).to(torch.int32).contiguous()
+    qpos = (max(valid, T) - T + torch.arange(T, dtype=torch.int32,
+                                             device=card))[None].repeat(B, 1)
+    before = ops.launches["decode_attention"]
+    out, m, l = ops.decode_attention(q, k, v, kpos, qpos, scale=hd ** -0.5,
+                                     window=window, return_stats=True)
+    torch.cuda.synchronize()
+    assert ops.launches["decode_attention"] == before + 1
+    po, pm, pl = ops.decode_attention_plain(q, k, v, kpos, qpos,
+                                            scale=hd ** -0.5, window=window,
+                                            return_stats=True)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,cap", [
+    (8, 512, 512, 12, 2, 128, True, 0, 0.0),   # target prefill
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 256, 256, 4, 4, 32, True, 64, 0.0),
+    (1, 64, 192, 2, 1, 128, False, 0, 0.0),
+    (2, 96, 96, 6, 2, 64, True, 0, 50.0),
+])
+def test_flash_kernel_matches_plain(card, dtype, B, Sq, Skv, H, KV, hd,
+                                    causal, window, cap):
+    g = torch.Generator(device=card).manual_seed(1)
+    q, k, v = _qkv(g, (B, Sq, H, hd), (B, Skv, KV, hd), dtype, card)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(),
+                               ops.flash_attention_plain(q, k, v, **kw).float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_cuda_tensor_never_takes_the_plain_path(card):
+    q = torch.zeros((1, 2, 2, 48), device=card)       # hd 48: no kernel
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, q[:, :, :1].contiguous(),
+                            q[:, :, :1].contiguous(), scale=1.0)
+
+
+def test_engine_lossless_through_kernels(card):
+    from repro_torch.launch.serve import build_engine, random_prompts
+    toks = {}
+    for mode in ("parallel", "ar", "none"):
+        eng = build_engine(reduced=True, mode=mode, K=3, max_new=12,
+                           max_len=64, batch=2, seed=0, device=card)
+        prompts = random_prompts(eng.tcfg.vocab_size, 2, 16, seed=0)
+        ops.reset_launches()
+        toks[mode] = eng.run(prompts)["tokens"]
+        assert ops.launches["flash_attention"] == eng.tcfg.n_layers
+        assert ops.launches["decode_attention"] > 0
+    np.testing.assert_array_equal(toks["parallel"], toks["none"])
+    np.testing.assert_array_equal(toks["ar"], toks["none"])

@@ -1,0 +1,71 @@
+"""Structural rules of the port: it imports neither JAX nor the JAX
+package, and its entry points run on the card unless the caller asks for
+the CPU (a missing card raises, nothing falls back)."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import DrafterConfig, get_config
+from repro_torch.launch import serve
+from repro_torch.serving.engine import Engine, EngineConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_has_cuda_sources_for_both_kernels():
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    for name in ("decode_attention", "flash_attention"):
+        text = (csrc / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch' in text
+        assert "repro/kernels/" in text      # names the TPU kernel it replaces
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_without_device_raises_without_card(no_card):
+    tcfg = get_config("qwen2-1.5b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(tcfg, DrafterConfig().resolve(tcfg), {}, {}, EngineConfig(), 1)
+
+
+def test_serve_without_device_raises_without_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--batch", "1", "--prompt-len", "4",
+                    "--max-new", "2", "--max-len", "16"])
+
+
+def test_serve_rehearses_on_cpu_when_asked():
+    r = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                    "--prompt-len", "6", "--max-new", "4", "--max-len", "24",
+                    "--runs", "1"])
+    assert r["device"] == "cpu" and r["new_tokens"] == 8
+    assert r["acceptance_length"] >= 1.0
+
+
+def test_random_prompts_avoid_mask_token():
+    p = serve.random_prompts(16, 4, 64, seed=0)
+    assert p.dtype == np.int32 and p.max() < 15
