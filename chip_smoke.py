@@ -2,14 +2,17 @@
 """Smoke test of the PyTorch/CUDA port on one card: builds the attention
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version, serves the full-width qwen2-1.5b with the 4-layer
-parallel drafter through the kernels, and checks greedy losslessness.
+parallel drafter through the kernels, checks greedy losslessness, and
+trains the full-width drafter (whole-sequence and Algorithm-1 segmented)
+through the MTP kernel.
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
 Phases, in order; any failure exits non-zero:
 
-1. card and build: the card's name and power limit (nvidia-smi), then both
-   kernels built with nvcc (build seconds, -Xptxas -v report);
+1. card and build: the card's name and power limit (nvidia-smi), then the
+   three kernels built with nvcc, all at once (build seconds, -Xptxas -v
+   report);
 2. kernels: each kernel against its plain version on the card at the
    serving path's shapes and at the JAX kernel sweep's shapes, on inputs
    whose scores spread as a trained model's do (tolerance: two bfloat16
@@ -18,7 +21,15 @@ Phases, in order; any failure exits non-zero:
    and one PyTorch call for the same function (scaled_dot_product_attention,
    a yardstick the port never calls) timed with CUDA events, beside the
    least time the card could take (bytes over 3.35 TB/s or FLOPs over the
-   bfloat16 tensor peak, whichever is larger);
+   dtype's peak, whichever is larger). The MTP kernel is held against its
+   plain version, output and stats (m, l), at the training shape (n 2048,
+   K 8, r 0.8: M 8522, the drafter's 12/12 heads), at the largest
+   Algorithm-1 segment of n 4096 in 4 segments, at the JAX kernel sweep's
+   shapes (per-row layouts, GQA, pad rows) and on a padding-rows case; its
+   SDPA yardstick takes the dense predicate mask, built outside the timed
+   call. Then the gradients of the flash training attention (kernel forward,
+   recompute-by-block backward) against autograd through the plain version
+   at M 1998, float32;
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
    512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache, run
    twice; the warm run is reported (OTPS, prefill seconds, decode seconds
@@ -32,7 +43,17 @@ Phases, in order; any failure exits non-zero:
    (decode); then parallel, ar and none on the same prompts, and parallel
    again with oracle drafts (the none run's own tokens, a seeded fifth of
    them spoiled) so that drafts are accepted (AL must exceed 2). A token
-   that differs from none must sit at a near-tie of the none run.
+   that differs from none must sit at a near-tie of the none run;
+5. training at full width: qwen2-1.5b bfloat16 target (seeded weights), the
+   4-layer full-width drafter in float32, markov_corpus, batch 1, through
+   Trainer.train_batch: (a) 3 whole-sequence steps at n 2048 (M 8522) and
+   (b) 3 segmented steps at n 4096 in 4 Algorithm-1 segments, each with
+   s/step, label tokens/s, peak memory, a CUDA-event split of each step
+   into target taps / drafter forward / backward / optimizer, and launch
+   counts (mtp_attention = drafter layers x forward passes, flash = 28 per
+   target forward); then segmented grads against whole-sequence grads at
+   n 1024, the loss over 4 steps on one repeated batch, a checkpoint round
+   trip, and the training launcher (python -m repro_torch.launch.train).
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -44,6 +65,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,6 +103,18 @@ NEAR_TIE = 1e-3
 # with the plain attention: the two differ only in the order of float32
 # sums inside attention, carried through 28 layers.
 REF_TOL = 1e-3
+# MTP stats (m, l) against the plain version's: |got - want| / (1 + |want|).
+STATS_TOL = 1e-4
+# Gradients of the flash training attention (kernel forward, plain
+# backward) against autograd through the plain version, float32: each
+# element within this share of its tensor's largest |gradient|. Both sides
+# run f32 with TF32 off; they differ in the order of the sums only.
+GRAD_TOL = 1e-4
+# Segmented (Algorithm 1) against whole-sequence drafter gradients at full
+# width, float32: each leaf within this share of its largest |gradient|.
+# The segments change the shapes of every product (and the kernel's tiles),
+# so the f32 sums run in another order; nothing else differs.
+SEG_GRAD_TOL = 1e-3
 
 
 def log(*a):
@@ -197,7 +231,8 @@ def sdpa_flash(q, k, v):
 
 def check_kernels(ops, dev):
     """Every kernel against its plain version; returns the per-kernel
-    measurements of the main-path shapes."""
+    measurements of the main-path shapes (the MTP kernel's keyed by
+    (label, dtype))."""
     worst = {"decode_attention": 0.0, "flash_attention": 0.0}
     rows = {}
 
@@ -319,7 +354,185 @@ def check_kernels(ops, dev):
             f"{plain_ms * 1e3:9.1f} us  sdpa {lib_ms * 1e3:8.1f} us  bound "
             f"{bound_ms * 1e3:6.2f} us ({bound_by}; {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP)")
+    log("phase 2: the MTP kernel against its plain version")
+    measured["mtp_attention"] = check_mtp(ops, dev, compare)
+    log("phase 2: flash training attention gradients (float32, TF32 off)")
+    check_mtp_backward(dev)
     return worst, measured
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the MTP kernel
+# ---------------------------------------------------------------------------
+
+def mtp_layout(n, K, r, seed, pad_to=64):
+    """A COD layout (pos, depth) of length expanded_length(n, K, r), padded
+    with -1 to a multiple of ``pad_to`` (1: no padding)."""
+    from repro_torch.core import cod
+    pos, dep = cod.sample_cod(np.random.default_rng(seed), n, K, r)
+    M = int(np.ceil(len(pos) / pad_to) * pad_to)
+    return cod.pad_to(pos, dep, M)
+
+
+def mtp_segment_layout(n, K, r, S, seed):
+    """The largest Algorithm-1 segment of one n-token sequence: its kv set
+    (the segment's queries and the depth-0 context below its boundary),
+    padded to a multiple of 64 as the pipeline pads it."""
+    from repro_torch.core import cod, partition
+    pos, dep = cod.sample_cod(np.random.default_rng(seed), n, K, r)
+    seg = max(partition.build_segments(pos, dep, n, S),
+              key=lambda sg: len(sg.kv_pos))
+    M = int(np.ceil(len(seg.kv_pos) / 64) * 64)
+    return cod.pad_to(seg.kv_pos, seg.kv_depth, M)
+
+
+def mtp_case(dev, dtype, B, H, KV, hd, layouts, seed):
+    """q, k, v and per-row (B, M) pos/depth on the card, one layout a row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    M = len(layouts[0][0])
+    q, k, v = qkv(g, dev, dtype, (B, M, H, hd), (B, M, KV, hd))
+    pos = torch.as_tensor(np.stack([p for p, _ in layouts]), device=dev)
+    dep = torch.as_tensor(np.stack([d for _, d in layouts]), device=dev)
+    return q, k, v, pos.contiguous(), dep.contiguous()
+
+
+def mtp_visible(pos, dep, chunk=1024):
+    """(query, key) pairs the predicate allows, per row: (B,) int64,
+    counted in row chunks on the card (never an M x M mask at once)."""
+    from repro_torch.core.masks import mtp_mask_predicate
+    M = pos.shape[1]
+    n = torch.zeros(pos.shape[0], dtype=torch.int64, device=pos.device)
+    for i in range(0, M, chunk):
+        n += mtp_mask_predicate(dep[:, i:i + chunk], pos[:, i:i + chunk],
+                                dep, pos).sum((1, 2))
+    return n
+
+
+def mtp_work(q, k, pos, dep):
+    """Bytes and FLOPs of an MTP call for this data: q and out once, K/V of
+    the live keys (depth >= 0; each sees itself) once, pos/depth once, the
+    (m, l) stats once, and 4·hd FLOPs per visible (query head, key) pair."""
+    B, M, H, hd = q.shape
+    KV, es = k.shape[2], q.element_size()
+    live = int((dep >= 0).sum())
+    nbytes = (2 * B * M * H * hd * es + 2 * live * KV * hd * es
+              + 2 * 4 * B * M + 2 * 4 * B * H * M)
+    return nbytes, 4 * hd * H * int(mtp_visible(pos, dep).sum())
+
+
+def sdpa_mtp(q, k, v, pos, dep):
+    """One PyTorch call for the MTP function: SDPA with the dense predicate
+    mask (B, 1, M, M), built here, outside the timed call."""
+    from repro_torch.core.masks import mtp_mask_predicate
+    mask = mtp_mask_predicate(dep, pos, dep, pos)[:, None]
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask)
+    return lambda: F.scaled_dot_product_attention(
+        args[0], args[1], args[2], attn_mask=args[3], enable_gqa=True)
+
+
+def check_mtp(ops, dev, compare):
+    """The MTP kernel against its plain version at every listed shape, in
+    bfloat16 and float32, with its stats; returns the worst error per dtype
+    at the training shape and the timed rows."""
+    cases = [("training shape n 2048 K 8 r 0.8", 1, 12, 12, 128,
+              [mtp_layout(2048, 8, 0.8, seed=0, pad_to=1)]),
+             ("segment n 4096 K 8 r 0.8 S 4 (largest)", 1, 12, 12, 128,
+              [mtp_segment_layout(4096, 8, 0.8, 4, seed=0)])]
+    for n, K, r in [(48, 4, 0.7), (32, 8, 0.8), (24, 2, 0.5)]:
+        for B, H, KV, hd in [(2, 4, 2, 64), (1, 2, 2, 32)]:
+            cases.append((f"sweep n{n} K{K} r{r} {(B, H, KV, hd)}", B, H, KV,
+                          hd, [mtp_layout(n, K, r, seed=b) for b in range(B)]))
+    worst, timed = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        for label, B, H, KV, hd, layouts in cases:
+            inp = mtp_case(dev, dtype, B, H, KV, hd, layouts, seed=2)
+            o, m, l = ops.mtp_attention(*inp, scale=hd ** -0.5,
+                                        return_stats=True)
+            torch.cuda.synchronize()
+            po, pm, pl = ops.mtp_attention_plain(*inp, scale=hd ** -0.5,
+                                                 return_stats=True)
+            err = compare("mtp_attention", o, po, dtype, label)
+            for stat, got, want in (("m", m, pm), ("l", l, pl)):
+                rel = ((got - want).abs() / (1 + want.abs())).max().item()
+                if not rel <= STATS_TOL:
+                    fail(f"mtp_attention {label} {dtype}: {stat} relative "
+                         f"err {rel}")
+            if label.startswith(("training", "segment")):
+                worst[(label, dtype)] = err
+                timed[(label, dtype)] = inp
+        # pad rows (depth -1) attend nothing and are written as zeros
+        layout = mtp_layout(16, 3, 0.6, seed=0)
+        inp = mtp_case(dev, dtype, 1, 2, 2, 32, [layout], seed=3)
+        o, m, l = ops.mtp_attention(*inp, scale=1.0, return_stats=True)
+        torch.cuda.synchronize()
+        pad = torch.as_tensor(layout[1] < 0, device=dev)
+        compare("mtp_attention", o, ops.mtp_attention_plain(*inp, scale=1.0),
+                dtype, "padding rows n 16 K 3 r 0.6 in 64")
+        if (o[:, pad].abs().max().item() != 0.0 or (l[..., pad] != 0).any()
+                or (m[..., pad] != -1e30).any()):
+            fail(f"mtp_attention {dtype}: pad rows are not zero (l 0, m "
+                 f"-1e30)")
+    log("  mtp_attention pad rows: out exactly 0, l 0, m -1e30 (bf16, f32)")
+
+    log("phase 2: MTP timing (CUDA events; main path dtype float32)")
+    measured = {}
+    for (label, dtype), inp in timed.items():
+        q, k, v, pos, dep = inp
+        hd = q.shape[-1]
+        nbytes, flops = mtp_work(q, k, pos, dep)
+        sets = [inp] + [tuple(x.clone() for x in inp)
+                        for _ in range(n_sets(nbytes) - 1)]
+        ms = time_ms(lambda *a: ops.mtp_attention(
+            *a, scale=hd ** -0.5, return_stats=True), sets, 5, host_us=2000)
+        plain_ms = time_ms(lambda *a: ops.mtp_attention_plain(
+            *a, scale=hd ** -0.5, return_stats=True), sets[:1], 3,
+            host_us=200000)
+        lib = sdpa_mtp(*inp)
+        lib_ms = time_ms(lambda: lib(), [()], 5, host_us=2000)
+        del lib
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        measured[(label, dtype)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes, flops=flops,
+            max_abs_err=worst[(label, dtype)], M=q.shape[1])
+        log(f"  mtp_attention {label:38s} {dtype:8s} {ms:8.3f} ms  plain "
+            f"{plain_ms:8.3f} ms  sdpa {lib_ms:8.3f} ms  bound {bound_ms:7.4f}"
+            f" ms ({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP, M {q.shape[1]})")
+        torch.cuda.empty_cache()
+    return measured
+
+
+def check_mtp_backward(dev):
+    """Gradients of the flash training attention (the kernel's forward and
+    its saved m, l; the plain recompute-by-block backward) against autograd
+    through the plain version, float32 at M 1998 (n 480, K 8, r 0.8), the
+    drafter's 12/12 heads, hd 128."""
+    from repro_torch.core.flash_train import mtp_flash_attention
+    from repro_torch.kernels import ops
+    layout = mtp_layout(480, 8, 0.8, seed=4, pad_to=1)
+    q, k, v, pos, dep = mtp_case(dev, "float32", 1, 12, 12, 128, [layout],
+                                 seed=5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    cot = torch.randn(q.shape, generator=g, device=dev)
+    before = ops.launches["mtp_attention"]
+    grads = {}
+    for name, fn in (("kernel", mtp_flash_attention),
+                     ("plain", ops.mtp_attention_plain)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, pos, dep, scale=128 ** -0.5)
+        grads[name] = torch.autograd.grad(out, leaves, cot)
+    torch.cuda.synchronize()
+    if ops.launches["mtp_attention"] != before + 1:
+        fail("the flash training attention did not launch the MTP kernel")
+    for t, got, want in zip("qkv", grads["kernel"], grads["plain"]):
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        log(f"  d{t}: max abs err {err:.3e} (max |grad| {scale:.3e}, "
+            f"{err / (GRAD_TOL * scale):.2f} of the limit)")
+        if not err <= GRAD_TOL * scale:
+            fail(f"flash training attention d{t} differs from autograd "
+                 f"through the plain version by {err} > {GRAD_TOL} x {scale}")
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +583,8 @@ def main_path(ops, dev):
     log(f"  launches: {counts}")
     n_d = eng.dcfg.n_layers
     want = {"flash_attention": cfg.n_layers,
-            "decode_attention": 2 * n_d + steps * (2 * cfg.n_layers + 4 * n_d)}
+            "decode_attention": 2 * n_d + steps * (2 * cfg.n_layers + 4 * n_d),
+            "mtp_attention": 0}
     if counts != want:
         fail(f"launch counts {counts} != expected {want}")
     state = r["state"]
@@ -512,6 +726,185 @@ def losslessness(ops, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training at full width
+# ---------------------------------------------------------------------------
+
+class StageTimer:
+    """CUDA events around a Trainer's four stage methods (taps, loss, grads,
+    apply), set on the instance so train_batch runs through them; removed
+    on exit, so the trainer holds no reference to itself afterwards."""
+    STAGES = ("taps", "loss", "grads", "apply")
+
+    def __init__(self, tr):
+        self.tr = tr
+        self.events = []
+
+    def __enter__(self):
+        for name in self.STAGES:
+            setattr(self.tr, name, self._wrap(name, getattr(self.tr, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.STAGES:
+            delattr(self.tr, name)
+
+    def _wrap(self, name, fn):
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.events.append((name, start, end))
+            return out
+        return timed
+
+    def split_ms(self):
+        """Device-clock ms per stage, summed over the recorded calls."""
+        torch.cuda.synchronize()
+        out = dict.fromkeys(self.STAGES, 0.0)
+        for name, a, b in self.events:
+            out[name] += a.elapsed_time(b)
+        self.events.clear()
+        return out
+
+
+def train_steps(ops, dev, tr, batches, label):
+    """Run train_batch over ``batches`` with launch counts from 0 and a
+    stage split per step; returns the path's numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    steps = []
+    with StageTimer(tr) as timer:
+        for batch in batches:
+            segs = batch if isinstance(batch, list) else [batch]
+            t0 = time.perf_counter()
+            m = tr.train_batch(batch)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            split = timer.split_ms()
+            steps.append(dict(s=sec, loss=m["loss"], grad_norm=m["grad_norm"],
+                              labels=sum(int((sg.labels >= 0).sum())
+                                         for sg in segs),
+                              segments=len(segs), split_ms=split))
+            log(f"  {label} step {len(steps)}: {sec:.3f} s, loss "
+                f"{m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, stages "
+                "(ms) " + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    counts = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_forward = sum(st["segments"] for st in steps)
+    want = {"mtp_attention": tr.dcfg.n_layers * n_forward
+            * (2 if tr.dcfg.remat else 1),
+            "flash_attention": tr.tcfg.n_layers * len(steps),
+            "decode_attention": 0}
+    log(f"  {label} launches: {counts}")
+    if counts != want:
+        fail(f"{label}: launch counts {counts} != expected {want}")
+    for st in steps:
+        if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
+            fail(f"{label}: loss {st['loss']} / grad_norm {st['grad_norm']}")
+    warm = steps[1:]                     # step 1 warms up cuBLAS and caches
+    sec = sum(st["s"] for st in warm) / len(warm)
+    result = dict(
+        s_per_step=sec, s_first_step=steps[0]["s"],
+        label_tokens_per_s=sum(st["labels"] for st in warm)
+        / sum(st["s"] for st in warm),
+        labels_per_step=warm[-1]["labels"], peak_memory_gb=peak_gb,
+        stage_ms={k: sum(st["split_ms"][k] for st in warm) / len(warm)
+                  for k in StageTimer.STAGES},
+        losses=[st["loss"] for st in steps], launches=counts)
+    log(f"  {label}: {sec:.3f} s/step, {result['label_tokens_per_s']:.1f} "
+        f"label tokens/s, peak memory {peak_gb:.2f} GB")
+    return result
+
+
+def training_path(ops, dev):
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.data import MTPPipeline, markov_corpus
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.tree import leaves_with_paths
+
+    tcfg = get_config("qwen2-1.5b")
+    dcfg = DrafterConfig().resolve(tcfg)
+    log(f"phase 5: training, full-width qwen2-1.5b {tcfg.dtype} target, "
+        f"{dcfg.n_layers}-layer drafter float32 (d {dcfg.d_model}, heads "
+        f"{dcfg.n_heads}/{dcfg.n_kv_heads}, K {dcfg.k_train}, r "
+        f"{dcfg.cod_rate}), markov_corpus, batch 1")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tparams = get_model(tcfg).init(gen, device=dev)
+    V = tcfg.vocab_size
+
+    def pipe(n, segments=1, seed=0, n_seqs=3):
+        return MTPPipeline(markov_corpus(seed, n_seqs, n, V), k_train=8,
+                           cod_rate=0.8, batch=1, seed=seed,
+                           segments=segments)
+
+    def trainer(**kw):
+        return Trainer(tcfg, dcfg, tparams, TrainConfig(**kw), seed=0,
+                       device=dev)
+
+    paths = {}
+    for label, n, S in (("(a) whole n 2048", 2048, 1),
+                        ("(b) segmented n 4096 S 4", 4096, 4)):
+        tr = trainer()
+        paths[label] = train_steps(ops, dev, tr, list(pipe(n, S)), label)
+        paths[label].update(n=n, segments=S)
+        del tr
+        torch.cuda.empty_cache()
+
+    log("  segmented vs whole-sequence grads at n 1024, float32")
+    tr = trainer()
+    whole = next(iter(pipe(1024, 1, seed=1, n_seqs=1)))
+    segs = next(iter(pipe(1024, 4, seed=1, n_seqs=1)))
+    gw, _ = tr.batch_grads(whole)
+    gs, _ = tr.batch_grads(segs)
+    worst = 0.0
+    for (path, a), (_, b) in zip(leaves_with_paths(gs),
+                                 leaves_with_paths(gw)):
+        scale = b.abs().max().item()
+        share = (a - b).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, share)
+        if not share <= SEG_GRAD_TOL:
+            fail(f"segmented grads differ from whole at {path}: "
+                 f"{share:.3e} of max |grad| {scale:.3e}")
+    log(f"  worst leaf: {worst:.3e} of its max |grad| (limit {SEG_GRAD_TOL})")
+    del gw, gs
+
+    batch = next(iter(pipe(1024, 1, seed=2, n_seqs=1)))
+    losses = [tr.train_batch(batch)["loss"] for _ in range(4)]
+    log(f"  loss on one repeated batch, 4 steps: "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on a repeated batch: {losses}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pytree(tr.dparams, tmp, "drafter", step=4)
+        back = load_pytree(tr.dparams, tmp, "drafter")
+        for (path, a), (_, b) in zip(leaves_with_paths(tr.dparams),
+                                     leaves_with_paths(back)):
+            if not torch.equal(a, b):
+                fail(f"checkpoint round trip changed {path}")
+    log("  checkpoint round trip: every leaf equal")
+    # the launcher builds its own target: free this one first, so its peak
+    # memory is its own
+    del tr, back, tparams
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rep = train_launch.main(["--data", "markov", "--seq-len", "512",
+                                 "--batch", "1", "--n-seqs", "2",
+                                 "--epochs", "1", "--ckpt", tmp])
+    if not (rep["steps"] == 2 and math.isfinite(rep["loss"])):
+        fail(f"the training launcher reported {rep}")
+    return dict(paths=paths, seg_grad_worst=worst, repeated_losses=losses,
+                launcher=rep)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -541,11 +934,23 @@ def main() -> int:
                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
         log(f"  -Xptxas -v {name}:\n    " + "\n    ".join(keep))
 
+    kernels = run_phases(ops, dev)
+    log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(ops, dev) -> list:
+    """Phases 2-5 on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, measured = check_kernels(ops, dev)
     path = main_path(ops, dev)
     losslessness(ops, dev)
+    train = training_path(ops, dev)
 
     sources = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
                "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -562,13 +967,25 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "shape": main_shape[name]})
+    # the MTP kernel: timed at the training shape in float32, the dtype the
+    # training path gives it; launches over both training paths of phase 5
+    mtp_shape = ("training shape n 2048 K 8 r 0.8", "float32")
+    m = measured["mtp_attention"][mtp_shape]
+    kernels.append({
+        "name": "mtp_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mtp_attention.cu",
+        "replaces": "src/repro/kernels/mtp_attention.py:77",
+        "launches": sum(p["launches"]["mtp_attention"]
+                        for p in train["paths"].values()),
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "shape": f"{mtp_shape[0]}, {mtp_shape[1]} (M {m['M']})"})
     log(f"serving: {json.dumps({k: v for k, v in path.items()})}")
-    log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    log(f"training: {json.dumps(train)}")
+    log("mtp_attention timing: " + json.dumps(
+        {f"{k[0]} {k[1]}": v for k, v in measured["mtp_attention"].items()}))
+    return kernels
 
 
 if __name__ == "__main__":

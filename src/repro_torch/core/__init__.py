@@ -1,1 +1,2 @@
-"""Drafter inference and speculative verification."""
+"""Drafter training and inference, speculative verification, COD sampling,
+MTP masks, Algorithm-1 partitioning, training attention and losses."""

@@ -1,4 +1,5 @@
-"""P-EAGLE drafter and the AR EAGLE-3 baseline, inference only (PyTorch).
+"""P-EAGLE drafter and the AR EAGLE-3 baseline: training forward and
+inference (PyTorch).
 
 Counterpart of the JAX package's ``core/drafter.py``. The drafter is a
 LLaMA-style transformer conditioned on target hidden states: taps from
@@ -11,15 +12,28 @@ token[p+2]. An MTP slot at depth g > 0 lacks both and takes the
 hidden-state variant's input and the mask-token embedding instead.
 
 Parameters are plain dicts; ``blocks`` is a list of per-layer dicts and the
-cache is ``{"blocks": [layer cache, ...]}``. Both attention phases of every
-block go through the decode kernel (``kernels.ops.decode_attention``).
-Caches are updated in place.
+cache is ``{"blocks": [layer cache, ...]}``. At inference both attention
+phases of every block go through the decode kernel
+(``kernels.ops.decode_attention``) and caches are updated in place.
+
+Training (``mtp_forward``) runs over COD-expanded positions under the MTP
+predicate. On a CUDA tensor every training attention goes through
+``core.flash_train.MTPFlashAttention``, whose forward is the MTP kernel;
+the AR baseline's causal attention is the predicate with depth 0
+everywhere. On the CPU the JAX package's switch applies: the flash
+function when ``dcfg.flash_train`` and M >= 512, else autograd through the
+plain blocked attention under the predicate mask. ``dcfg.remat``
+recomputes each block in the backward (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DrafterConfig, ModelConfig
+from repro_torch.core.flash_train import mtp_flash_attention
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -78,10 +92,21 @@ def init_params(dcfg: DrafterConfig, tcfg: ModelConfig,
 # blocks
 # ---------------------------------------------------------------------------
 
+def _train_attention(q, k, v, meta, scale):
+    """Training attention under the MTP predicate; meta = (pos, depth,
+    flash) with pos/depth (B, M) int32."""
+    pos, depth, flash = meta
+    if q.is_cuda or flash:
+        return mtp_flash_attention(q, k, v, pos, depth, scale=scale)
+    return ops.mtp_attention_plain(q, k, v, pos, depth, scale=scale)
+
+
 def _block_apply(dcfg: DrafterConfig, p: dict, x: Tensor, *,
-                 positions: Tensor, cache: dict, mode: str) -> Tensor:
-    """mode: "draft" commits only slot 0 (the NTP position) to the cache,
-    "extend" commits every slot (depth-0 tokens)."""
+                 positions: Tensor, cache: Optional[dict], mode: str,
+                 meta=None) -> Tensor:
+    """mode: "train" attends the whole block under the MTP predicate of
+    ``meta`` (no cache); "draft" commits only slot 0 (the NTP position) to
+    the cache, "extend" commits every slot (depth-0 tokens)."""
     B, T, _ = x.shape
     H, KV, hd = dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
     h = L.rms_norm(x, p["ln1"], dcfg.norm_eps)
@@ -89,27 +114,42 @@ def _block_apply(dcfg: DrafterConfig, p: dict, x: Tensor, *,
     q = L.apply_rope((h @ p["attn"]["wq"]).reshape(B, T, H, hd), sin, cos)
     k = L.apply_rope((h @ p["attn"]["wk"]).reshape(B, T, KV, hd), sin, cos)
     v = (h @ p["attn"]["wv"]).reshape(B, T, KV, hd)
-    # two-phase: [old cache] + [current block], merged by LSE; the block is
-    # a single chain, so causal-by-position masking applies
-    old_kpos = torch.where(cache["positions"] >= positions[:, :1], -1,
-                           cache["positions"])
-    o1, m1, l1 = ops.decode_attention(
-        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
-        positions, scale=hd ** -0.5, return_stats=True)
-    o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
-                                      scale=hd ** -0.5, return_stats=True)
-    out = L.merge_attention(o1, m1, l1, o2, m2, l2)
-    if mode == "draft":
-        L.cache_update(cache, k[:, :1], v[:, :1], positions[:, 0])
+    if mode == "train":
+        out = _train_attention(q, k, v, meta, hd ** -0.5)
     else:
-        L.cache_update(cache, k, v, positions[:, 0])
+        # two-phase: [old cache] + [current block], merged by LSE; the
+        # block is a single chain, so causal-by-position masking applies
+        old_kpos = torch.where(cache["positions"] >= positions[:, :1], -1,
+                               cache["positions"])
+        o1, m1, l1 = ops.decode_attention(
+            q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
+            positions, scale=hd ** -0.5, return_stats=True)
+        o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
+                                          scale=hd ** -0.5, return_stats=True)
+        out = L.merge_attention(o1, m1, l1, o2, m2, l2)
+        if mode == "draft":
+            L.cache_update(cache, k[:, :1], v[:, :1], positions[:, 0])
+        else:
+            L.cache_update(cache, k, v, positions[:, 0])
     x = x + out.reshape(B, T, H * hd) @ p["attn"]["wo"]
     h = L.rms_norm(x, p["ln2"], dcfg.norm_eps)
     return x + L.mlp_apply(p["mlp"], h, "swiglu")
 
 
-def _run_blocks(dcfg, params, x, *, positions, cache, mode):
-    """All blocks in order; the layer caches are updated in place."""
+def _run_blocks(dcfg, params, x, *, positions, cache, mode, meta=None):
+    """All blocks in order. Inference updates the layer caches in place;
+    "train" takes no cache and, with ``dcfg.remat``, recomputes each block
+    in the backward."""
+    if mode == "train":
+        for bp in params["blocks"]:
+            if dcfg.remat:
+                x = checkpoint(_block_apply, dcfg, bp, x, positions=positions,
+                               cache=None, mode=mode, meta=meta,
+                               use_reentrant=False)
+            else:
+                x = _block_apply(dcfg, bp, x, positions=positions, cache=None,
+                                 mode=mode, meta=meta)
+        return x
     for bp, bc in zip(params["blocks"], cache["blocks"]):
         x = _block_apply(dcfg, bp, x, positions=positions, cache=bc,
                          mode=mode)
@@ -134,11 +174,13 @@ def make_cache(dcfg: DrafterConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 
 def _hidden_inputs(dcfg: DrafterConfig, params: dict, fc_taps: Tensor,
-                   depth: Tensor, anchor_fc: Tensor) -> Tensor:
+                   depth: Tensor, anchor_fc: Tensor, *,
+                   generator: Optional[torch.Generator] = None) -> Tensor:
     """Per-position drafter 'hidden' input: fc(taps) at depth 0, the variant
-    formula at MTP depths (inference: the regularized variant's dropout is
-    off). fc_taps (B,M,D) is fc(taps) at each position; anchor_fc (B,M,D)
-    fc(taps) at each anchor; depth (M,) or (B, M)."""
+    formula at MTP depths. fc_taps (B,M,D) is fc(taps) at each position;
+    anchor_fc (B,M,D) fc(taps) at each anchor; depth (M,) or (B, M). The
+    regularized variant drops 10% of its injection (inverted dropout) with
+    draws from ``generator``, and not at all without one."""
     v = dcfg.hidden_state_variant
     h = params["h_shared"].to(fc_taps.dtype).expand_as(fc_taps)
     if v in ("depth_encoding", "ntp_hidden_depth"):
@@ -147,12 +189,61 @@ def _hidden_inputs(dcfg: DrafterConfig, params: dict, fc_taps: Tensor,
     if v in ("ntp_hidden", "ntp_hidden_depth", "regularized"):
         inj = anchor_fc @ params["ntp_proj"]
         if v == "regularized":
+            if generator is not None:
+                keep = torch.rand(inj.shape, generator=generator,
+                                  device=inj.device) < 0.9
+                inj = inj * keep / 0.9
             inj = params["alpha"].to(inj.dtype) * inj
         h = h + inj
     is_ntp = depth == 0
     if is_ntp.dim() == 1:
         is_ntp = is_ntp[None, :]
     return torch.where(is_ntp[..., None], fc_taps, h)
+
+
+def embed_tokens(dcfg: DrafterConfig, params: dict, tok: Tensor) -> Tensor:
+    emb = params["embed"]
+    if dcfg.freeze_embeddings:
+        emb = emb.detach()
+    return emb[tok]
+
+
+# ---------------------------------------------------------------------------
+# training forward (MTP, full or segment)
+# ---------------------------------------------------------------------------
+
+def mtp_forward(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
+                tokens: Tensor, taps: Tensor, pos: Tensor, depth: Tensor, *,
+                generator: Optional[torch.Generator] = None):
+    """Training forward over COD-expanded positions.
+
+    tokens (B, n) original sequence; taps (B, n, num_taps·D_t) target taps;
+    pos/depth (M,) shared or (B, M) per-row int32 expanded metadata
+    (padding: -1). ``generator`` draws the regularized variant's dropout.
+    Returns (logits (B,M,V) f32, hidden (B,M,D))."""
+    B, n = tokens.shape
+    if pos.dim() == 1:
+        pos = pos[None].expand(B, pos.shape[0])
+        depth = depth[None].expand(B, depth.shape[0])
+    pos = pos.to(torch.int32).contiguous()
+    depth = depth.to(torch.int32).contiguous()
+    rows = torch.arange(B, device=tokens.device)[:, None]
+    safe_pos = pos.clamp(0, n - 1).long()
+    anchor = (pos - depth.clamp_min(0)).clamp(0, n - 1).long()
+
+    fc_all = taps.to(params["fc"].dtype) @ params["fc"]         # (B, n, D)
+    hid = _hidden_inputs(dcfg, params, fc_all[rows, safe_pos], depth,
+                         fc_all[rows, anchor], generator=generator)
+    tok_in = tokens[rows, (safe_pos + 1).clamp(0, n - 1)]
+    tok_in = torch.where(depth == 0, tok_in, mask_token_id(tcfg))
+    emb = embed_tokens(dcfg, params, tok_in)
+    x = torch.cat([emb, hid], dim=-1) @ params["fuse"]
+    # the flash path when M is large enough that the plain attention's
+    # per-block residuals would dominate memory (always on the card)
+    flash = dcfg.flash_train and pos.shape[-1] >= 512
+    x = _run_blocks(dcfg, params, x, positions=pos.clamp_min(0), cache=None,
+                    mode="train", meta=(pos, depth, flash))
+    return _head(dcfg, params, x)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "mtp_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 4 + [_INT] * 6 + [_FLT, _INT, _INT, _FLT,
                                                    _INT, _INT, _PTR]),
+    "mtp_attention": ("mtp_attention_launch",
+                      [_PTR] * 8 + [_INT] * 5 + [_FLT, _INT, _PTR]),
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,8 @@ launches the hand-written kernel (``csrc/*.cu``, built at first use by
 ``kernels/build.py``) or raises: it never reaches the plain version. The
 kernels mask the ragged end of a sequence themselves (key index >= S reads
 nothing; flash masks key index >= kv_len), so no operand is copied to pad
-it to a block size.
+it to a block size. ``mtp_attention`` takes its (pos, depth) metadata per
+row, (B, M); shared (M,) metadata is broadcast.
 
 ``launches`` counts kernel launches per kernel, so a run can show that the
 serving path went through the kernels; ``reset_launches`` zeroes it. The
@@ -19,10 +20,12 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.masks import mtp_mask_predicate
 from repro_torch.kernels import build
 from repro_torch.models import layers as L
 
-launches: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0}
+launches: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
+                            "mtp_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
@@ -155,3 +158,66 @@ def flash_attention(q, k, v, *, scale, causal=True, window=0, softcap=0.0,
     launches["flash_attention"] += 1
     _raise_on(lib, err, "flash_attention")
     return out
+
+
+# ---------------------------------------------------------------------------
+# MTP attention (drafter training)
+# ---------------------------------------------------------------------------
+
+def _mtp_mask_fn(pos: torch.Tensor, depth: torch.Tensor) -> L.MaskFn:
+    """The closed-form MTP predicate as a ``blocked_attention`` mask over
+    per-row metadata pos/depth (B, M)."""
+    def fn(q_idx, k_idx):
+        ok = mtp_mask_predicate(depth[:, q_idx], pos[:, q_idx],
+                                depth[:, k_idx], pos[:, k_idx])
+        return ok[:, None, None]                          # (B,1,1,Sq,Bk)
+    return fn
+
+
+def row_metadata(meta: torch.Tensor, B: int) -> torch.Tensor:
+    """(M,) or (B, M) metadata -> contiguous int32 (B, M)."""
+    if meta.dim() == 1:
+        meta = meta[None].expand(B, meta.shape[0])
+    return meta.to(torch.int32).contiguous()
+
+
+def mtp_attention_plain(q, k, v, pos, depth, *, scale, return_stats=False):
+    """Plain version of the MTP kernel: q (B,M,H,hd), k/v (B,M,KV,hd) under
+    the closed-form predicate of pos/depth, (M,) or (B,M) int32 (-1 pad).
+    Pad rows are zeros. With return_stats also returns the f32 (m, l),
+    each (B, KV, G, M)."""
+    B = q.shape[0]
+    pos, depth = row_metadata(pos, B), row_metadata(depth, B)
+    out, m, l = L.blocked_attention(q, k, v, scale=scale,
+                                    mask_fn=_mtp_mask_fn(pos, depth),
+                                    return_stats=True)
+    return (out, m, l) if return_stats else out
+
+
+def mtp_attention(q, k, v, pos, depth, *, scale, return_stats=False):
+    """MTP attention (see ``mtp_attention_plain``): the CUDA kernel of
+    ``csrc/mtp_attention.cu`` for CUDA tensors."""
+    if _device_kind(q) == "cpu":
+        return mtp_attention_plain(q, k, v, pos, depth, scale=scale,
+                                   return_stats=return_stats)
+    _check_operands(q, k, v)
+    B, M, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape[1] != M:
+        raise ValueError(f"q has {M} positions, k/v {k.shape[1]}")
+    pos, depth = row_metadata(pos, B), row_metadata(depth, B)
+    for name, t in (("pos", pos), ("depth", depth)):
+        if tuple(t.shape) != (B, M) or t.device != q.device:
+            raise ValueError(f"{name} must be (M,) or ({B}, {M}) on {q.device}")
+    out = torch.empty_like(q)
+    m = torch.empty((B, KV, H // KV, M), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    lib = build.library("mtp_attention")
+    err = lib.mtp_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        depth.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, M, H, KV, hd, float(scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    launches["mtp_attention"] += 1
+    _raise_on(lib, err, "mtp_attention")
+    return (out, m, l) if return_stats else out

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.masks import mtp_mask_predicate
+
 NEG_INF = -1e30
 
 
@@ -48,3 +50,11 @@ def decode_reference(q, k, v, k_positions, q_positions, *, scale, window=0):
     if window > 0:
         ok &= (qp - kp) < window
     return _attend(q, k, v, ok[:, None, None], scale)
+
+
+def mtp_reference(q, k, v, pos, depth, *, scale):
+    """MTP attention with the closed-form predicate materialized densely.
+    q/k/v (B,M,H|KV,hd); pos/depth (M,) or (B,M) int32 (-1 = padding)."""
+    ok = mtp_mask_predicate(depth, pos, depth, pos)       # (M,M) or (B,M,M)
+    ok = ok[None, None, None] if ok.dim() == 2 else ok[:, None, None]
+    return _attend(q, k, v, ok, scale)

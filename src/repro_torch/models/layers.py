@@ -119,13 +119,6 @@ def cache_mask_fn(q_positions: Tensor, k_positions: Tensor,
     return fn
 
 
-def _pick_block(skv: int, want: int = 512) -> int:
-    b = min(want, skv)
-    while skv % b:
-        b -= 1
-    return max(b, 1)
-
-
 def blocked_attention(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
                       mask_fn: Optional[MaskFn] = None,
                       logit_cap: float = 0.0, block_k: int = 512,
@@ -135,6 +128,9 @@ def blocked_attention(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
     q (B, Sq, H, hd); k/v (B, Skv, KV, hd) with H % KV == 0 (GQA). mask_fn
     maps (q_idx, k_idx) index vectors to a bool tensor broadcastable to
     (B, KV, G, Sq, Bk). Scores, p and accumulators are float32.
+
+    Keys are walked in blocks of ``block_k``; the last block holds the
+    ragged remainder (Skv need not be a multiple of the block).
 
     With return_stats=True also returns the online-softmax (m, l), shaped
     (B, KV, G, Sq), for ``merge_attention``."""
@@ -147,10 +143,9 @@ def blocked_attention(q: Tensor, k: Tensor, v: Tensor, *, scale: float,
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=dev)
     q_idx = torch.arange(Sq, device=dev)
-    bk = _pick_block(Skv, block_k) if Skv else 1
-    for j0 in range(0, Skv, bk):
-        kj = k[:, j0:j0 + bk].float()
-        vj = v[:, j0:j0 + bk].float()
+    for j0 in range(0, Skv, block_k):
+        kj = k[:, j0:j0 + block_k].float()
+        vj = v[:, j0:j0 + block_k].float()
         s = torch.einsum("bqkgd,bjkd->bkgqj", qr, kj) * scale
         if logit_cap > 0.0:
             s = logit_cap * torch.tanh(s / logit_cap)

@@ -1,5 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-on the card, and the engine's greedy losslessness through the kernels.
+on the card, the engine's greedy losslessness through the kernels, the
+flash training attention's gradients, and reduced training steps through
+the MTP kernel.
 
 Marked ``gpu``; each test decides inside the ``card`` fixture whether a
 card exists and skips without one. The card's machine has no JAX, which
@@ -113,3 +115,86 @@ def test_engine_lossless_through_kernels(card):
         assert ops.launches["decode_attention"] > 0
     np.testing.assert_array_equal(toks["parallel"], toks["none"])
     np.testing.assert_array_equal(toks["ar"], toks["none"])
+
+
+def _mtp_inputs(card, dtype, B, H, KV, hd, n, K, r, mult=64):
+    """q, k, v and per-row (B, M) COD metadata, padded with -1 rows."""
+    from repro_torch.core import cod
+    layouts = []
+    for b in range(B):
+        pos, dep = cod.sample_cod(np.random.default_rng(b), n, K, r)
+        M = int(np.ceil(len(pos) / mult) * mult)
+        layouts.append(cod.pad_to(pos, dep, M))
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v = _qkv(g, (B, M, H, hd), (B, M, KV, hd), dtype, card)
+    pos = torch.as_tensor(np.stack([p for p, _ in layouts]), device=card)
+    dep = torch.as_tensor(np.stack([d for _, d in layouts]), device=card)
+    return q, k, v, pos.contiguous(), dep.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,K,r,B,H,KV,hd", [
+    (48, 4, 0.7, 2, 4, 2, 64), (32, 8, 0.8, 1, 2, 2, 32),
+    (24, 2, 0.5, 2, 4, 2, 64),          # the JAX kernel sweep's shapes
+    (16, 3, 0.6, 1, 2, 2, 32),          # mostly pad rows
+    (512, 8, 0.8, 1, 12, 12, 128),      # the drafter's heads, M 2180
+])
+def test_mtp_kernel_matches_plain(card, dtype, n, K, r, B, H, KV, hd):
+    q, k, v, pos, dep = _mtp_inputs(card, dtype, B, H, KV, hd, n, K, r)
+    before = ops.launches["mtp_attention"]
+    out, m, l = ops.mtp_attention(q, k, v, pos, dep, scale=hd ** -0.5,
+                                  return_stats=True)
+    torch.cuda.synchronize()
+    assert ops.launches["mtp_attention"] == before + 1
+    po, pm, pl = ops.mtp_attention_plain(q, k, v, pos, dep, scale=hd ** -0.5,
+                                         return_stats=True)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+    pad = dep < 0
+    if pad.any():
+        assert out[pad].abs().max().item() == 0.0
+
+
+def test_mtp_flash_grads_match_plain_autograd(card, monkeypatch):
+    from repro_torch.core.flash_train import mtp_flash_attention
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, pos, dep = _mtp_inputs(card, torch.float32, 2, 4, 2, 64, 200, 4,
+                                    0.8)
+    cot = torch.randn(q.shape, generator=torch.Generator(
+        device=card).manual_seed(3), device=card)
+    grads = []
+    for fn in (mtp_flash_attention, ops.mtp_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, pos, dep, scale=64 ** -0.5)
+        grads.append(torch.autograd.grad(out, leaves, cot))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max(),
+                                   rtol=0)
+
+
+def test_trainer_steps_through_kernels(card):
+    """A whole and a segmented reduced training step on the card: every
+    drafter layer's attention launches the MTP kernel once per forward, the
+    target's taps 2 flash launches."""
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.data import MTPPipeline, markov_corpus
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import TrainConfig, Trainer
+    tcfg = get_config("qwen2-1.5b").reduced()
+    dcfg = DrafterConfig(n_layers=2).resolve(tcfg)
+    tparams = get_model(tcfg).init(
+        torch.Generator(device=card).manual_seed(0), device=card)
+    corpus = markov_corpus(0, 2, 64, tcfg.vocab_size)
+    for segments in (1, 2):
+        tr = Trainer(tcfg, dcfg, tparams, TrainConfig(), device=card)
+        batch = next(iter(MTPPipeline(corpus, k_train=8, cod_rate=0.8,
+                                      batch=2, segments=segments)))
+        ops.reset_launches()
+        m = tr.train_batch(batch)
+        torch.cuda.synchronize()
+        assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+        assert ops.launches == {"decode_attention": 0,
+                                "flash_attention": tcfg.n_layers,
+                                "mtp_attention": dcfg.n_layers * segments}

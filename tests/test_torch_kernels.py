@@ -160,7 +160,10 @@ def test_cpu_tensors_never_launch_kernels():
     q = torch.from_numpy(_rand(rng, (1, 4, 2, 32)))
     ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous(),
                         scale=1.0)
-    assert ops.launches == {"decode_attention": 0, "flash_attention": 0}
+    meta = torch.zeros(4, dtype=torch.int32)
+    ops.mtp_attention(q, q, q, meta, meta, scale=1.0)
+    assert ops.launches == {"decode_attention": 0, "flash_attention": 0,
+                            "mtp_attention": 0}
 
 
 @pytest.mark.parametrize("T,H,KV,valid", [

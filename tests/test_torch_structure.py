@@ -35,10 +35,13 @@ def test_port_imports_no_jax(path):
 
 def test_port_has_cuda_sources_for_both_kernels():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    for name in ("decode_attention", "flash_attention"):
+    for name, tpu in (("decode_attention", "decode_attention.py"),
+                      ("flash_attention", "flash_attention.py"),
+                      ("mtp_attention", "mtp_attention.py")):
         text = (csrc / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch' in text
-        assert "repro/kernels/" in text      # names the TPU kernel it replaces
+        # names the TPU kernel it replaces
+        assert f"repro/kernels/{tpu}" in text
 
 
 @pytest.fixture
