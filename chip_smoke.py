@@ -2,16 +2,17 @@
 """Smoke test of the PyTorch/CUDA port on one card: builds the attention
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version, serves the full-width qwen2-1.5b with the 4-layer
-parallel drafter through the kernels, checks greedy losslessness, and
-trains the full-width drafter (whole-sequence and Algorithm-1 segmented)
-through the MTP kernel.
+parallel drafter through the kernels (whole batch, and continuous batching
+over the paged KV layout), checks greedy losslessness, and trains the
+full-width drafter (whole-sequence and Algorithm-1 segmented) through the
+MTP kernel.
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
 Phases, in order; any failure exits non-zero:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   three kernels built with nvcc, all at once (build seconds, -Xptxas -v
+   four kernels built with nvcc, all at once (build seconds, -Xptxas -v
    report);
 2. kernels: each kernel against its plain version on the card at the
    serving path's shapes and at the JAX kernel sweep's shapes, on inputs
@@ -27,9 +28,14 @@ Phases, in order; any failure exits non-zero:
    Algorithm-1 segment of n 4096 in 4 segments, at the JAX kernel sweep's
    shapes (per-row layouts, GQA, pad rows) and on a padding-rows case; its
    SDPA yardstick takes the dense predicate mask, built outside the timed
-   call. Then the gradients of the flash training attention (kernel forward,
-   recompute-by-block backward) against autograd through the plain version
-   at M 1998, float32;
+   call. The paged decode kernel is held against its plain version (which
+   gathers each row's pages) at the serving path's phase-1 shapes (batch 8,
+   page 16, 64 table entries a row, pages drawn at random from the pool, so
+   tables are fragmented) and at the JAX kernel sweep's shapes; no single
+   PyTorch call computes it, so its yardstick is a gather of the pages and
+   SDPA on the view, two calls. Then the gradients of the flash training
+   attention (kernel forward, recompute-by-block backward) against autograd
+   through the plain version at M 1998, float32;
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
    512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache, run
    twice; the warm run is reported (OTPS, prefill seconds, decode seconds
@@ -37,12 +43,23 @@ Phases, in order; any failure exits non-zero:
    counts, which must be 28 flash launches per prefill and 8 + 72 decode
    launches per step (drafter prefill extend; target verify 28x2, draft
    4x2, extend 4x2). The drafter is untrained, so AL ~ 1 is expected;
+3b. continuous batching: Scheduler.serve of the same model over the paged
+   layout (batch 8, max_len 1024, page 16, a 256-page pool: half of what 8
+   full rows need, so requests are preempted), incremental growth,
+   bucketed admission prefill; 24 requests, prompts of 256-640 tokens and
+   budgets of 64-192 drawn from seed 0, Exp(1) arrival gaps on the
+   virtual clock, no EOS; run twice, the warm run reported (OTPS, virtual
+   clock OTPS and p50/p99 latency, wall seconds, peak pages, preemptions)
+   and checked: every request finishes once with its budget, preemptions
+   occur, the pool ends empty, and every decode step launched the paged
+   kernel 36 times (28 target verify, 4 draft, 4 extend, phase 1);
 4. losslessness, at full width in float32: the target's logits through the
    kernels against the same forward with the plain attention, for a
    prefill into the cache (flash) and a verify block read against it
    (decode); then parallel, ar and none on the same prompts, and parallel
    again with oracle drafts (the none run's own tokens, a seeded fifth of
-   them spoiled) so that drafts are accepted (AL must exceed 2). A token
+   them spoiled) so that drafts are accepted (AL must exceed 2), and a
+   paged Scheduler.serve of the same prompts under pool pressure. A token
    that differs from none must sit at a near-tie of the none run;
 5. training at full width: qwen2-1.5b bfloat16 target (seeded weights), the
    4-layer full-width drafter in float32, markov_corpus, batch 1, through
@@ -229,11 +246,90 @@ def sdpa_flash(q, k, v):
                                                   enable_gqa=True)
 
 
+def paged_case(dev, dtype, B, T, H, KV, hd, page, nb, c, seed=0):
+    """Inputs shaped like one phase-1 call of the paged serving path: a pool
+    of B * nb pages and the sink, each row's table naming pages drawn at
+    random from it (enough for positions up to c + T), the row holding
+    positions 0..c-1, queries at c..c+T-1. Pages no table names hold stale
+    positions the kernel must not see."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    NP = B * nb + 1
+    q, k, v = qkv(g, dev, dtype, (B, T, H, hd), (NP, page, KV, hd))
+    pos = rng.integers(0, nb * page, (NP, page)).astype(np.int32)
+    table = np.full((B, nb), -1, np.int32)
+    n = -(-(c + T) // page)
+    perm = rng.permutation(NP - 1)
+    for b in range(B):
+        table[b, :n] = perm[b * n:(b + 1) * n]
+        logical = np.arange(n * page).reshape(n, page)
+        pos[table[b, :n]] = np.where(logical < c, logical, -1)
+    qpos = np.broadcast_to(c + np.arange(T), (B, T)).astype(np.int32)
+    return (q, k, v) + tuple(torch.as_tensor(a, device=dev).contiguous()
+                             for a in (pos, table, qpos))
+
+
+def paged_sweep_case(dev, dtype, B, T, H, KV, hd, NP, page, nb, seed):
+    """The JAX paged kernel sweep's layout: rows of random lengths owning
+    distinct random pages, later table entries -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    q, k, v = qkv(g, dev, dtype, (B, T, H, hd), (NP, page, KV, hd))
+    pos = np.full((NP, page), -1, np.int32)
+    table = np.full((B, nb), -1, np.int32)
+    qpos = np.zeros((B, T), np.int32)
+    perm, used = rng.permutation(NP), 0
+    for b in range(B):
+        n = int(rng.integers(1, nb + 1))
+        table[b, :n] = perm[used:used + n]
+        used += n
+        length = int(rng.integers(1, n * page + 1))
+        logical = np.arange(n * page).reshape(n, page)
+        pos[table[b, :n]] = np.where(logical < length, logical, -1)
+        qpos[b] = length - 1 + np.arange(T)
+    return (q, k, v) + tuple(torch.as_tensor(a, device=dev).contiguous()
+                             for a in (pos, table, qpos))
+
+
+def paged_work(q, k, pos, table, qpos):
+    """Bytes and FLOPs a paged call needs for this data: q, out and the
+    (m, l) stats once, the table and query positions once, the positions of
+    the pages the tables name once, K/V of the keys some query of the row
+    can see, and 4·hd FLOPs per visible (query head, key) pair."""
+    from repro_torch.models.layers import paged_view
+    B, T, H, hd = q.shape
+    KV, es = k.shape[2], q.element_size()
+    kpos = paged_view(pos, table, empty=-1)
+    vis = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
+    live_keys = int(vis.any(1).sum())
+    named = int((table >= 0).sum()) * pos.shape[1]
+    nbytes = (2 * B * T * H * hd * es + 2 * B * T * H * 4
+              + 4 * (table.numel() + qpos.numel() + named)
+              + 2 * live_keys * KV * hd * es)
+    return nbytes, 4 * hd * H * int(vis.sum())
+
+
+def gather_sdpa(q, k, v, pos, table, qpos):
+    """The paged function in two PyTorch calls: gather each row's pages
+    into a view, then SDPA with a boolean mask on it."""
+    from repro_torch.models.layers import paged_view
+
+    def run():
+        kpos = paged_view(pos, table, empty=-1)
+        mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), paged_view(k, table).transpose(1, 2),
+            paged_view(v, table).transpose(1, 2), attn_mask=mask[:, None],
+            enable_gqa=True)
+    return run
+
+
 def check_kernels(ops, dev):
     """Every kernel against its plain version; returns the per-kernel
     measurements of the main-path shapes (the MTP kernel's keyed by
     (label, dtype))."""
-    worst = {"decode_attention": 0.0, "flash_attention": 0.0}
+    worst = {"decode_attention": 0.0, "paged_decode_attention": 0.0,
+             "flash_attention": 0.0}
     rows = {}
 
     def compare(name, got, want, dtype, label):
@@ -243,7 +339,7 @@ def check_kernels(ops, dev):
         # the worst element's share of its own limit: <= 1 passes
         used = (diff / (atol + rtol * want.float().abs())).max().item()
         ok = used <= 1.0
-        log(f"  {name:17s} {dtype:8s} {label:46s} max_abs_err {err:.3e} "
+        log(f"  {name:22s} {dtype:8s} {label:46s} max_abs_err {err:.3e} "
             f"(max |plain| {want.float().abs().max().item():.3f}, "
             f"{used:.2f} of the limit) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -296,6 +392,37 @@ def check_kernels(ops, dev):
                                                window=window),
                     dtype, f"sweep {(B, T, H, KV, hd, S)} window {window}")
 
+        # paged phase 1 at the serving shapes: the drafter's draft block
+        # sits one position back (anchor c - 1), its cache below it
+        paged_main = [("target verify phase 1", (8, 6, 12, 2, c)),
+                      ("drafter draft phase 1", (8, 5, 12, 12, c - 1)),
+                      ("drafter extend phase 1", (8, 6, 12, 12, c))]
+        cases = [(label, paged_case(dev, dtype, B, T, H, KV, 128, 16, 64,
+                                    cc, seed=i))
+                 for i, (label, (B, T, H, KV, cc)) in enumerate(paged_main)]
+        for i, shp in enumerate([(2, 6, 4, 2, 64, 12, 16, 4),
+                                 (1, 1, 4, 4, 32, 8, 32, 3),
+                                 (3, 4, 2, 1, 128, 16, 8, 6)]):
+            cases.append((f"sweep {shp}",
+                          paged_sweep_case(dev, dtype, *shp, seed=10 + i)))
+        for label, inp in cases:
+            hd = inp[0].shape[-1]
+            o, m, l = ops.paged_decode_attention(*inp, scale=hd ** -0.5,
+                                                 return_stats=True)
+            torch.cuda.synchronize()
+            po, pm, pl = ops.paged_decode_attention_plain(
+                *inp, scale=hd ** -0.5, return_stats=True)
+            err = compare("paged_decode_attention", o, po, dtype, label)
+            for stat, got, want in (("m", m, pm), ("l", l, pl)):
+                rel = ((got - want).abs() / (1 + want.abs())).max().item()
+                if not rel <= KERNEL_TOL["float32"][0]:
+                    fail(f"paged_decode_attention {label} {dtype}: {stat} "
+                         f"relative err {rel}")
+            if dtype == "bfloat16" and not label.startswith("sweep"):
+                worst["paged_decode_attention"] = max(
+                    worst["paged_decode_attention"], err)
+                rows[("paged_decode_attention", label)] = inp
+
         g = torch.Generator(device=dev).manual_seed(1)
         flash =[("target prefill", (8, 512, 512, 12, 2, 128), True, 0, 0.0)]
         for shp in [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 32),
@@ -333,6 +460,26 @@ def check_kernels(ops, dev):
                 host_us=5000)
             lib = sdpa_decode(*inp)
             lib_ms = time_ms(lambda: lib(), [()], 100)
+        elif name == "paged_decode_attention":
+            q, k, v, pos, table, qpos = inp
+            nbytes, flops = paged_work(q, k, pos, table, qpos)
+            hd = q.shape[-1]
+            sets = [inp] + [tuple(x.clone() for x in inp)
+                            for _ in range(n_sets(nbytes) - 1)]
+            ms = time_ms(lambda *a: ops.paged_decode_attention(
+                *a, scale=hd ** -0.5, return_stats=True), sets, 200)
+            plain_ms = time_ms(lambda *a: ops.paged_decode_attention_plain(
+                *a, scale=hd ** -0.5, return_stats=True), sets[:2], 10,
+                host_us=5000)
+            # no single PyTorch call computes it: library_ms stays null and
+            # the two-call yardstick is reported beside it
+            if label == "target verify phase 1":
+                log("  paged_decode_attention: no single PyTorch call computes"
+                    " it (library_ms null); yardstick: gather + SDPA, two "
+                    "calls")
+            two = gather_sdpa(*inp)
+            lib_ms = None
+            gather_sdpa_ms = time_ms(lambda: two(), [()], 50, host_us=1000)
         else:
             q, k, v = inp
             nbytes, flops = flash_work(q, k)
@@ -350,8 +497,12 @@ def check_kernels(ops, dev):
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, bytes=nbytes,
                                        flops=flops)
-        log(f"  {name:17s} {label:32s} {ms * 1e3:9.1f} us  plain "
-            f"{plain_ms * 1e3:9.1f} us  sdpa {lib_ms * 1e3:8.1f} us  bound "
+        lib_txt = (f"sdpa {lib_ms * 1e3:8.1f} us" if lib_ms is not None else
+                   f"gather + sdpa (two calls) {gather_sdpa_ms * 1e3:8.1f} us")
+        if lib_ms is None:
+            measured[(name, label)]["gather_sdpa_ms"] = gather_sdpa_ms
+        log(f"  {name:22s} {label:32s} {ms * 1e3:9.1f} us  plain "
+            f"{plain_ms * 1e3:9.1f} us  {lib_txt}  bound "
             f"{bound_ms * 1e3:6.2f} us ({bound_by}; {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP)")
     log("phase 2: the MTP kernel against its plain version")
@@ -543,13 +694,16 @@ def check_mtp_backward(dev):
 def plain_attention(ops):
     """Route the model's attention through the plain versions (on the card)
     to make a reference run; the kernels' counters do not move."""
-    saved = ops.decode_attention, ops.flash_attention
+    saved = (ops.decode_attention, ops.paged_decode_attention,
+             ops.flash_attention)
     ops.decode_attention = ops.decode_attention_plain
+    ops.paged_decode_attention = ops.paged_decode_attention_plain
     ops.flash_attention = ops.flash_attention_plain
     try:
         yield
     finally:
-        ops.decode_attention, ops.flash_attention = saved
+        (ops.decode_attention, ops.paged_decode_attention,
+         ops.flash_attention) = saved
 
 
 def main_path(ops, dev):
@@ -584,7 +738,7 @@ def main_path(ops, dev):
     n_d = eng.dcfg.n_layers
     want = {"flash_attention": cfg.n_layers,
             "decode_attention": 2 * n_d + steps * (2 * cfg.n_layers + 4 * n_d),
-            "mtp_attention": 0}
+            "paged_decode_attention": 0, "mtp_attention": 0}
     if counts != want:
         fail(f"launch counts {counts} != expected {want}")
     state = r["state"]
@@ -610,6 +764,85 @@ def main_path(ops, dev):
     return result
 
 
+def scheduler_path(ops, dev):
+    """Phase 3b: continuous batching over the paged layout at full width."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, MAX_LEN, PAGE, POOL, N, K = 8, 1024, 16, 256, 24, 5
+    log(f"phase 3b: Scheduler.serve, full-width qwen2-1.5b bfloat16, "
+        f"parallel K {K}, batch {B}, max_len {MAX_LEN}, paged: page {PAGE}, "
+        f"pool {POOL} pages, incremental growth; {N} requests, prompts "
+        f"256-640, budgets 64-192, Exp(1) arrival gaps, sync_every 1")
+    eng = build_engine(mode="parallel", K=K, max_new=192, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev, kv_layout="paged",
+                       page_size=PAGE, pool_pages=POOL)
+    cfg, V = eng.tcfg, eng.tcfg.vocab_size
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 641, N)
+    budgets = rng.integers(64, 193, N)
+    arrivals = np.cumsum(rng.exponential(1.0, N))
+    prompts = [rng.integers(0, V - 1, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(p, max_new_tokens=int(b), arrival_time=float(t))
+                for p, b, t in zip(prompts, budgets, arrivals)]
+
+    sched = Scheduler(eng, sync_every=1)
+    sched.serve(requests())                            # cold run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng.allocator.reset_stats()
+    ops.reset_launches()
+    rep = sched.serve(requests())
+    counts = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    it, pre = rep["iterations"], rep["preemptions"]
+    admissions = N + pre
+    log(f"  warm run: otps {rep['otps']:.1f} tok/s, wall {rep['wall_s']:.3f} s"
+        f" ({rep['wall_s'] / it * 1e3:.2f} ms/iteration over {it}), otps_vt "
+        f"{rep['otps_vt']:.4f}, p50/p99 latency_vt {rep['p50_latency_vt']:.2f}"
+        f"/{rep['p99_latency_vt']:.2f}, p50/p99 wait_vt "
+        f"{rep['p50_wait_vt']:.2f}/{rep['p99_wait_vt']:.2f}, makespan_vt "
+        f"{rep['makespan_vt']:.2f}, AL {rep['weighted_acceptance_length']:.4f}"
+        f", preemptions {pre}, peak pages {rep['peak_pages']}/{POOL}, new "
+        f"tokens {rep['total_new_tokens']}, peak memory {peak_gb:.2f} GB")
+    log(f"  launches: {counts}")
+    n_d = eng.dcfg.n_layers
+    want = {"paged_decode_attention": it * (cfg.n_layers + 2 * n_d),
+            "decode_attention": it * (cfg.n_layers + 2 * n_d)
+            + admissions * 2 * n_d,
+            "flash_attention": admissions * cfg.n_layers, "mtp_attention": 0}
+    if counts != want:
+        fail(f"scheduler launch counts {counts} != expected {want} "
+             f"({it} iterations, {admissions} admissions)")
+    res = rep["results"]
+    if len(res) != N or len({r["rid"] for r in res}) != N:
+        fail(f"{len(res)} results for {N} requests")
+    for r, b in zip(res, budgets):
+        toks = r["tokens"]
+        if r["n_new"] != b or len(toks) != b:
+            fail(f"request {r['rid']} emitted {r['n_new']} tokens, budget {b}")
+        if toks.min() < 0 or toks.max() >= V:
+            fail(f"request {r['rid']} emitted tokens out of range")
+        if not (np.isfinite(r["logprobs"]).all() and r["logprobs"].max() <= 0):
+            fail(f"request {r['rid']} logprobs are not log-probabilities")
+    if not pre > 0:
+        fail("no request was preempted: the pool was meant to run out")
+    if eng.allocator.n_used != 0:
+        fail(f"{eng.allocator.n_used} pages still allocated after serve")
+    result = {k: rep[k] for k in (
+        "otps", "otps_vt", "wall_s", "iterations", "total_new_tokens",
+        "weighted_acceptance_length", "makespan_vt", "p50_latency_vt",
+        "p99_latency_vt", "p50_wait_vt", "p99_wait_vt", "preemptions",
+        "peak_pages")}
+    result.update(ms_per_iteration=rep["wall_s"] / it * 1e3,
+                  admissions=admissions, peak_memory_gb=peak_gb,
+                  launches=counts)
+    del eng, sched, rep
+    torch.cuda.empty_cache()
+    return result
+
+
 @contextlib.contextmanager
 def oracle_drafts(table):
     """Replace the parallel drafter's K drafts at anchor c-1 with
@@ -618,8 +851,8 @@ def oracle_drafts(table):
     from repro_torch.core import drafter as D
     saved = D.draft_parallel
 
-    def draft(*args):
-        _, logits, cache = saved(*args)
+    def draft(*args, **kw):
+        _, logits, cache = saved(*args, **kw)
         anchor, k = args[6], args[7]
         idx = (anchor[:, None] + 2 + torch.arange(k, device=anchor.device)
                ).clamp(max=table.shape[1] - 1)
@@ -697,11 +930,27 @@ def losslessness(ops, dev):
         if mode == "parallel" and not r["acceptance_length"] > ORACLE_MIN_AL:
             fail(f"oracle drafts reached AL {r['acceptance_length']}, not "
                  f"above {ORACLE_MIN_AL}: the accept path did not run")
+    # paged Scheduler.serve under pool pressure: 30 pages of 16 hold three
+    # of the four requests' prompts, and their growth preempts
+    from repro_torch.serving.scheduler import Request, Scheduler
+    eng = build_engine(mode="parallel", dtype="float32", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev,
+                       kv_layout="paged", page_size=16, pool_pages=30)
+    rep = Scheduler(eng).serve([Request(p, max_new_tokens=NEW)
+                                for p in prompts])
+    toks["paged"] = np.concatenate(
+        [prompts, np.stack([r["tokens"] for r in rep["results"]])], 1)
+    log(f"  paged    iterations {rep['iterations']:3d} preemptions "
+        f"{rep['preemptions']} peak pages {rep['peak_pages']}/30")
+    if not (rep["preemptions"] > 0 and eng.allocator.n_used == 0):
+        fail(f"paged serve: {rep['preemptions']} preemptions, "
+             f"{eng.allocator.n_used} pages left allocated")
+    del eng
     ref_eng = engines["none"]
     kernel_logits_vs_plain(
         ops, ref_eng, torch.as_tensor(prompts, device=dev),
         torch.as_tensor(toks["none"][:, P:P + K + 1], device=dev), MAX_LEN)
-    for mode in ("parallel", "ar", "oracle"):
+    for mode in ("parallel", "ar", "oracle", "paged"):
         diff = (toks[mode] != toks["none"])
         if not diff.any():
             log(f"  {mode}: all {B * NEW} generated tokens equal to none")
@@ -798,7 +1047,7 @@ def train_steps(ops, dev, tr, batches, label):
     want = {"mtp_attention": tr.dcfg.n_layers * n_forward
             * (2 if tr.dcfg.remat else 1),
             "flash_attention": tr.tcfg.n_layers * len(steps),
-            "decode_attention": 0}
+            "decode_attention": 0, "paged_decode_attention": 0}
     log(f"  {label} launches: {counts}")
     if counts != want:
         fail(f"{label}: launch counts {counts} != expected {want}")
@@ -949,21 +1198,32 @@ def run_phases(ops, dev) -> list:
     torch.backends.cudnn.allow_tf32 = False
     worst, measured = check_kernels(ops, dev)
     path = main_path(ops, dev)
+    sched = scheduler_path(ops, dev)
     losslessness(ops, dev)
     train = training_path(ops, dev)
 
-    sources = {"decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
-               "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+    csrc = "src/repro_torch/kernels/csrc"
+    sources = {name: f"{csrc}/{name}.cu" for name in (
+        "decode_attention", "paged_decode_attention", "flash_attention")}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:73",
+                "paged_decode_attention":
+                    "src/repro/kernels/decode_attention.py:165",
                 "flash_attention": "src/repro/kernels/flash_attention.py:79"}
     main_shape = {"decode_attention": "target verify phase 1",
+                  "paged_decode_attention": "target verify phase 1",
                   "flash_attention": "target prefill"}
+    # launches: the paged kernel's from the scheduler phase, the others'
+    # from the whole-batch serving phase
+    launches = dict(path["launches"],
+                    paged_decode_attention=sched["launches"][
+                        "paged_decode_attention"])
     kernels = []
-    for name in ("decode_attention", "flash_attention"):
+    for name in ("decode_attention", "paged_decode_attention",
+                 "flash_attention"):
         m = measured[(name, main_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": path["launches"][name],
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": worst[name], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "shape": main_shape[name]})
@@ -982,6 +1242,10 @@ def run_phases(ops, dev) -> list:
         "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         "shape": f"{mtp_shape[0]}, {mtp_shape[1]} (M {m['M']})"})
     log(f"serving: {json.dumps({k: v for k, v in path.items()})}")
+    log(f"scheduler serving: {json.dumps(sched)}")
+    log("paged_decode_attention timing: " + json.dumps(
+        {key[1]: v for key, v in measured.items()
+         if key[0] == "paged_decode_attention"}))
     log(f"training: {json.dumps(train)}")
     log("mtp_attention timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured["mtp_attention"].items()}))

@@ -110,3 +110,23 @@ def drafter_cache(jcache: dict, *, device="cpu") -> dict:
     c = jcache["blocks"]
     n_layers = np.asarray(c["positions"]).shape[0]
     return {"blocks": [_layer_cache(c, li, device) for li in range(n_layers)]}
+
+
+def decode_state(jstate: dict, cfg: ModelConfig, *, device="cpu") -> dict:
+    """A JAX engine's decode state (nested dicts of numpy arrays) -> the
+    port's, without the sampling policy (the port is greedy). A paged
+    state's pools (NP, page, ...) get the port's sink page appended
+    (positions -1, K/V 0) and keep their ``block_table``."""
+    out = {k: tensor(v, device) for k, v in jstate.items()
+           if k not in ("tcache", "dcache", "sampling")}
+    out["tcache"] = target_cache(jstate["tcache"], cfg, device=device)
+    if "dcache" in jstate:
+        out["dcache"] = drafter_cache(jstate["dcache"], device=device)
+    if "block_table" in jstate:
+        for name in ("tcache", "dcache"):
+            for c in out.get(name, {"blocks": []})["blocks"]:
+                c["k"] = torch.cat([c["k"], torch.zeros_like(c["k"][:1])])
+                c["v"] = torch.cat([c["v"], torch.zeros_like(c["v"][:1])])
+                c["positions"] = torch.cat(
+                    [c["positions"], torch.full_like(c["positions"][:1], -1)])
+    return out

@@ -14,7 +14,9 @@ hidden-state variant's input and the mask-token embedding instead.
 Parameters are plain dicts; ``blocks`` is a list of per-layer dicts and the
 cache is ``{"blocks": [layer cache, ...]}``. At inference both attention
 phases of every block go through the decode kernel
-(``kernels.ops.decode_attention``) and caches are updated in place.
+(``kernels.ops.decode_attention``) and caches are updated in place; given a
+block table, the caches are page pools and phase 1 goes through the paged
+decode kernel (``models.transformer.cache_phase``).
 
 Training (``mtp_forward``) runs over COD-expanded positions under the MTP
 predicate. On a CUDA tensor every training attention goes through
@@ -36,6 +38,7 @@ from repro_torch.configs.base import DrafterConfig, ModelConfig
 from repro_torch.core.flash_train import mtp_flash_attention
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import cache_phase
 
 Tensor = torch.Tensor
 
@@ -103,10 +106,11 @@ def _train_attention(q, k, v, meta, scale):
 
 def _block_apply(dcfg: DrafterConfig, p: dict, x: Tensor, *,
                  positions: Tensor, cache: Optional[dict], mode: str,
-                 meta=None) -> Tensor:
+                 meta=None, block_table: Optional[Tensor] = None) -> Tensor:
     """mode: "train" attends the whole block under the MTP predicate of
     ``meta`` (no cache); "draft" commits only slot 0 (the NTP position) to
-    the cache, "extend" commits every slot (depth-0 tokens)."""
+    the cache, "extend" commits every slot (depth-0 tokens). With
+    ``block_table`` the cache is a page pool."""
     B, T, _ = x.shape
     H, KV, hd = dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
     h = L.rms_norm(x, p["ln1"], dcfg.norm_eps)
@@ -119,27 +123,27 @@ def _block_apply(dcfg: DrafterConfig, p: dict, x: Tensor, *,
     else:
         # two-phase: [old cache] + [current block], merged by LSE; the
         # block is a single chain, so causal-by-position masking applies
-        old_kpos = torch.where(cache["positions"] >= positions[:, :1], -1,
-                               cache["positions"])
-        o1, m1, l1 = ops.decode_attention(
-            q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
-            positions, scale=hd ** -0.5, return_stats=True)
+        o1, m1, l1 = cache_phase(q, cache, positions, block_table,
+                                 hd ** -0.5)
         o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
                                           scale=hd ** -0.5, return_stats=True)
         out = L.merge_attention(o1, m1, l1, o2, m2, l2)
-        if mode == "draft":
-            L.cache_update(cache, k[:, :1], v[:, :1], positions[:, 0])
+        n = 1 if mode == "draft" else T
+        if block_table is None:
+            L.cache_update(cache, k[:, :n], v[:, :n], positions[:, 0])
         else:
-            L.cache_update(cache, k, v, positions[:, 0])
+            L.paged_cache_update(cache, block_table, k[:, :n], v[:, :n],
+                                 positions[:, 0])
     x = x + out.reshape(B, T, H * hd) @ p["attn"]["wo"]
     h = L.rms_norm(x, p["ln2"], dcfg.norm_eps)
     return x + L.mlp_apply(p["mlp"], h, "swiglu")
 
 
-def _run_blocks(dcfg, params, x, *, positions, cache, mode, meta=None):
-    """All blocks in order. Inference updates the layer caches in place;
-    "train" takes no cache and, with ``dcfg.remat``, recomputes each block
-    in the backward."""
+def _run_blocks(dcfg, params, x, *, positions, cache, mode, meta=None,
+                block_table=None):
+    """All blocks in order. Inference updates the layer caches in place
+    (page pools when ``block_table`` is given); "train" takes no cache and,
+    with ``dcfg.remat``, recomputes each block in the backward."""
     if mode == "train":
         for bp in params["blocks"]:
             if dcfg.remat:
@@ -152,7 +156,7 @@ def _run_blocks(dcfg, params, x, *, positions, cache, mode, meta=None):
         return x
     for bp, bc in zip(params["blocks"], cache["blocks"]):
         x = _block_apply(dcfg, bp, x, positions=positions, cache=bc,
-                         mode=mode)
+                         mode=mode, block_table=block_table)
     return x
 
 
@@ -251,15 +255,16 @@ def mtp_forward(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
 # ---------------------------------------------------------------------------
 
 def extend(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict, cache: dict,
-           tokens_next: Tensor, taps: Tensor, positions: Tensor) -> dict:
+           tokens_next: Tensor, taps: Tensor, positions: Tensor,
+           block_table: Optional[Tensor] = None) -> dict:
     """Commit T depth-0 positions: position p carries (taps[p], emb(t_{p+1})).
 
     tokens_next (B, T) = tokens p+1 aligned to taps (B, T, 3D_t);
-    positions (B, T) int32."""
+    positions (B, T) int32; ``block_table`` (B, nb) for page-pool caches."""
     fc = taps.to(params["fc"].dtype) @ params["fc"]
     x = torch.cat([params["embed"][tokens_next], fc], dim=-1) @ params["fuse"]
     _run_blocks(dcfg, params, x, positions=positions, cache=cache,
-                mode="extend")
+                mode="extend", block_table=block_table)
     return cache
 
 
@@ -280,21 +285,23 @@ def draft_block_inputs(dcfg, tcfg, params, token_next, taps_last, anchor_pos,
 
 def draft_parallel(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
                    cache: dict, token_next: Tensor, taps_last: Tensor,
-                   anchor_pos: Tensor, K: int):
+                   anchor_pos: Tensor, K: int,
+                   block_table: Optional[Tensor] = None):
     """P-EAGLE: one forward pass drafts K tokens (argmax per slot).
 
     Returns (draft_tokens (B,K) int32, draft_logits (B,K,V) f32, cache)."""
     x, positions = draft_block_inputs(dcfg, tcfg, params, token_next,
                                       taps_last, anchor_pos, K)
     x = _run_blocks(dcfg, params, x, positions=positions, cache=cache,
-                    mode="draft")
+                    mode="draft", block_table=block_table)
     logits, _ = _head(dcfg, params, x)
     return logits.argmax(-1).to(torch.int32), logits, cache
 
 
 def draft_ar(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
              cache: dict, token_next: Tensor, taps_last: Tensor,
-             anchor_pos: Tensor, K: int):
+             anchor_pos: Tensor, K: int,
+             block_table: Optional[Tensor] = None):
     """AR EAGLE-3 baseline: K sequential single-position forwards; step i
     feeds (token d_i, drafter hidden h_i) into step i+1 (argmax)."""
     hid = taps_last.to(params["fc"].dtype) @ params["fc"]           # (B, D)
@@ -305,7 +312,7 @@ def draft_ar(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
         x = torch.cat([emb, hid[:, None]], dim=-1) @ params["fuse"]
         positions = (anchor_pos + i)[:, None]
         x = _run_blocks(dcfg, params, x, positions=positions, cache=cache,
-                        mode="extend")
+                        mode="extend", block_table=block_table)
         logits, h = _head(dcfg, params, x)
         tok = logits[:, 0].argmax(-1).to(torch.int32)
         hid = h[:, 0]

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("decode_attention", "flash_attention", "mtp_attention")
+SOURCES = ("decode_attention", "paged_decode_attention", "flash_attention",
+           "mtp_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +36,9 @@ _FLT = ctypes.c_float
 SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
                          [_PTR] * 8 + [_INT] * 6 + [_FLT, _INT, _INT, _PTR]),
+    "paged_decode_attention": ("paged_decode_attention_launch",
+                               [_PTR] * 9 + [_INT] * 8
+                               + [_FLT, _INT, _INT, _PTR]),
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 4 + [_INT] * 6 + [_FLT, _INT, _INT, _FLT,
                                                    _INT, _INT, _PTR]),

@@ -1,7 +1,7 @@
 // Shared body of the port's attention kernels (decode_attention.cu,
-// flash_attention.cu and mtp_attention.cu): masked online-softmax attention
-// of a tile of query rows against a key/value sequence, computed with f32
-// FMAs.
+// paged_decode_attention.cu, flash_attention.cu and mtp_attention.cu):
+// masked online-softmax attention of a tile of query rows against a
+// key/value sequence, computed with f32 FMAs.
 //
 // One thread block owns ROWS query rows of one (batch row b, KV head). A
 // row is one (query t, grouped head g) pair, ordered r = t * G + g, so the
@@ -17,6 +17,14 @@
 //      and writes p = exp(s - m) into shared memory;
 //   4. every thread rescales and accumulates its (row, column) outputs
 //      with p @ V.
+//
+// Keys are addressed in one of two ways. Per row (block_table == nullptr):
+// key j of row b is slot b * S + j of k/v/kpos, each (B, S, ...). Paged
+// (paged_decode_attention): k/v/kpos are a shared pool of pages (NP, page,
+// ...) and key j of row b lives in pool page block_table[b, j / page] at
+// offset j % page; a page id outside [0, NP) (-1 = unallocated) reads as
+// position -1 and its K/V are never loaded, so it cannot alias a live page.
+// A tile may span two or more pages (page < kBK); each key resolves its own.
 //
 // Masking takes positions, not indices. The visibility rule is a template
 // policy (MTP):
@@ -64,6 +72,8 @@ struct Params {
   float scale, softcap;
   const int* qdepth;  // (B, Tq) query depths, -1 = pad (MTP only)
   const int* kdepth;  // (B, S) key depths, -1 = pad (MTP only)
+  const int* block_table;  // (B, S / page) pool page ids; nullptr = per row
+  int page, n_pages;       // keys per pool page, pages in the pool (paged)
 };
 
 // 16-byte global loads converted to f32.
@@ -116,7 +126,7 @@ template <int HD, int ROWS, bool MTP>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (ROWS * kRowStride<HD> + kBK * kRowStride<HD> +
                           kBK * HD + ROWS * kPStride + 3 * ROWS) +
-         sizeof(int) * (ROWS + kBK) * (MTP ? 2 : 1);
+         sizeof(int) * ((ROWS + kBK) * (MTP ? 2 : 1) + kBK);
 }
 
 template <typename T, int HD, int ROWS, bool MTP>
@@ -140,7 +150,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
   float* l_s = m_s + ROWS;                   // ROWS
   int* qp_s = reinterpret_cast<int*>(l_s + ROWS);  // ROWS
   int* kp_s = qp_s + ROWS;                   // kBK
-  int* qd_s = kp_s + kBK;                    // ROWS (MTP only)
+  int* ks_s = kp_s + kBK;                    // kBK: K/V slot, -1 = none
+  int* qd_s = ks_s + kBK;                    // ROWS (MTP only)
   int* kd_s = qd_s + ROWS;                   // kBK (MTP only)
   __shared__ int qlo_s, qhi_s;
 
@@ -207,9 +218,21 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
     int live = 0;
     if (tid < kBK) {
       const int j = j0 + tid;
-      int kp = -1;
-      if (j < p.S) kp = p.kpos ? p.kpos[(size_t)b * p.S + j] : (j < p.kv_len ? j : -1);
+      int kp = -1, slot = -1;
+      if (j < p.S) {
+        if (p.block_table != nullptr) {
+          const int pg = p.block_table[(size_t)b * (p.S / p.page) + j / p.page];
+          if (pg >= 0 && pg < p.n_pages) {
+            slot = pg * p.page + j % p.page;
+            kp = p.kpos[slot];
+          }
+        } else {
+          slot = b * p.S + j;
+          kp = p.kpos ? p.kpos[slot] : (j < p.kv_len ? j : -1);
+        }
+      }
       kp_s[tid] = kp;
+      ks_s[tid] = slot;
       if (MTP) {
         const int kd = j < p.S ? p.kdepth[(size_t)b * p.S + j] : -1;
         kd_s[tid] = kd;
@@ -224,10 +247,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
     for (int i = tid; i < kBK * (HD / VN); i += kThreads) {
       const int jj = i / (HD / VN);
       const int c = (i % (HD / VN)) * VN;
-      const int j = j0 + jj;
+      const int slot = ks_s[jj];
       float kx[VN], vx[VN];
-      if (j < p.S) {
-        const size_t off = ((size_t)(b * p.S + j) * p.KV + kvh) * HD + c;
+      if (slot >= 0) {
+        const size_t off = ((size_t)slot * p.KV + kvh) * HD + c;
         Vec<T>::load(p.k + off, kx);
         Vec<T>::load(p.v + off, vx);
       } else {
@@ -302,7 +325,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
         acc[i] = a;
       }
     }
-    __syncthreads();   // the next tile overwrites kp_s, k_s, v_s and p_s
+    __syncthreads();   // the next tile overwrites kp_s, ks_s, k_s, v_s, p_s
   }
 
   if (lane == 0) {

@@ -7,7 +7,9 @@ launches the hand-written kernel (``csrc/*.cu``, built at first use by
 kernels mask the ragged end of a sequence themselves (key index >= S reads
 nothing; flash masks key index >= kv_len), so no operand is copied to pad
 it to a block size. ``mtp_attention`` takes its (pos, depth) metadata per
-row, (B, M); shared (M,) metadata is broadcast.
+row, (B, M); shared (M,) metadata is broadcast. ``paged_decode_attention``
+reads K/V and positions from a shared page pool through a per-row block
+table; its plain version gathers each row's pages into a contiguous view.
 
 ``launches`` counts kernel launches per kernel, so a run can show that the
 serving path went through the kernels; ``reset_launches`` zeroes it. The
@@ -24,8 +26,9 @@ from repro_torch.core.masks import mtp_mask_predicate
 from repro_torch.kernels import build
 from repro_torch.models import layers as L
 
-launches: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
-                            "mtp_attention": 0}
+launches: Dict[str, int] = {"decode_attention": 0,
+                            "paged_decode_attention": 0,
+                            "flash_attention": 0, "mtp_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
@@ -42,14 +45,17 @@ def _device_kind(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _check_operands(q, k, v):
+def _check_operands(q, k, v, per_row=True):
+    """q (B, T, H, hd) and k/v (B, S, KV, hd), or with per_row False a
+    shared pool (NP, page, KV, hd)."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q.shape[-1] not in _HEAD_DIMS or k.shape[-1] != q.shape[-1]:
         raise ValueError(f"head_dim must be one of {_HEAD_DIMS}, got "
                          f"{q.shape[-1]}/{k.shape[-1]}")
-    if q.shape[2] % k.shape[2] or k.shape != v.shape or q.shape[0] != k.shape[0]:
+    if (q.dim() != 4 or k.dim() != 4 or q.shape[2] % k.shape[2]
+            or k.shape != v.shape or (per_row and q.shape[0] != k.shape[0])):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -57,6 +63,14 @@ def _check_operands(q, k, v):
             raise ValueError(f"{name} must be on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_int32(q, **named_shapes):
+    for name, (t, shape) in named_shapes.items():
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 {shape} on "
+                             f"{q.device}")
 
 
 def _raise_on(lib, err: int, name: str):
@@ -93,12 +107,8 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
     _check_operands(q, k, v)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    for name, t, shape in (("k_positions", k_positions, (B, S)),
-                           ("q_positions", q_positions, (B, T))):
-        if (t.dtype != torch.int32 or tuple(t.shape) != shape
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous int32 {shape} on "
-                             f"{q.device}")
+    _check_int32(q, k_positions=(k_positions, (B, S)),
+                 q_positions=(q_positions, (B, T)))
     out = torch.empty_like(q)
     m = torch.empty((B, KV, H // KV, T), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -111,6 +121,58 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["decode_attention"] += 1
     _raise_on(lib, err, "decode_attention")
+    return (out, m, l) if return_stats else out
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention_plain(q, k_pool, v_pool, pos_pool, block_table,
+                                 q_positions, *, scale, window=0,
+                                 return_stats=False):
+    """Plain version of the paged decode kernel: q (B,T,H,hd) against the
+    pages each row's block table (B, nb) names in the pool k/v (NP, page,
+    KV, hd) with positions pos_pool (NP, page) (-1 = empty). Entries
+    outside [0, NP) (-1 = unallocated) are empty. Gathers each row's pages
+    into a contiguous (B, nb * page) view and runs the decode plain version
+    on it; returns what ``decode_attention_plain`` returns."""
+    kpos = L.paged_view(pos_pool, block_table, empty=-1)
+    return decode_attention_plain(
+        q, L.paged_view(k_pool, block_table),
+        L.paged_view(v_pool, block_table), kpos, q_positions, scale=scale,
+        window=window, return_stats=return_stats)
+
+
+def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
+                           q_positions, *, scale, window=0,
+                           return_stats=False):
+    """Paged decode attention (see ``paged_decode_attention_plain``): the
+    CUDA kernel of ``csrc/paged_decode_attention.cu`` for CUDA tensors,
+    which reads the pool through the table and builds no view."""
+    if _device_kind(q) == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, pos_pool, block_table, q_positions,
+            scale=scale, window=window, return_stats=return_stats)
+    _check_operands(q, k_pool, v_pool, per_row=False)
+    B, T, H, hd = q.shape
+    NP, page, KV = k_pool.shape[:3]
+    nb = block_table.shape[-1]
+    _check_int32(q, pos_pool=(pos_pool, (NP, page)),
+                 block_table=(block_table, (B, nb)),
+                 q_positions=(q_positions, (B, T)))
+    out = torch.empty_like(q)
+    m = torch.empty((B, KV, H // KV, T), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    lib = build.library("paged_decode_attention")
+    err = lib.paged_decode_attention_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        pos_pool.data_ptr(), block_table.data_ptr(), q_positions.data_ptr(),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), B, T, H, KV, NP, page, nb,
+        hd, float(scale), int(window), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    launches["paged_decode_attention"] += 1
+    _raise_on(lib, err, "paged_decode_attention")
     return (out, m, l) if return_stats else out
 
 

@@ -52,6 +52,24 @@ def decode_reference(q, k, v, k_positions, q_positions, *, scale, window=0):
     return _attend(q, k, v, ok[:, None, None], scale)
 
 
+def paged_decode_reference(q, k_pool, v_pool, pos_pool, block_table,
+                           q_positions, *, scale, window=0):
+    """Paged decode: each row's contiguous view gathered from the pool
+    (unallocated entries read page 0 with positions -1), then the dense
+    decode reference on it."""
+    B, nb = block_table.shape
+    page = k_pool.shape[1]
+
+    def view(pool):
+        g = pool[block_table.clamp_min(0).long()]            # (B, nb, page, ...)
+        return g.reshape((B, nb * page) + tuple(pool.shape[2:]))
+
+    kpos = torch.where((block_table < 0).repeat_interleave(page, dim=1), -1,
+                       view(pos_pool))
+    return decode_reference(q, view(k_pool), view(v_pool), kpos, q_positions,
+                            scale=scale, window=window)
+
+
 def mtp_reference(q, k, v, pos, depth, *, scale):
     """MTP attention with the closed-form predicate materialized densely.
     q/k/v (B,M,H|KV,hd); pos/depth (M,) or (B,M) int32 (-1 = padding)."""

@@ -3,7 +3,10 @@ decode steps of the full-width engine with ``torch.profiler``.
 
 Builds the engine as ``launch/serve.py`` does (qwen2-1.5b bfloat16, 4-layer
 parallel drafter, batch 8, 512-token prompts), prefills, runs warm-up
-steps, then times 16 unprofiled steps and profiles 16 more. Prints, per
+steps, then times 16 unprofiled steps and profiles 16 more. With
+``--kv-layout paged`` the cache is a page pool (page 16, pages reserved up
+front) and each prompt is admitted into its slot as the scheduler admits
+it, so the steps are the scheduler's steps without its host loop. Prints, per
 step: the host-clock time of the unprofiled window (synchronized at both
 ends), the device time summed over every kernel and
 copy the profiler recorded, the device's idle share
@@ -11,7 +14,7 @@ copy the profiler recorded, the device's idle share
 (the port's attention kernels, matrix products, everything else) and the
 15 largest one by one.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--kv-layout paged]
 """
 from __future__ import annotations
 
@@ -39,27 +42,41 @@ def _group(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", default="parallel", choices=("parallel", "ar", "none"))
+    ap.add_argument("--kv-layout", default="contiguous",
+                    choices=("contiguous", "paged"))
     args = ap.parse_args(argv)
     steps = STEPS
 
-    eng = build_engine(mode=args.mode, batch=BATCH, seed=0,
-                       max_new=WARMUP + 2 * steps + 2,
-                       max_len=PROMPT + WARMUP + 2 * steps + 16)
+    max_new = WARMUP + 2 * steps + 2
+    eng = build_engine(mode=args.mode, batch=BATCH, seed=0, max_new=max_new,
+                       max_len=-(-(PROMPT + max_new + 6) // 16) * 16,
+                       kv_layout=args.kv_layout,
+                       kv_growth="upfront")
     prompts = random_prompts(eng.tcfg.vocab_size, BATCH, PROMPT, 0)
-    state = eng.prefill(prompts)
+    if eng.paged:
+        state = eng.blank_state()
+        for slot, p in enumerate(prompts):
+            state, _, _ = eng.prefill_into_slot(state, p, slot, max_new)
+        live = (torch.ones(BATCH, dtype=torch.bool, device=eng.device),
+                torch.full((BATCH,), max_new, dtype=torch.int32,
+                           device=eng.device),
+                torch.full((BATCH,), eng.ecfg.K, dtype=torch.int32,
+                           device=eng.device))
+    else:
+        state, live = eng.prefill(prompts), ()
     for _ in range(WARMUP):
-        state = eng.step(state)
+        state = eng.step(state, *live)
     torch.cuda.synchronize()
     t0 = time.perf_counter()           # a window without the profiler
     for _ in range(steps):
-        state = eng.step(state)
+        state = eng.step(state, *live)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
-            state = eng.step(state)
+            state = eng.step(state, *live)
         torch.cuda.synchronize()
 
     # device-side events only (kernels, copies, sets): the CPU ops that
@@ -76,6 +93,7 @@ def main(argv=None):
         g[1] += us
     report = {
         "device": torch.cuda.get_device_name(0), "mode": args.mode,
+        "kv_layout": args.kv_layout,
         "steps": steps, "host_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": (1 - device_ms / wall_ms) if wall_ms else None,

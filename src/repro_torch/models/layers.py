@@ -14,6 +14,13 @@ as in the JAX package.
 KV caches are updated in place (``cache_update``): a full-width cache is
 hundreds of MB, and the serving loop never reads a cache after writing its
 successor.
+
+A paged KV cache has the same leaves as a pool of pages shared by every
+row: k/v (NP, page, KV, hd) and positions (NP, page), which row b reaches
+through its block table (B, nb), page ids per ``page`` positions, -1 =
+unallocated. A page belongs to at most one row. The pool's last page is the
+sink: no table names it, and writes that fall on an unallocated page land
+there (the JAX scatter's ``mode="drop"``, without a host sync).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
+INT32_MAX = 2 ** 31 - 1
 
 
 # ---------------------------------------------------------------------------
@@ -231,4 +239,64 @@ def cache_update(cache: dict, k_new: Tensor, v_new: Tensor,
     cache["k"][rows, slot] = k_new.to(cache["k"].dtype)
     cache["v"][rows, slot] = v_new.to(cache["v"].dtype)
     positions[rows, slot] = abs_pos.to(positions.dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# paged KV caches (a shared pool of pages behind per-row block tables)
+# ---------------------------------------------------------------------------
+
+def paged_view(pool: Tensor, block_table: Tensor, empty=None) -> Tensor:
+    """Each row's pages of ``pool`` (NP, page, ...) laid end to end:
+    (B, nb * page, ...). Table entries outside [0, NP) (-1 = unallocated)
+    read page 0, or hold ``empty`` where it is given (positions pass -1)."""
+    NP, page = pool.shape[0], pool.shape[1]
+    B, nb = block_table.shape
+    ok = (block_table >= 0) & (block_table < NP)
+    view = pool[torch.where(ok, block_table, 0).long()]    # (B, nb, page, ...)
+    if empty is not None:
+        view = view.masked_fill(~ok.view((B, nb) + (1,) * (pool.dim() - 1)),
+                                empty)
+    return view.reshape((B, nb * page) + tuple(pool.shape[2:]))
+
+
+def paged_invalidate(positions: Tensor, block_table: Tensor,
+                     bound: Tensor) -> Tensor:
+    """In place: in every pool page that row b's table names, entries whose
+    position exceeds ``bound[b]`` become empty (-1). positions (NP, page);
+    block_table (B, nb); bound (B,). Pages no table names are untouched.
+    Returns ``positions``."""
+    NP = positions.shape[0]
+    ok = (block_table >= 0) & (block_table < NP)
+    idx = torch.where(ok, block_table, NP).long().flatten()
+    lim = torch.full((NP + 1,), INT32_MAX, dtype=positions.dtype,
+                     device=positions.device)
+    lim.scatter_(0, idx, bound.to(positions.dtype)[:, None]
+                 .expand(block_table.shape).flatten())
+    return positions.masked_fill_(positions > lim[:NP, None], -1)
+
+
+def paged_cache_update(cache: dict, block_table: Tensor, k_new: Tensor,
+                       v_new: Tensor, pos: Tensor) -> dict:
+    """Write T new tokens at per-row absolute positions ``pos`` (B,) into the
+    pool pages of each row's table, in place, and return the cache. A write
+    whose page is unallocated (-1) or past the table goes to the sink page.
+
+    Unlike ``cache_update`` this does not invalidate entries >= pos: the
+    decode step does that with ``paged_invalidate`` before it attends to
+    the pool, since the paged kernel takes no per-row bound."""
+    positions = cache["positions"]
+    NP, page = positions.shape
+    B, T = k_new.shape[0], k_new.shape[1]
+    nb = block_table.shape[1]
+    abs_pos = pos[:, None] + torch.arange(T, dtype=pos.dtype,
+                                          device=pos.device)[None]
+    blk = torch.div(abs_pos, page, rounding_mode="floor")
+    pg = block_table.gather(1, blk.clamp(0, nb - 1).long())
+    ok = (blk >= 0) & (blk < nb) & (pg >= 0) & (pg < NP - 1)
+    pg = torch.where(ok, pg, NP - 1).long()
+    off = torch.remainder(abs_pos, page).long()
+    cache["k"][pg, off] = k_new.to(cache["k"].dtype)
+    cache["v"][pg, off] = v_new.to(cache["v"].dtype)
+    positions[pg, off] = abs_pos.to(positions.dtype)
     return cache

@@ -29,12 +29,14 @@ class Model:
     def forward(self, params: dict, tokens, *, positions=None, cache=None,
                 mode: str = "train", collect_taps: bool = True,
                 head_last_only: bool = False,
-                head_positions=None) -> transformer.ModelOutput:
+                head_positions=None,
+                block_table=None) -> transformer.ModelOutput:
         return transformer.forward(self.cfg, params, tokens,
                                    positions=positions, cache=cache,
                                    mode=mode, collect_taps=collect_taps,
                                    head_last_only=head_last_only,
-                                   head_positions=head_positions)
+                                   head_positions=head_positions,
+                                   block_table=block_table)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -14,7 +14,9 @@ of ``layers.make_kv_cache``. ``convert.py`` turns the JAX package's
 scan-stacked trees into these.
 
 Attention goes through ``kernels.ops``: the flash kernel for the prefill,
-the decode kernel for both phases of the two-phase decode. Configurations
+the decode kernel for both phases of the two-phase decode. Given a block
+table, a decode reads paged caches (``layers.paged_view`` layout): phase 1
+goes through the paged decode kernel on the pools. Configurations
 with a logit softcap, local (windowed) attention, MoE layers or other
 options the port does not carry yet raise ``NotImplementedError``.
 """
@@ -71,9 +73,11 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
-               cache: Optional[dict], mode: str):
+               cache: Optional[dict], mode: str,
+               block_table: Optional[Tensor] = None):
     """mode: train | prefill | decode. Returns (out, cache); a cache is
-    updated in place."""
+    updated in place. ``block_table`` (B, nb): the cache is a page pool
+    (decode only)."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -91,15 +95,14 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
         pos0 = positions[:, 0]
         # two-phase: attend [old cache] + [current block], merge by LSE,
         # THEN insert, so the cache is never copied
-        old_kpos = torch.where(cache["positions"] >= pos0[:, None], -1,
-                               cache["positions"])
-        o1, m1, l1 = ops.decode_attention(
-            q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
-            positions, scale=scale, return_stats=True)
+        o1, m1, l1 = cache_phase(q, cache, positions, block_table, scale)
         o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
                                           scale=scale, return_stats=True)
         out = L.merge_attention(o1, m1, l1, o2, m2, l2)
-        L.cache_update(cache, k, v, pos0)
+        if block_table is None:
+            L.cache_update(cache, k, v, pos0)
+        else:
+            L.paged_cache_update(cache, block_table, k, v, pos0)
     else:
         if cache is not None:  # prefill: also populate the cache
             ins = min(T, cache["k"].shape[1])
@@ -107,6 +110,28 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
                            positions[:, T - ins])
         out = ops.flash_attention(q, k, v, scale=scale, causal=True)
     return out.reshape(B, T, H * hd) @ p["wo"], cache
+
+
+def cache_phase(q: Tensor, cache: dict, positions: Tensor,
+                block_table: Optional[Tensor], scale: float):
+    """Phase 1 of a two-phase decode: q at ``positions`` (B, T) against
+    the cache entries older than the block (position < positions[:, 0]).
+    Returns (out, m, l). A contiguous cache masks the newer entries; a paged
+    one has them invalidated in the row's pages first (the paged kernel
+    takes no per-row bound; the insert that follows invalidates them
+    anyway), then the pools are read through the table."""
+    pos0 = positions[:, :1]
+    if block_table is None:
+        old_kpos = torch.where(cache["positions"] >= pos0, -1,
+                               cache["positions"])
+        return ops.decode_attention(
+            q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
+            positions, scale=scale, return_stats=True)
+    L.paged_invalidate(cache["positions"], block_table, pos0[:, 0] - 1)
+    return ops.paged_decode_attention(
+        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+        cache["positions"], block_table, positions, scale=scale,
+        return_stats=True)
 
 
 # ---------------------------------------------------------------------------
@@ -162,19 +187,22 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
             positions: Optional[Tensor] = None, cache: Optional[dict] = None,
             mode: str = "train", collect_taps: bool = True,
             head_last_only: bool = False,
-            head_positions: Optional[Tensor] = None) -> ModelOutput:
+            head_positions: Optional[Tensor] = None,
+            block_table: Optional[Tensor] = None) -> ModelOutput:
     """tokens (B, S) int. ``positions`` (B, S) int32 is required in decode
     mode; train/prefill attend by index (the flash kernel's causal mask),
     so they take the default positions 0..S-1 only. ``head_positions``
     (B,) restricts the LM head to one sequence index per row,
-    ``head_last_only`` to the last one."""
+    ``head_last_only`` to the last one. ``block_table`` (B, nb) makes the
+    cache's layers page pools (decode mode only)."""
     check_supported(cfg)
     B, S = tokens.shape
     if mode == "decode":
         if positions is None or cache is None:
             raise ValueError("decode mode needs positions and a cache")
-    elif positions is not None:
-        raise ValueError(f"{mode} attends by index: positions must be None")
+    elif positions is not None or block_table is not None:
+        raise ValueError(f"{mode} attends by index: positions and "
+                         f"block_table must be None")
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
@@ -186,7 +214,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         a, lc = attn_apply(bp["attn"], h, cfg=cfg, positions=positions,
                            cache=None if cache is None else cache["blocks"][li],
-                           mode=mode)
+                           mode=mode, block_table=block_table)
         x = x + a
         h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(bp["mlp"], h, cfg.mlp_variant)

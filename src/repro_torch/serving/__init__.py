@@ -1,1 +1,2 @@
-"""Whole-batch speculative serving engine and cache commit."""
+"""Speculative serving: the engine, the continuous-batching scheduler and
+cache operations."""

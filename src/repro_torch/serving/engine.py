@@ -1,8 +1,12 @@
-"""Whole-batch speculative-decoding engine, greedy verification (PyTorch).
+"""Batched speculative-decoding engine, greedy verification (PyTorch).
 
-Counterpart of the JAX package's ``serving/engine.py`` for the contiguous
-KV layout and whole-batch serving (``Engine.prefill`` / ``step`` / ``run``).
-Three drafter modes:
+Counterpart of the JAX package's ``serving/engine.py``: whole-batch serving
+(``prefill`` / ``step`` / ``run``, contiguous KV layout only) and the
+per-slot primitives the continuous-batching scheduler drives
+(``serving/scheduler.py``): ``blank_state``, ``prefill_into_slot`` (a
+bucketed batch-1 admission prefill written into one slot of the live
+batch), ``ensure_capacity`` (incremental page growth), ``free_slot`` and
+``step`` under an active mask with per-slot budgets. Three drafter modes:
 
   "parallel" — P-EAGLE: one drafter forward drafts K tokens
   "ar"       — AR EAGLE-3 baseline: K sequential drafter forwards
@@ -11,14 +15,22 @@ Three drafter modes:
 Every mode emits the target's greedy output: drafts only decide how many
 tokens one verify forward commits. The decode state has the JAX engine's
 leaves except the per-slot sampling policy (sampled verification is not
-ported yet); KV caches inside it are updated in place by each step. The
-paged layout, the scheduler, sampling and sharding are not ported yet.
+ported yet); KV caches inside it are updated in place by each step.
+
+Two KV layouts: "contiguous" (every slot owns a max_len cache row) and
+"paged" (every attention cache is a pool of ``page_size``-position pages
+behind a per-slot ``block_table``, pages handed out by a
+``cache_ops.BlockAllocator``). Unlike the JAX engine, whose paged step
+gathers each slot's pages into a contiguous view and scatters it back, the
+paged step reads and writes the pools through the table: phase 1 of every
+decode attention runs the paged decode kernel. Sharding, sampling, the
+prefix cache and swap-to-host are not ported yet.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -53,28 +65,52 @@ class EngineConfig:
     Attributes:
       K: speculation depth, tokens drafted per iteration (ignored when
         ``drafter_mode == "none"``).
-      max_new_tokens: generation budget per row, the first token included.
+      max_new_tokens: default generation budget per row, the first token
+        included (the scheduler passes per-request budgets).
       drafter_mode: "parallel", "ar" or "none".
       cache_dtype: KV cache and taps dtype ("bfloat16" on the card).
-      max_len: cache positions per row; prompt + max_new_tokens + K must fit.
+      max_len: cache positions per row; prompt + budget + K must fit.
+      kv_layout: "contiguous" (a max_len row per slot) or "paged" (a shared
+        pool of pages behind per-slot block tables; scheduler only).
+      page_size: positions per page (paged).
+      pool_pages: pages in the pool; 0 = batch * max_len / page_size.
+      kv_growth: "incremental" (admission claims the prompt plus one
+        speculative block; ``ensure_capacity`` grows a slot as it crosses
+        page boundaries) or "upfront" (admission reserves the request's
+        whole lifetime).
+      bucket_prefill: pad admission prefills to the next power of two, so
+        distinct prompt lengths share O(log2 max_len) shapes.
     """
     K: int = 5
     max_new_tokens: int = 64
     drafter_mode: str = "parallel"
     cache_dtype: str = "float32"
     max_len: int = 512
+    kv_layout: str = "contiguous"
+    page_size: int = 16
+    pool_pages: int = 0
+    kv_growth: str = "incremental"
+    bucket_prefill: bool = True
 
     def __post_init__(self):
         if self.drafter_mode not in DRAFTER_MODES:
             raise ValueError(f"unknown drafter_mode {self.drafter_mode!r}")
+        if self.kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
+        if self.kv_growth not in ("incremental", "upfront"):
+            raise ValueError(f"unknown kv_growth {self.kv_growth!r}")
 
 
 def make_decode_state(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
-                      ecfg: EngineConfig, batch: int, *, device) -> dict:
+                      ecfg: EngineConfig, batch: int, *, device,
+                      new_count_fill: int = 1,
+                      cache_rows: Optional[int] = None) -> dict:
     """The decode-state skeleton: the JAX engine's leaves (minus the
-    sampling policy), on ``device``. ``new_count`` starts at 1: prefill
-    commits the first generated token."""
+    sampling policy), on ``device``. ``new_count`` starts at
+    ``new_count_fill`` (1: prefill commits the first generated token). The
+    caches have ``cache_rows`` rows (default ``batch``)."""
     cdt = getattr(torch, ecfg.cache_dtype)
+    rows = batch if cache_rows is None else cache_rows
     i32 = dict(dtype=torch.int32, device=device)
     state = {
         "tokens": torch.zeros((batch, ecfg.max_len), **i32),
@@ -85,16 +121,16 @@ def make_decode_state(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         "last": torch.zeros((batch,), **i32),
         "taps_last": torch.zeros((batch, 3 * tcfg.d_model), dtype=cdt,
                                  device=device),
-        "tcache": model.make_cache(batch, ecfg.max_len, dtype=cdt,
+        "tcache": model.make_cache(rows, ecfg.max_len, dtype=cdt,
                                    device=device),
-        "new_count": torch.ones((batch,), **i32),
+        "new_count": torch.full((batch,), new_count_fill, **i32),
         "slot_iters": torch.zeros((batch,), **i32),
         "iters": torch.zeros((), **i32),
         "row_iters": torch.zeros((), **i32),
         "committed": torch.zeros((), **i32),
     }
     if ecfg.drafter_mode != "none":
-        state["dcache"] = D.make_cache(dcfg, batch, ecfg.max_len, dtype=cdt,
+        state["dcache"] = D.make_cache(dcfg, rows, ecfg.max_len, dtype=cdt,
                                        device=device)
     return state
 
@@ -116,14 +152,14 @@ def _scatter_drop(buf: Tensor, idx: Tensor, val: Tensor) -> Tensor:
 
 
 class Engine:
-    """Whole-batch greedy speculative-decoding engine over ``batch`` rows.
+    """Greedy speculative-decoding engine over ``batch`` slots.
 
     Args:
       tcfg / dcfg: target and drafter configs (dcfg None for mode "none").
       tparams / dparams: parameter trees (``models.transformer`` /
         ``core.drafter`` layout), moved to ``device``.
       ecfg: static engine configuration.
-      batch: rows per batch.
+      batch: slots (rows of the decode state).
       device: "cuda" (the default) or "cpu"; a missing card raises.
     """
 
@@ -138,10 +174,66 @@ class Engine:
         self.model = get_model(tcfg)
         self.tparams = _to(tparams, self.device)
         self.dparams = _to(dparams, self.device)
+        self.last_logprob = 0.0     # of the last admission's first token
+        self.paged = ecfg.kv_layout == "paged"
+        self.incremental = self.paged and ecfg.kv_growth == "incremental"
+        if self.paged:
+            if ecfg.max_len % ecfg.page_size:
+                raise ValueError(f"max_len {ecfg.max_len} must be a multiple "
+                                 f"of page_size {ecfg.page_size}")
+            self.pages_per_slot = ecfg.max_len // ecfg.page_size
+            self.pool_pages = ecfg.pool_pages or batch * self.pages_per_slot
+            self.allocator = cache_ops.BlockAllocator(self.pool_pages)
+            self._slot_pages: List[List[int]] = [[] for _ in range(batch)]
+            # which leaves become pools: read off a storage-free template
+            self.pspec = cache_ops.paged_spec(self._state_template(
+                1, device="meta"))
+
+    def _state_template(self, batch: int, *, device, **kw) -> dict:
+        return make_decode_state(self.model, self.tcfg, self.dcfg, self.ecfg,
+                                 batch, device=device, **kw)
+
+    # ------------------------------------------------------------------
+    # prefill
+    # ------------------------------------------------------------------
+    def _prefill_rows(self, prompts: Tensor, true_len: int) -> dict:
+        """A fresh contiguous state for ``prompts`` (B, Pb), whose first
+        ``true_len`` tokens are real and the rest right-padding (Pb ==
+        true_len: none). Causal attention leaves the real positions blind
+        to the pads; the head reads position true_len - 1, which commits
+        the first generated token (the target argmax), and the pads' cache
+        entries are invalidated afterwards."""
+        B, Pb = prompts.shape
+        P = true_len
+        state = self._state_template(B, device=self.device)
+        hp = torch.full((B,), P - 1, dtype=torch.int32, device=self.device)
+        out = self.model.forward(self.tparams, prompts, mode="prefill",
+                                 cache=state["tcache"], collect_taps=True,
+                                 head_positions=hp)
+        head = out.logits[:, 0]
+        first = head.argmax(-1).to(torch.int32)
+        state["tokens"][:, :Pb] = prompts
+        state["tokens"][:, P] = first
+        state["logprobs"][:, P] = _token_logprob(head, first)
+        state["last"].fill_(P)
+        state["taps_last"] = out.taps[:, P - 1].contiguous()
+        state["tcache"] = out.cache
+        cp = torch.full((B,), P - 1, dtype=torch.int32, device=self.device)
+        if Pb > P:
+            cache_ops.commit(state["tcache"], cp)
+        if self.ecfg.drafter_mode != "none" and Pb > 1:
+            pos = torch.arange(Pb - 1, dtype=torch.int32,
+                               device=self.device)[None].repeat(B, 1)
+            # drafter position p pairs taps[p] with token p + 1
+            D.extend(self.dcfg, self.tcfg, self.dparams, state["dcache"],
+                     prompts[:, 1:], out.taps[:, :Pb - 1], pos)
+            if Pb > P:
+                cache_ops.commit(state["dcache"], cp - 1)
+        return state
 
     def prefill(self, prompts) -> dict:
-        """Whole-batch prefill of ``prompts`` (B, P): a fresh decode state
-        committing the first generated token (the target argmax) per row."""
+        """Whole-batch prefill of ``prompts`` (B, P): a fresh contiguous
+        decode state committing the first generated token per row."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                   device=self.device)
         B, P = prompts.shape
@@ -153,33 +245,196 @@ class Engine:
                 f"prompt {P} + max_new_tokens {self.ecfg.max_new_tokens} + "
                 f"K {K} exceeds max_len {self.ecfg.max_len}")
         with torch.no_grad():
-            state = make_decode_state(self.model, self.tcfg, self.dcfg,
-                                      self.ecfg, B, device=self.device)
-            out = self.model.forward(self.tparams, prompts, mode="prefill",
-                                     cache=state["tcache"], collect_taps=True,
-                                     head_last_only=True)
-            last_logits = out.logits[:, -1]
-            first = last_logits.argmax(-1).to(torch.int32)
-            state["tokens"][:, :P] = prompts
-            state["tokens"][:, P] = first
-            state["logprobs"][:, P] = _token_logprob(last_logits, first)
-            state["last"].fill_(P)
-            state["taps_last"] = out.taps[:, -1].contiguous()
-            state["tcache"] = out.cache
-            if self.ecfg.drafter_mode != "none" and P > 1:
-                pos = torch.arange(P - 1, dtype=torch.int32,
-                                   device=self.device)[None].repeat(B, 1)
-                state["dcache"] = D.extend(self.dcfg, self.tcfg, self.dparams,
-                                           state["dcache"], prompts[:, 1:],
-                                           out.taps[:, -P:-1], pos)
+            return self._prefill_rows(prompts, P)
+
+    def prefill_bucket(self, length: int) -> int:
+        """Tokens the admission prefill of a ``length``-token prompt runs:
+        the next power of two, or the exact length where bucketing is off
+        or the bucket would reach max_len. (The JAX engine's chunked
+        variant is for recurrent families, which the port does not carry.)"""
+        pb = 1 << max(length - 1, 0).bit_length()
+        if not self.ecfg.bucket_prefill or pb >= self.ecfg.max_len:
+            return length
+        return pb
+
+    def _admission_prefill(self, prompt: Tensor) -> dict:
+        P = prompt.shape[1]
+        padded = torch.nn.functional.pad(prompt, (0, self.prefill_bucket(P)
+                                                  - P))
+        return self._prefill_rows(padded, P)
+
+    # ------------------------------------------------------------------
+    # per-slot lifecycle (continuous batching; serving/scheduler.py)
+    # ------------------------------------------------------------------
+    def blank_state(self) -> dict:
+        """An all-idle state: empty caches (positions -1), zero tokens,
+        every slot frozen (new_count == max_new_tokens). Paged: the caches
+        are page pools and ``block_table`` (B, max_len / page_size) is all
+        -1. Slots come alive through ``prefill_into_slot``."""
+        if not self.paged:
+            return self._state_template(
+                self.batch, device=self.device,
+                new_count_fill=self.ecfg.max_new_tokens)
+        state = self._state_template(self.batch, device=self.device,
+                                     new_count_fill=self.ecfg.max_new_tokens,
+                                     cache_rows=1)
+        state = cache_ops.paged_state(state, self.pspec, self.ecfg.page_size,
+                                      self.pool_pages)
+        state["block_table"] = torch.full(
+            (self.batch, self.pages_per_slot), -1, dtype=torch.int32,
+            device=self.device)
         return state
 
-    def step(self, state: dict) -> dict:
-        """One speculative iteration over the whole batch."""
+    @property
+    def commit_stride(self) -> int:
+        """Most positions one iteration writes past the last committed one
+        (K drafted + 1 bonus; 1 for vanilla AR)."""
+        return (self.ecfg.K if self.ecfg.drafter_mode != "none" else 0) + 1
+
+    def pages_for(self, length: int) -> int:
+        """Pages covering ``length`` cache positions (capped at max_len)."""
+        if not self.paged:
+            return 0
+        return -(-min(max(length, 1), self.ecfg.max_len)
+                 // self.ecfg.page_size)
+
+    def pages_needed(self, prompt_len: int,
+                     max_new: Optional[int] = None) -> int:
+        """Pages one request occupies over its lifetime: prompt + budget +
+        the worst speculative overshoot."""
+        if not self.paged:
+            return 0
+        budget = self.ecfg.max_new_tokens if max_new is None else max_new
+        return self.pages_for(prompt_len + budget + self.ecfg.K + 1)
+
+    def initial_pages(self, prompt_len: int,
+                      max_new: Optional[int] = None) -> int:
+        """Pages an admission claims: the whole lifetime (upfront), or the
+        prompt plus one speculative block (incremental)."""
+        if not self.paged:
+            return 0
+        if not self.incremental:
+            return self.pages_needed(prompt_len, max_new)
+        return self.pages_for(prompt_len + self.commit_stride)
+
+    def can_admit(self, prompt_len: int, max_new: Optional[int] = None,
+                  full: bool = False) -> bool:
+        """Whether the pool can take one more request of this shape now
+        (always, contiguous). ``full`` gates on the whole-lifetime need, as
+        the scheduler does for a preempted request's resume, so the same
+        pressure cannot evict it again at once."""
+        if not self.paged:
+            return True
+        need = (self.pages_needed(prompt_len, max_new) if full
+                else self.initial_pages(prompt_len, max_new))
+        return need <= self.allocator.n_free
+
+    def slot_capacity(self, slot: int) -> int:
+        """Cache positions the slot's page allocation covers."""
+        if not self.paged:
+            return self.ecfg.max_len
+        return len(self._slot_pages[slot]) * self.ecfg.page_size
+
+    @staticmethod
+    def _core(state: dict) -> dict:
+        return {k: v for k, v in state.items() if k != "block_table"}
+
+    def ensure_capacity(self, state: dict, slot: int, length: int):
+        """Grow ``slot``'s pages to cover ``length`` positions, claiming
+        pages only when its length crossed a page boundary. Returns
+        ``(state, ok)``; ``ok`` False when the pool is exhausted (the
+        caller preempts or stalls the slot). A claimed page is blanked
+        before the table maps it: a recycled page may hold its previous
+        owner's positions. No-op (ok) unless paged and incremental."""
+        if not self.incremental:
+            return state, True
+        need = self.pages_for(length)
+        have = len(self._slot_pages[slot])
+        if need <= have:
+            return state, True
+        got = self.allocator.alloc(need - have)
+        if got is None:
+            return state, False
+        self._slot_pages[slot].extend(got)
+        got_t = torch.tensor(got, dtype=torch.int32, device=self.device)
+        cache_ops.blank_pages(self._core(state), got_t, self.pspec)
+        state["block_table"][slot, have:need] = got_t
+        return state, True
+
+    def prefill_into_slot(self, state: dict, prompt, slot: int,
+                          max_new: Optional[int] = None):
+        """Admit one request into slot ``slot`` of a live state: prefill
+        ``prompt`` (1-D) as a batch-1 state (bucketed), then write its row
+        into the slot, in place; other slots are untouched. Paged: the slot
+        first claims ``initial_pages(len(prompt), max_new)`` pages (callers
+        gate on ``can_admit``) and the prefilled caches are scattered into
+        them. A preempted request resumes by admitting prompt + the tokens
+        it generated: its greedy continuation is a function of that prefix.
+        Returns ``(state, first_token, last_position)``, and leaves the
+        first token's logprob in ``last_logprob``."""
+        prompt = torch.as_tensor(np.asarray(prompt, np.int32).reshape(1, -1),
+                                 device=self.device)
         with torch.no_grad():
-            return speculative_step(self.model, self.tcfg, self.dcfg,
-                                    self.ecfg, self.tparams, self.dparams,
-                                    state)
+            if not self.paged:
+                src = self._admission_prefill(prompt)
+                cache_ops.write_slot(state, src, slot)
+            else:
+                if self._slot_pages[slot]:
+                    raise RuntimeError(f"slot {slot} still holds pages; "
+                                       "free_slot it before re-admission")
+                n = self.initial_pages(prompt.shape[1], max_new)
+                pages = self.allocator.alloc(n)
+                if pages is None:
+                    raise RuntimeError(
+                        f"page pool exhausted ({n} needed, "
+                        f"{self.allocator.n_free} free); gate on can_admit")
+                self._slot_pages[slot] = pages
+                row = torch.full((self.pages_per_slot,), -1,
+                                 dtype=torch.int32, device=self.device)
+                row[:n] = torch.tensor(pages, dtype=torch.int32)
+                src = self._admission_prefill(prompt)
+                cache_ops.admit_pages(self._core(state), src, slot, row,
+                                      self.pspec)
+                state["block_table"][slot] = row
+        last = int(src["last"][0])
+        self.last_logprob = float(src["logprobs"][0, last])
+        return state, int(src["tokens"][0, last]), last
+
+    def free_slot(self, state: dict, slot: int) -> dict:
+        """Blank slot ``slot`` in place and refreeze it (new_count =
+        max_new_tokens) until its next admission; paged, its pages return
+        to the pool and its table row becomes -1."""
+        fills = {"new_count": self.ecfg.max_new_tokens}
+        if not self.paged:
+            return cache_ops.reset_slot(state, slot, fills=fills)
+        self.allocator.free(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        cache_ops.reset_slot(self._core(state), slot, self.pspec, fills)
+        state["block_table"][slot] = -1
+        return state
+
+    # ------------------------------------------------------------------
+    # one speculative iteration
+    # ------------------------------------------------------------------
+    def step(self, state: dict, active=None, max_new=None,
+             k_row=None) -> dict:
+        """One speculative iteration. The scheduler passes ``active`` (B,)
+        bool, per-slot budgets ``max_new`` (B,) and draft caps ``k_row``
+        (B,); without them every row is live under the engine's budget and
+        full K. A paged state needs its block table."""
+        if self.paged and "block_table" not in state:
+            raise ValueError("a paged Engine steps a paged state "
+                             "(blank_state + prefill_into_slot)")
+
+        def dev(x, dtype):
+            return None if x is None else torch.as_tensor(
+                x, dtype=dtype, device=self.device)
+        with torch.no_grad():
+            return speculative_step(
+                self.model, self.tcfg, self.dcfg, self.ecfg, self.tparams,
+                self.dparams, state, active_mask=dev(active, torch.bool),
+                max_new=dev(max_new, torch.int32),
+                k_row=dev(k_row, torch.int32))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -188,7 +443,12 @@ class Engine:
     def run(self, prompts, max_iters: int = 10_000) -> Dict[str, Any]:
         """Prefill, then step until every row has its ``max_new_tokens``
         (checked every 8 steps, as the JAX engine does). ``steps`` counts
-        the step calls, ``iterations`` those in which some row was live."""
+        the step calls, ``iterations`` those in which some row was live.
+        Contiguous only: a paged engine serves through the scheduler."""
+        if self.paged:
+            raise ValueError("Engine.run is the whole-batch contiguous loop; "
+                             "drive a paged engine through "
+                             "serving.scheduler.Scheduler")
         t0 = time.perf_counter()
         state = self.prefill(prompts)
         self._sync()
@@ -231,25 +491,35 @@ def _to(tree, device):
 
 
 def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
-                     ecfg: EngineConfig, tparams, dparams, state: dict) -> dict:
+                     ecfg: EngineConfig, tparams, dparams, state: dict,
+                     active_mask: Optional[Tensor] = None,
+                     max_new: Optional[Tensor] = None,
+                     k_row: Optional[Tensor] = None) -> dict:
     """One iteration: draft K -> verify K+1 -> accept -> commit (greedy).
 
-    Rows that have their ``max_new_tokens`` are frozen: they commit
-    nothing and keep last/taps/counters. The caches of ``state`` are
-    updated in place; the returned state holds them."""
+    ``active_mask`` (B,) bool masks out free or stalled slots and
+    ``max_new`` (B,) gives per-slot budgets (default: every row, the
+    engine's budget); a row out of budget or masked is frozen: it commits
+    nothing and keeps last/taps/counters. ``k_row`` (B,) caps each row's
+    accepted drafts (the correction token is then the target argmax at the
+    cap, so the stream is unchanged). With ``state["block_table"]`` the
+    caches are page pools read and written through it. The caches of
+    ``state`` are updated in place; the returned state holds them."""
     B = state["tokens"].shape[0]
     K = ecfg.K if ecfg.drafter_mode != "none" else 0
     c = state["last"]
     tok_next = state["tokens"].gather(1, c[:, None].long())[:, 0]
     dcache = state.get("dcache")
+    table = state.get("block_table")
 
     if ecfg.drafter_mode == "parallel":
         drafts, _, dcache = D.draft_parallel(dcfg, tcfg, dparams, dcache,
                                              tok_next, state["taps_last"],
-                                             c - 1, K)
+                                             c - 1, K, block_table=table)
     elif ecfg.drafter_mode == "ar":
         drafts, _, dcache = D.draft_ar(dcfg, tcfg, dparams, dcache, tok_next,
-                                       state["taps_last"], c - 1, K)
+                                       state["taps_last"], c - 1, K,
+                                       block_table=table)
     else:
         drafts = torch.zeros((B, 0), dtype=torch.int32, device=c.device)
 
@@ -259,18 +529,24 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
                                           device=c.device)[None]
     tout = model.forward(tparams, vt, mode="decode", positions=positions,
                          cache=state["tcache"],
-                         collect_taps=ecfg.drafter_mode != "none")
+                         collect_taps=ecfg.drafter_mode != "none",
+                         block_table=table)
     if K == 0:
         accept_len = torch.zeros((B,), dtype=torch.int32, device=c.device)
         t_star = tout.logits.argmax(-1).to(torch.int32)
     else:
         accept_len, t_star = SD.greedy_verify(drafts, tout.logits)
+        if k_row is not None:
+            accept_len = torch.minimum(accept_len, k_row)
 
-    active = state["new_count"] < ecfg.max_new_tokens
+    budget = ecfg.max_new_tokens if max_new is None else max_new
+    active = state["new_count"] < budget
+    if active_mask is not None:
+        active &= active_mask
     accept_len = torch.where(active, accept_len, 0)
 
     # invalidate the target cache past the last accepted token
-    tcache = cache_ops.commit(tout.cache, c + accept_len)
+    tcache = cache_ops.commit(tout.cache, c + accept_len, table)
 
     # append committed tokens t_star[0..accept_len]
     ar = torch.arange(K + 1, dtype=torch.int32, device=c.device)[None]
@@ -291,7 +567,8 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         # extend the drafter cache across the verified block; the stale
         # tail is invalidated by the next positional write
         new_state["dcache"] = D.extend(dcfg, tcfg, dparams, dcache, t_star,
-                                       tout.taps, positions)
+                                       tout.taps, positions,
+                                       block_table=table)
 
     ncommit = torch.where(active, accept_len + 1, 0)
     act = active.to(torch.int32)
@@ -307,4 +584,6 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         row_iters=state["row_iters"] + act.sum(dtype=torch.int32),
         committed=state["committed"] + ncommit.sum(dtype=torch.int32),
     )
+    if table is not None:
+        new_state["block_table"] = table
     return new_state

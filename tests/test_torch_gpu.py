@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-on the card, the engine's greedy losslessness through the kernels, the
-flash training attention's gradients, and reduced training steps through
-the MTP kernel.
+on the card, the engine's greedy losslessness through the kernels, paged
+scheduler serving through the paged decode kernel, the flash training
+attention's gradients, and reduced training steps through the MTP kernel.
 
 Marked ``gpu``; each test decides inside the ``card`` fixture whether a
 card exists and skips without one. The card's machine has no JAX, which
@@ -102,6 +102,97 @@ def test_cuda_tensor_never_takes_the_plain_path(card):
                             q[:, :, :1].contiguous(), scale=1.0)
 
 
+def _paged_inputs(card, dtype, B, T, H, KV, hd, NP, page, nb, seed=0):
+    """q, pools and a fragmented table: each row owns a random set of pool
+    pages (later table entries -1) holding positions 0..length-1; pages of
+    other rows and free pages hold positions the row must not see."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = _qkv(g, (B, T, H, hd), (NP, page, KV, hd), dtype, card)
+    table = np.full((B, nb), -1, np.int32)
+    pos_pool = rng.integers(0, nb * page, (NP, page)).astype(np.int32)
+    qpos = np.zeros((B, T), np.int32)
+    perm, used = rng.permutation(NP), 0
+    for b in range(B):
+        n_alloc = int(rng.integers(1, min(nb, (NP - used) // (B - b)) + 1))
+        pages = perm[used:used + n_alloc]
+        used += n_alloc
+        table[b, :n_alloc] = pages
+        length = int(rng.integers(1, n_alloc * page + 1))
+        for i, p in enumerate(pages):
+            fill = int(np.clip(length - i * page, 0, page))
+            pos_pool[p] = -1
+            pos_pool[p, :fill] = i * page + np.arange(fill)
+        qpos[b] = length + np.arange(T)
+    as_t = lambda a: torch.as_tensor(a, device=card).contiguous()
+    return q, k, v, as_t(pos_pool), as_t(table), as_t(qpos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KV,hd,NP,page,nb", [
+    (8, 6, 12, 2, 128, 513, 16, 64),    # target verify, phase 1
+    (8, 5, 12, 12, 128, 513, 16, 64),   # drafter draft, phase 1
+    (8, 6, 12, 12, 128, 513, 16, 64),   # drafter extend, phase 1
+    (2, 6, 4, 2, 64, 12, 16, 4),        # the JAX kernel sweep's shapes
+    (1, 1, 4, 4, 32, 8, 32, 3),
+    (3, 4, 2, 1, 128, 16, 8, 6),
+])
+def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
+                                    nb):
+    inp = _paged_inputs(card, dtype, B, T, H, KV, hd, NP, page, nb)
+    before = ops.launches["paged_decode_attention"]
+    out, m, l = ops.paged_decode_attention(*inp, scale=hd ** -0.5,
+                                           return_stats=True)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_decode_attention"] == before + 1
+    po, pm, pl = ops.paged_decode_attention_plain(*inp, scale=hd ** -0.5,
+                                                  return_stats=True)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+
+
+def test_paged_cuda_tensor_never_takes_the_plain_path(card, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(ops, "paged_decode_attention_plain", refuse)
+    monkeypatch.setattr(ops, "decode_attention_plain", refuse)
+    inp = _paged_inputs(card, torch.bfloat16, 2, 6, 4, 2, 64, 12, 16, 4)
+    ops.paged_decode_attention(*inp, scale=0.125)
+    torch.cuda.synchronize()
+    q, k, v, pos, table, qpos = inp
+    with pytest.raises(ValueError, match="block_table"):
+        ops.paged_decode_attention(q, k, v, pos, table.long(), qpos,
+                                   scale=0.125)
+
+
+def test_paged_scheduler_matches_contiguous_engine(card):
+    """Reduced width: a paged Scheduler.serve under pool pressure gives the
+    contiguous Engine.run's tokens per request, through the paged kernel."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW = 3, 20, 12
+    eng = build_engine(reduced=True, mode="parallel", K=3, max_new=NEW,
+                       max_len=64, batch=B, seed=0, device=card)
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    want = eng.run(prompts)["tokens"][:, P:P + NEW]
+    peng = Engine(eng.tcfg, eng.dcfg, eng.tparams, eng.dparams,
+                  dataclasses.replace(eng.ecfg, kv_layout="paged",
+                                      page_size=8, pool_pages=9), B,
+                  device=card)
+    ops.reset_launches()
+    rep = Scheduler(peng).serve([Request(p, max_new_tokens=NEW)
+                                 for p in prompts])
+    assert rep["preemptions"] > 0 and peng.allocator.n_used == 0
+    assert ops.launches["paged_decode_attention"] == (
+        (eng.tcfg.n_layers + 2 * eng.dcfg.n_layers) * rep["iterations"])
+    for r, w in zip(rep["results"], want):
+        np.testing.assert_array_equal(r["tokens"], w)
+
+
 def test_engine_lossless_through_kernels(card):
     from repro_torch.launch.serve import build_engine, random_prompts
     toks = {}
@@ -196,5 +287,6 @@ def test_trainer_steps_through_kernels(card):
         torch.cuda.synchronize()
         assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
         assert ops.launches == {"decode_attention": 0,
+                                "paged_decode_attention": 0,
                                 "flash_attention": tcfg.n_layers,
                                 "mtp_attention": dcfg.n_layers * segments}

@@ -162,8 +162,12 @@ def test_cpu_tensors_never_launch_kernels():
                         scale=1.0)
     meta = torch.zeros(4, dtype=torch.int32)
     ops.mtp_attention(q, q, q, meta, meta, scale=1.0)
-    assert ops.launches == {"decode_attention": 0, "flash_attention": 0,
-                            "mtp_attention": 0}
+    pool = q[0, :, :1].reshape(2, 2, 1, 32).contiguous()
+    ops.paged_decode_attention(q, pool, pool, meta.reshape(2, 2),
+                               meta.reshape(2, 2)[:1], meta[None], scale=1.0)
+    assert ops.launches == {"decode_attention": 0,
+                            "paged_decode_attention": 0,
+                            "flash_attention": 0, "mtp_attention": 0}
 
 
 @pytest.mark.parametrize("T,H,KV,valid", [

@@ -33,9 +33,10 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_port_has_cuda_sources_for_both_kernels():
+def test_port_has_cuda_sources_for_every_kernel():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for name, tpu in (("decode_attention", "decode_attention.py"),
+                      ("paged_decode_attention", "decode_attention.py"),
                       ("flash_attention", "flash_attention.py"),
                       ("mtp_attention", "mtp_attention.py")):
         text = (csrc / f"{name}.cu").read_text()
@@ -66,7 +67,21 @@ def test_serve_rehearses_on_cpu_when_asked():
                     "--prompt-len", "6", "--max-new", "4", "--max-len", "24",
                     "--runs", "1"])
     assert r["device"] == "cpu" and r["new_tokens"] == 8
+    assert r["kv_layout"] == "contiguous" and r["requests"] == 2
     assert r["acceptance_length"] >= 1.0
+
+
+def test_serve_rehearses_paged_arrivals_on_cpu():
+    """The scheduler path of the launcher: arrivals on the virtual clock, a
+    pool small enough to preempt, every request to its budget."""
+    r = serve.main(["--reduced", "--device", "cpu", "--batch", "3",
+                    "--requests", "5", "--mean-gap", "1", "--prompt-len",
+                    "12", "--max-new", "10", "--max-len", "64",
+                    "--kv-layout", "paged", "--page-size", "8",
+                    "--pool-pages", "7", "--runs", "1"])
+    assert r["kv_layout"] == "paged" and r["new_tokens"] == 50
+    assert r["preemptions"] > 0 and 0 < r["peak_pages"] <= 7
+    assert r["p99_latency_vt"] >= r["p50_latency_vt"] > 0
 
 
 def test_random_prompts_avoid_mask_token():
