@@ -18,14 +18,23 @@ Phases, in order; any failure exits non-zero:
    serving path's shapes and at the JAX kernel sweep's shapes, on inputs
    whose scores spread as a trained model's do (tolerance: two bfloat16
    rounding steps of the output, 1e-4 + 2^-6 |plain|, in bfloat16; 1e-4 in
-   float32), with the kernel, the plain version
+   float32; the worst share of the limit is printed per kernel), with the
+   kernel, the plain version
    and one PyTorch call for the same function (scaled_dot_product_attention,
    a yardstick the port never calls) timed with CUDA events, beside the
    least time the card could take (bytes over 3.35 TB/s or FLOPs over the
-   dtype's peak, whichever is larger). The MTP kernel is held against its
-   plain version, output and stats (m, l), at the training shape (n 2048,
-   K 8, r 0.8: M 8522, the drafter's 12/12 heads), at the largest
-   Algorithm-1 segment of n 4096 in 4 segments, at the JAX kernel sweep's
+   dtype's peak, whichever is larger). The bfloat16 decode and flash
+   kernels run tensor-core bodies (split-K decode, FlashAttention-2 style
+   flash), so their edges are checked too: decode with S not a multiple of
+   the split chunk, chunks holding no live key, rows seeing no key (zeros,
+   l 0, m -1e30), a window across chunks and T 511; flash with ragged
+   query and key tiles (500 tokens), one token, Sq != Skv and kv_len < Skv.
+   Flash is timed at the prefill (B 8 x 512), a training tap (B 1 x 2048)
+   and an admission bucket (B 1 x 512), decode at every serving phase.
+   The MTP kernel is held against its plain version, output and stats
+   (m, l), at the training shape (n 2048, K 8, r 0.8: M 8522, the
+   drafter's 12/12 heads), at the largest Algorithm-1 segment of n 4096 in
+   4 segments, at the JAX kernel sweep's
    shapes (per-row layouts, GQA, pad rows) and on a padding-rows case; its
    SDPA yardstick takes the dense predicate mask, built outside the timed
    call. The paged decode kernel is held against its plain version (which
@@ -120,6 +129,13 @@ NEAR_TIE = 1e-3
 # with the plain attention: the two differ only in the order of float32
 # sums inside attention, carried through 28 layers.
 REF_TOL = 1e-3
+# The flash kernel's timed shapes, one per path that runs it: the serving
+# prefill (phase 3), a training tap (phase 5, n 2048) and an admission
+# prefill of the scheduler (phase 3b: batch 1, a prompt of 256-640 tokens
+# padded to the next power of two).
+FLASH_MAIN = [("target prefill", (8, 512, 512, 12, 2, 128)),
+              ("training tap", (1, 2048, 2048, 12, 2, 128)),
+              ("admission bucket 512", (1, 512, 512, 12, 2, 128))]
 # MTP stats (m, l) against the plain version's: |got - want| / (1 + |want|).
 STATS_TOL = 1e-4
 # Gradients of the flash training attention (kernel forward, plain
@@ -330,6 +346,7 @@ def check_kernels(ops, dev):
     (label, dtype))."""
     worst = {"decode_attention": 0.0, "paged_decode_attention": 0.0,
              "flash_attention": 0.0}
+    shares = {}      # (kernel, dtype) -> the worst share of the limit
     rows = {}
 
     def compare(name, got, want, dtype, label):
@@ -338,6 +355,7 @@ def check_kernels(ops, dev):
         err = diff.max().item()
         # the worst element's share of its own limit: <= 1 passes
         used = (diff / (atol + rtol * want.float().abs())).max().item()
+        shares[(name, dtype)] = max(shares.get((name, dtype), 0.0), used)
         ok = used <= 1.0
         log(f"  {name:22s} {dtype:8s} {label:46s} max_abs_err {err:.3e} "
             f"(max |plain| {want.float().abs().max().item():.3f}, "
@@ -361,7 +379,21 @@ def check_kernels(ops, dev):
         ("drafter extend phase 2", (8, 6, 12, 12, 128, 6, 6)),
         ("drafter prefill extend phase 1", (8, 511, 12, 12, 128, 1024, 0)),
         ("drafter prefill extend phase 2", (8, 511, 12, 12, 128, 511, 511)),
+        # phase 3b's batch-1 admission prefill: the drafter's extend over a
+        # bucket of 512 or 256, or over an exact-length prompt of up to 640
+        # (a bucket of 1024 would reach max_len); 4 splits over 4-10 row tiles
+        ("admission extend phase 1", (1, 511, 12, 12, 128, 1024, 0)),
+        ("admission extend phase 2", (1, 511, 12, 12, 128, 511, 511)),
+        ("admission extend 256 phase 2", (1, 255, 12, 12, 128, 255, 255)),
+        ("admission extend exact phase 2", (1, 638, 12, 12, 128, 638, 638)),
     ]
+    def check_stats(name, label, dtype, got, want):
+        # stats: relative to 1 + |value| (l grows with the visible keys)
+        for stat, g_, w_ in zip("ml", got, want):
+            rel = ((g_ - w_).abs() / (1 + w_.abs())).max().item()
+            if not rel <= KERNEL_TOL["float32"][0]:
+                fail(f"{name} {label} {dtype}: {stat} relative err {rel}")
+
     log("phase 2: kernels against their plain versions on the card")
     for dtype in ("bfloat16", "float32"):
         for label, (B, T, H, KV, hd, S, valid) in decode_main:
@@ -372,25 +404,39 @@ def check_kernels(ops, dev):
             po, pm, pl = ops.decode_attention_plain(*inp, scale=hd ** -0.5,
                                                     return_stats=True)
             err = compare("decode_attention", o, po, dtype, label)
-            # stats: relative to 1 + |value| (l grows with the visible keys)
-            for stat, got, want in (("m", m, pm), ("l", l, pl)):
-                rel = ((got - want).abs() / (1 + want.abs())).max().item()
-                if not rel <= KERNEL_TOL["float32"][0]:
-                    fail(f"decode_attention {label} {dtype}: {stat} relative "
-                         f"err {rel}")
+            check_stats("decode_attention", label, dtype, (m, l), (pm, pl))
             if dtype == "bfloat16":
                 worst["decode_attention"] = max(worst["decode_attention"], err)
                 rows[("decode_attention", label)] = inp
-        sweep = [(2, 6, 4, 2, 64, 256, 192, 0), (1, 1, 4, 4, 32, 512, 384, 0),
-                 (2, 6, 4, 2, 64, 256, 192, 64), (1, 8, 2, 1, 128, 96, 72, 0)]
-        for B, T, H, KV, hd, S, valid, window in sweep:
+        # the JAX kernel sweep's shapes, then the edges of the split-K body:
+        # at target verify phase 1 (16 chunks of 64 slots) the chunks past
+        # the 576 live slots hold no live key
+        sweep = [("sweep", (2, 6, 4, 2, 64, 256, 192, 0)),
+                 ("sweep", (1, 1, 4, 4, 32, 512, 384, 0)),
+                 ("sweep", (2, 6, 4, 2, 64, 256, 192, 64)),
+                 ("sweep", (1, 8, 2, 1, 128, 96, 72, 0)),
+                 ("S not a multiple of the chunk",
+                  (8, 6, 12, 2, 128, 1000, 600, 0)),
+                 ("every key empty", (8, 6, 12, 2, 128, 1024, 0, 0)),
+                 ("window across chunks", (8, 6, 12, 2, 128, 1024, 600, 100)),
+                 ("row tiles x splits, live keys",
+                  (1, 200, 12, 2, 128, 1024, 600, 0)),
+                 ("row tiles x splits, window",
+                  (1, 200, 12, 2, 128, 1024, 600, 150))]
+        for what, (B, T, H, KV, hd, S, valid, window) in sweep:
+            label = f"{what} {(B, T, H, KV, hd, S)} w{window}"
             inp = decode_case(dev, dtype, B, T, H, KV, hd, S, valid)
-            o = ops.decode_attention(*inp, scale=hd ** -0.5, window=window)
+            o, m, l = ops.decode_attention(*inp, scale=hd ** -0.5,
+                                           window=window, return_stats=True)
             torch.cuda.synchronize()
-            compare("decode_attention", o,
-                    ops.decode_attention_plain(*inp, scale=hd ** -0.5,
-                                               window=window),
-                    dtype, f"sweep {(B, T, H, KV, hd, S)} window {window}")
+            po, pm, pl = ops.decode_attention_plain(
+                *inp, scale=hd ** -0.5, window=window, return_stats=True)
+            compare("decode_attention", o, po, dtype, label)
+            check_stats("decode_attention", label, dtype, (m, l), (pm, pl))
+            if valid == 0 and not (o.abs().max().item() == 0.0
+                                   and (l == 0).all() and (m == -1e30).all()):
+                fail(f"decode_attention {label} {dtype}: rows that see no "
+                     f"key are not zeros with l 0, m -1e30")
 
         # paged phase 1 at the serving shapes: the drafter's draft block
         # sits one position back (anchor c - 1), its cache below it
@@ -413,35 +459,46 @@ def check_kernels(ops, dev):
             po, pm, pl = ops.paged_decode_attention_plain(
                 *inp, scale=hd ** -0.5, return_stats=True)
             err = compare("paged_decode_attention", o, po, dtype, label)
-            for stat, got, want in (("m", m, pm), ("l", l, pl)):
-                rel = ((got - want).abs() / (1 + want.abs())).max().item()
-                if not rel <= KERNEL_TOL["float32"][0]:
-                    fail(f"paged_decode_attention {label} {dtype}: {stat} "
-                         f"relative err {rel}")
+            check_stats("paged_decode_attention", label, dtype, (m, l),
+                        (pm, pl))
             if dtype == "bfloat16" and not label.startswith("sweep"):
                 worst["paged_decode_attention"] = max(
                     worst["paged_decode_attention"], err)
                 rows[("paged_decode_attention", label)] = inp
 
         g = torch.Generator(device=dev).manual_seed(1)
-        flash =[("target prefill", (8, 512, 512, 12, 2, 128), True, 0, 0.0)]
+        # the paths' shapes (prefill, training tap, an admission bucket)
+        # first, then the JAX kernel sweep's and the edges of the
+        # tensor-core body: ragged query and key tiles, one token, Sq != Skv
+        # and keys at index >= kv_len
+        flash = [(label, shp, True, 0, 0.0, 0) for label, shp in FLASH_MAIN]
         for shp in [(2, 128, 128, 4, 2, 64), (1, 256, 256, 4, 4, 32),
                     (1, 64, 192, 2, 1, 128), (2, 96, 96, 6, 2, 64)]:
             for causal, window, cap in [(True, 0, 0.0), (True, 64, 0.0),
                                         (True, 0, 50.0), (False, 0, 0.0)]:
                 flash.append((f"sweep {shp} c{int(causal)} w{window} cap{cap:g}",
-                              shp, causal, window, cap))
-        for label, (B, Sq, Skv, H, KV, hd), causal, window, cap in flash:
+                              shp, causal, window, cap, 0))
+        for shp, causal, kv_len in [((8, 500, 500, 12, 2, 128), True, 0),
+                                    ((1, 1, 1, 12, 2, 128), True, 0),
+                                    ((2, 100, 300, 4, 2, 64), True, 0),
+                                    ((2, 300, 100, 4, 2, 64), True, 0),
+                                    ((2, 256, 256, 4, 2, 64), True, 200),
+                                    ((2, 200, 256, 4, 2, 128), False, 150)]:
+            flash.append((f"edge {shp} c{int(causal)} kv_len {kv_len}", shp,
+                          causal, 0, 0.0, kv_len))
+        for label, shp, causal, window, cap, kv_len in flash:
+            B, Sq, Skv, H, KV, hd = shp
             q, k, v = qkv(g, dev, dtype, (B, Sq, H, hd), (B, Skv, KV, hd))
             kw = dict(scale=hd ** -0.5, causal=causal, window=window,
-                      softcap=cap)
+                      softcap=cap, kv_len=kv_len)
             o = ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             err = compare("flash_attention", o,
                           ops.flash_attention_plain(q, k, v, **kw), dtype,
                           label)
-            if label == "target prefill" and dtype == "bfloat16":
-                worst["flash_attention"] = err
+            if dtype == "bfloat16" and label in dict(FLASH_MAIN):
+                if label == "target prefill":
+                    worst["flash_attention"] = err
                 rows[("flash_attention", label)] = (q, k, v)
 
     log("phase 2: timing at the serving shapes (bfloat16; CUDA events)")
@@ -507,6 +564,9 @@ def check_kernels(ops, dev):
             f"{flops / 1e9:.3f} GFLOP)")
     log("phase 2: the MTP kernel against its plain version")
     measured["mtp_attention"] = check_mtp(ops, dev, compare)
+    log("phase 2: the worst share of the limit, per kernel: " + ", ".join(
+        f"{name} {dtype} {share:.3f}"
+        for (name, dtype), share in sorted(shares.items())))
     log("phase 2: flash training attention gradients (float32, TF32 off)")
     check_mtp_backward(dev)
     return worst, measured

@@ -2,8 +2,8 @@
 plain C interface and load them with ctypes.
 
 Each ``<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so`` at the
-root of the checkout, where ``<hash>`` covers the source, the shared header
-and the flags, so an edited source is rebuilt and an unchanged one is
+root of the checkout, where ``<hash>`` covers the source, every header of
+``csrc`` and the flags, so an edited source is rebuilt and an unchanged one is
 loaded as is. Sources are compiled at first use, one ``nvcc`` per source,
 all started together. A failed build raises with nvcc's output.
 
@@ -35,7 +35,8 @@ _FLT = ctypes.c_float
 # C signatures of the entry points (every pointer and the stream as void*)
 SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
-                         [_PTR] * 8 + [_INT] * 6 + [_FLT, _INT, _INT, _PTR]),
+                         [_PTR] * 11 + [_INT] * 6
+                         + [_FLT] + [_INT] * 6 + [_PTR]),
     "paged_decode_attention": ("paged_decode_attention_launch",
                                [_PTR] * 9 + [_INT] * 8
                                + [_FLT, _INT, _INT, _PTR]),
@@ -65,7 +66,7 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for f in (CSRC / f"{name}.cu", CSRC / "attention_common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

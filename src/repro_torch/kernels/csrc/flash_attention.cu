@@ -9,16 +9,21 @@
 // parallel across the SMs.
 //
 // What bounds it on this card: at the serving prefill shape (B 8, 512
-// tokens, 12 heads over 2 KV heads, hd 128) a launch moves about 29 MB and
-// does about 6.4 GFLOP causal: bytes bound by a small margin on the
-// tensor-core roofline, but this kernel does its products with f32 FMAs on
-// the CUDA cores (67 TFLOP/s peak), where the FLOPs are the limit. What the
-// design does about it: a block holds 64 query rows, ordered (token, head)
-// so the 6 heads sharing a KV head read each K/V tile once, and tiles past
-// the causal edge of the block's last token are skipped, which halves the
-// work of a causal prefill. Tensor-core MMAs (mma.sync / wgmma), TMA and
-// warp specialisation are left to later work.
+// tokens, 12 heads over 2 KV heads, hd 128) a launch moves 29.4 MB and
+// needs 6.46 GFLOP causal: bytes by a small margin on the tensor-core
+// roofline (8.76 µs).
+//
+// Two bodies, chosen by dtype:
+//   - bfloat16: flash_tc.cuh, FlashAttention-2 style on the tensor cores
+//     (wgmma, P·V as a hi/lo pair of bf16 products) with a two-stage
+//     cp.async ring of 64-key K/V tiles, one warpgroup per (b, head, 64
+//     queries);
+//   - float32: attention_common.cuh's f32-FMA body, a block of 64 rows
+//     ordered (token, head) so the heads sharing a KV head read each K/V
+//     tile once; its 1e-4 absolute limit admits neither bf16 MMAs nor TF32.
+// Both skip the key tiles past the causal edge of the block's last query.
 #include "attention_common.cuh"
+#include "flash_tc.cuh"
 
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
@@ -27,12 +32,11 @@ extern "C" int flash_attention_launch(
   constexpr int kRows = 64;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    repro_attn::Params<__nv_bfloat16> p{
+    repro_flash_tc::Params p{
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), nullptr, nullptr,
-        static_cast<__nv_bfloat16*>(out), nullptr, nullptr,
-        B, Sq, H, KV, Skv, kv_len, causal, window, scale, softcap};
-    return repro_attn::launch<kRows>(p, hd, st);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+        B, Sq, Skv, H, KV, kv_len, causal, window, scale, softcap};
+    return repro_flash_tc::launch(p, hd, st);
   }
   repro_attn::Params<float> p{
       static_cast<const float*>(q), static_cast<const float*>(k),

@@ -11,14 +11,20 @@ row, (B, M); shared (M,) metadata is broadcast. ``paged_decode_attention``
 reads K/V and positions from a shared page pool through a per-row block
 table; its plain version gathers each row's pages into a contiguous view.
 
-``launches`` counts kernel launches per kernel, so a run can show that the
-serving path went through the kernels; ``reset_launches`` zeroes it. The
+The bfloat16 decode kernel splits the cache slots across blocks (split-K);
+``decode_split`` chooses the split, and the wrapper allocates the
+partials' scratch.
+
+``launches`` counts kernel calls per kernel (a split decode call, its
+combine pass included, counts once), so a run can show that the serving
+path went through the kernels; ``reset_launches`` zeroes it. The
 plain versions stay callable as ``*_plain`` for the card tests and the
 chip smoke test, which hold each kernel against its plain version.
 """
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -96,10 +102,41 @@ def decode_attention_plain(q, k, v, k_positions, q_positions, *, scale,
     return (out, m, l) if return_stats else out
 
 
+# The bfloat16 decode kernel's tiles, mirrors of kBK, kRows and kMaxTiles in
+# csrc/decode_splitk.cuh: keys per tile, packed (query, head) rows per
+# block, key tiles per chunk at most. The launch rejects a key or row tile
+# that differs from the kernel's, and a chunk of more tiles than it holds.
+DECODE_KEY_TILE = 64
+DECODE_ROW_TILE = 64
+DECODE_MAX_CHUNK_TILES = 256
+
+
+def decode_split(S: int, row_blocks: int, n_sm: int) -> Tuple[int, int]:
+    """Split-K of the bfloat16 decode kernel: (splits, chunk). The S cache
+    slots are cut into ``splits`` contiguous chunks of ``chunk`` slots (the
+    last one may be shorter), ``chunk`` a multiple of the key tile. Each
+    split runs ``row_blocks`` blocks (row tiles x batch x KV heads); the
+    count aims at about two waves of blocks on ``n_sm`` SMs and is 1 when
+    the row blocks alone fill the card."""
+    tiles = max(1, -(-S // DECODE_KEY_TILE))
+    chunk_tiles = tiles
+    if row_blocks < n_sm:   # at least the wanted splits, if tiles allow
+        want = -(-2 * n_sm // max(row_blocks, 1))
+        chunk_tiles = max(1, tiles // want)
+    chunk_tiles = min(chunk_tiles, DECODE_MAX_CHUNK_TILES)
+    return -(-tiles // chunk_tiles), chunk_tiles * DECODE_KEY_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
                      return_stats=False):
     """Decode attention (see ``decode_attention_plain``): the CUDA kernel of
-    ``csrc/decode_attention.cu`` for CUDA tensors."""
+    ``csrc/decode_attention.cu`` for CUDA tensors, split across the cache
+    slots by ``decode_split`` in bfloat16."""
     if _device_kind(q) == "cpu":
         return decode_attention_plain(q, k, v, k_positions, q_positions,
                                       scale=scale, window=window,
@@ -109,15 +146,26 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
     S, KV = k.shape[1], k.shape[2]
     _check_int32(q, k_positions=(k_positions, (B, S)),
                  q_positions=(q_positions, (B, T)))
+    G = H // KV
     out = torch.empty_like(q)
-    m = torch.empty((B, KV, H // KV, T), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, KV, G, T), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    bf16 = q.dtype == torch.bfloat16
+    nsplit, chunk, scratch = 1, S, []
+    if bf16:   # the f32 body walks each row's slots in one block
+        row_blocks = -(-G * T // DECODE_ROW_TILE) * B * KV
+        nsplit, chunk = decode_split(S, row_blocks, _sm_count(q.device.index))
+    if nsplit > 1:   # the partials (o, m, l) of each (split, row), one buffer
+        n = B * KV * nsplit * G * T
+        buf = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+        scratch = [buf[:n * hd], buf[n * hd:n * (hd + 1)], buf[n * (hd + 1):]]
+    scratch_ptrs = [t.data_ptr() for t in scratch] or [None] * 3
     lib = build.library("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_positions.data_ptr(),
         q_positions.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, T, H, KV, S, hd, float(scale), int(window),
-        int(q.dtype == torch.bfloat16),
+        *scratch_ptrs, B, T, H, KV, S, hd, float(scale), int(window), nsplit,
+        chunk, DECODE_KEY_TILE, DECODE_ROW_TILE, int(bf16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["decode_attention"] += 1
     _raise_on(lib, err, "decode_attention")

@@ -1,6 +1,7 @@
 """Plain-PyTorch twins of the JAX package's attention oracles
 (``kernels/ref.py``): dense-mask softmax attention, the ground truth the
-kernels and their plain versions are held against."""
+kernels and their plain versions are held against; and the split-K decode
+kernel's combine pass, written out in plain PyTorch."""
 from __future__ import annotations
 
 import torch
@@ -76,3 +77,30 @@ def mtp_reference(q, k, v, pos, depth, *, scale):
     ok = mtp_mask_predicate(depth, pos, depth, pos)       # (M,M) or (B,M,M)
     ok = ok[None, None, None] if ok.dim() == 2 else ok[:, None, None]
     return _attend(q, k, v, ok, scale)
+
+
+def decode_combine(po, pm, pl, B, T, H, KV):
+    """The combine pass of the split-K bfloat16 decode kernel
+    (``csrc/decode_splitk.cuh``) in plain PyTorch, on its scratch layout:
+    per (b, KV head) and row r = t * G + g, the splits' unnormalised partial
+    outputs po (B * KV, n, G * T, hd) with their stats pm, pl
+    (B * KV, n, G * T) are rescaled by exp(m_i - m), summed and divided by
+    l = sum_i l_i exp(m_i - m), m the largest m_i. Splits with l_i == 0 drop
+    out (their po is never read) and rows with l == 0 are zeros with
+    m = NEG_INF. Returns out (B, T, H, hd) float32 and (m, l), each
+    (B, KV, G, T)."""
+    G, hd = H // KV, po.shape[-1]
+    live = pl > 0
+    m = torch.where(live, pm, NEG_INF).amax(1)                  # (B*KV, R)
+    w = torch.where(live, torch.exp(pm - m[:, None]), 0.0)      # (B*KV, n, R)
+    l = (pl * w).sum(1)
+    o = torch.where(live[..., None], po * w[..., None], 0.0).sum(1)
+    o = torch.where((l > 0)[..., None], o / l.clamp_min(1e-30)[..., None],
+                    0.0)
+    out = o.reshape(B, KV, T, G, hd).permute(0, 2, 1, 3, 4).reshape(
+        B, T, H, hd)
+
+    def stats(x):   # (B*KV, T*G) -> (B, KV, G, T)
+        return x.reshape(B, KV, T, G).permute(0, 1, 3, 2)
+
+    return out, stats(m), stats(l)

@@ -51,6 +51,17 @@ def _tol(dtype):
     (2, 6, 4, 2, 64, 256, 192, 64),        # window
     (1, 8, 2, 1, 128, 96, 72, 0),          # ragged key tail
     (1, 1, 4, 4, 32, 512, 384, 0),
+    (8, 6, 12, 2, 128, 1000, 600, 0),      # S not a multiple of the chunk
+    (8, 6, 12, 2, 128, 1024, 0, 0),        # every key empty: zeros, l 0
+    (8, 6, 12, 2, 128, 1024, 600, 100),    # window across chunk edges
+    (8, 6, 12, 12, 128, 1024, 600, 0),     # drafter extend, phase 1
+    # batch-1 admission extend: several row tiles, each split 4 ways
+    (1, 511, 12, 12, 128, 1024, 0, 0),     # phase 1: empty cache
+    (1, 511, 12, 12, 128, 511, 511, 0),    # phase 2, bucket 512
+    (1, 255, 12, 12, 128, 255, 255, 0),    # phase 2, bucket 256
+    (1, 638, 12, 12, 128, 638, 638, 0),    # phase 2, exact length
+    (1, 200, 12, 2, 128, 1024, 600, 0),    # row tiles x splits, live keys
+    (1, 200, 12, 2, 128, 1024, 600, 150),  # ... and a window
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
                                      window):
@@ -72,21 +83,68 @@ def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
     torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+    dead = (l == 0).permute(0, 3, 1, 2).reshape(B, T, H)   # rows seeing no key
+    if dead.any():
+        assert out[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("T,H,KV,valid", [
+    (6, 12, 2, 576),       # target verify, phase 1
+    (5, 12, 12, 575),      # drafter draft, phase 1
+    (6, 12, 12, 576),      # drafter extend, phase 1
+])
+def test_decode_serving_shapes_split_and_count_once(card, T, H, KV, valid):
+    """At the serving path's phase-1 shapes the bfloat16 kernel splits the
+    1024 cache slots across blocks, and a call (pass 1 and its combine)
+    still moves the launch counter by one."""
+    B, hd, S = 8, 128, 1024
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    row_blocks = -(-(H // KV) * T // ops.DECODE_ROW_TILE) * B * KV
+    splits, _ = ops.decode_split(S, row_blocks, n_sm)
+    assert splits > 1
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = _qkv(g, (B, T, H, hd), (B, S, KV, hd), torch.bfloat16, card)
+    kpos = torch.arange(S, dtype=torch.int32, device=card)[None].repeat(B, 1)
+    kpos = torch.where(kpos < valid, kpos, -1).to(torch.int32).contiguous()
+    qpos = (valid + torch.arange(T, dtype=torch.int32, device=card))[
+        None].repeat(B, 1)
+    before = ops.launches["decode_attention"]
+    out = ops.decode_attention(q, k, v, kpos, qpos, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert ops.launches["decode_attention"] == before + 1
+    want = ops.decode_attention_plain(q, k, v, kpos, qpos, scale=hd ** -0.5)
+    torch.testing.assert_close(out.float(), want.float(), atol=1e-4,
+                               rtol=2 ** -6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,cap", [
-    (8, 512, 512, 12, 2, 128, True, 0, 0.0),   # target prefill
-    (2, 128, 128, 4, 2, 64, True, 0, 0.0),
-    (1, 256, 256, 4, 4, 32, True, 64, 0.0),
-    (1, 64, 192, 2, 1, 128, False, 0, 0.0),
-    (2, 96, 96, 6, 2, 64, True, 0, 50.0),
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,cap,kv_len", [
+    (8, 512, 512, 12, 2, 128, True, 0, 0.0, 0),    # target prefill
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0, 0),
+    (1, 256, 256, 4, 4, 32, True, 64, 0.0, 0),
+    (1, 64, 192, 2, 1, 128, False, 0, 0.0, 0),
+    (2, 96, 96, 6, 2, 64, True, 0, 50.0, 0),
+    (8, 500, 500, 12, 2, 128, True, 0, 0.0, 0),    # ragged query and key tiles
+    (1, 1, 1, 12, 2, 128, True, 0, 0.0, 0),
+    (1, 2048, 2048, 12, 2, 128, True, 0, 0.0, 0),  # training tap
+    (2, 100, 300, 4, 2, 64, True, 0, 0.0, 0),      # Sq < Skv
+    (2, 300, 100, 4, 2, 64, True, 0, 0.0, 0),      # Sq > Skv
+    (2, 256, 256, 4, 2, 64, True, 0, 0.0, 200),    # kv_len < Skv
+    (2, 200, 256, 4, 2, 128, False, 0, 0.0, 150),
+    (2, 160, 160, 4, 2, 32, True, 64, 0.0, 0),     # window, each head dim
+    (2, 160, 160, 4, 2, 64, True, 64, 0.0, 0),
+    (2, 160, 160, 4, 2, 128, True, 64, 0.0, 0),
+    (2, 160, 160, 4, 2, 32, True, 0, 50.0, 0),     # softcap, each head dim
+    (2, 160, 160, 4, 2, 128, True, 0, 50.0, 0),
+    (2, 160, 160, 4, 2, 32, False, 0, 0.0, 0),     # non-causal
+    (2, 160, 160, 4, 2, 64, False, 0, 0.0, 0),
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, Sq, Skv, H, KV, hd,
-                                    causal, window, cap):
+                                    causal, window, cap, kv_len):
     g = torch.Generator(device=card).manual_seed(1)
     q, k, v = _qkv(g, (B, Sq, H, hd), (B, Skv, KV, hd), dtype, card)
-    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=cap)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=cap,
+              kv_len=kv_len)
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     atol, rtol = _tol(dtype)

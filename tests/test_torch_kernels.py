@@ -199,3 +199,168 @@ def test_card_bf16_limit_fails_a_dropped_key_tile(T, H, KV, valid):
     lost = ops.decode_attention_plain(q, k, v, dropped, qpos, scale=hd ** -0.5)
     assert used(reordered) <= 0.5
     assert used(lost) > 100.0
+
+
+def _used(got, want):
+    """The worst element's share of the card's bfloat16 limit."""
+    d = (got.float() - want.float()).abs()
+    return float((d / (1e-4 + 2 ** -6 * want.float().abs())).max())
+
+
+def _emulate_pv(q, k, v, ok, scale, p_round):
+    """Attention in float32 with P rounded by ``p_round`` before P·V, as a
+    tensor-core kernel would feed it, output rounded to q's dtype: q
+    (B,Sq,H,hd), k/v (B,Skv,KV,hd), ok (B,1,1,Sq,Skv) or (Sq,Skv)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qr = q.reshape(B, Sq, KV, G, hd).float()
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qr, k.float()) * scale
+    s = torch.where(ok, s, ref.NEG_INF)
+    p = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = sum(torch.einsum("bkgqj,bjkd->bkgqd", part, v.float())
+            for part in p_round(p)) / l.clamp_min(1e-30)
+    o = torch.where(l > 0, o, 0.0)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _bf16_p(p):
+    return [p.to(torch.bfloat16).float()]
+
+
+def _hi_lo_p(p):
+    hi = p.to(torch.bfloat16).float()
+    return [hi, (p - hi).to(torch.bfloat16).float()]
+
+
+@pytest.mark.parametrize("shape", ["target prefill", "target verify"])
+def test_card_bf16_limit_rejects_bf16_rounded_p(shape):
+    """Why the bfloat16 kernels feed P·V as a hi/lo pair of bf16 products:
+    on the card's inputs (score std 2) a P rounded to bf16 before P·V uses
+    more than the whole elementwise limit 1e-4 + 2^-6 |plain| the card
+    holds a bf16 kernel to, while hi = bf16(p), lo = bf16(p - hi) uses at
+    most half of it, as a float32 P does (one output rounding step)."""
+    g = torch.Generator().manual_seed(0)
+    hd = 128
+    if shape == "target prefill":       # B 2 of the B 8 x 512 prefill
+        B, Sq, Skv, H, KV = 2, 512, 512, 12, 2
+    else:                               # phase 1, 576 live of 1024 slots
+        B, Sq, Skv, H, KV = 8, 6, 1024, 12, 2
+    q, k, v = ((sc * torch.randn(sh, generator=g)).to(torch.bfloat16)
+               for sc, sh in ((2.0, (B, Sq, H, hd)), (1.0, (B, Skv, KV, hd)),
+                              (1.0, (B, Skv, KV, hd))))
+    if shape == "target prefill":
+        want = ops.flash_attention_plain(q, k, v, scale=hd ** -0.5)
+        idx = torch.arange(Sq)
+        ok = idx[:, None] >= idx[None, :]
+    else:
+        kpos = torch.arange(Skv, dtype=torch.int32)[None].repeat(B, 1)
+        kpos = torch.where(kpos < 576, kpos, -1).to(torch.int32)
+        qpos = (576 + torch.arange(Sq, dtype=torch.int32))[None].repeat(B, 1)
+        want = ops.decode_attention_plain(q, k, v, kpos, qpos,
+                                          scale=hd ** -0.5)
+        ok = ((kpos[:, None, :] >= 0)
+              & (kpos[:, None, :] <= qpos[:, :, None]))[:, None, None]
+    rounded = _emulate_pv(q, k, v, ok, hd ** -0.5, _bf16_p)
+    split = _emulate_pv(q, k, v, ok, hd ** -0.5, _hi_lo_p)
+    assert _used(rounded, want) > 1.0
+    assert _used(split, want) <= 0.5
+
+
+# the decode serving shapes: (B, T, H, KV), S 1024
+_DECODE_SERVING = {"target verify": (8, 6, 12, 2),
+                   "drafter draft": (8, 5, 12, 12),
+                   "drafter prefill extend": (8, 511, 12, 12)}
+
+
+def _row_blocks(B, T, H, KV):
+    return -(-(H // KV) * T // ops.DECODE_ROW_TILE) * B * KV
+
+
+@pytest.mark.parametrize("shape", list(_DECODE_SERVING))
+@pytest.mark.parametrize("S", [6, 511, 1000, 1024, 40000])
+@pytest.mark.parametrize("n_sm", [132, 114, 16])
+def test_decode_split_cuts_every_slot_once(shape, S, n_sm):
+    """decode_split cuts the S slots into contiguous chunks, each a
+    multiple of the key tile and at most DECODE_MAX_CHUNK_TILES tiles, and
+    none empty, so every slot lies in exactly one chunk; a launch of row
+    tiles that already fills the card is not split."""
+    B, T, H, KV = _DECODE_SERVING[shape]
+    rb = _row_blocks(B, T, H, KV)
+    splits, chunk = ops.decode_split(S, rb, n_sm)
+    tile = ops.DECODE_KEY_TILE
+    assert splits >= 1 and chunk % tile == 0
+    assert chunk <= ops.DECODE_MAX_CHUNK_TILES * tile
+    owner = torch.arange(S) // chunk            # the chunk of each slot
+    assert int(owner.max()) == splits - 1
+    assert torch.bincount(owner, minlength=splits).min() > 0
+    if rb >= n_sm and S <= ops.DECODE_MAX_CHUNK_TILES * tile:
+        assert splits == 1
+    if rb < n_sm:   # about two waves, unless the tiles run out first
+        assert splits * rb >= 2 * n_sm or splits == -(-S // tile)
+
+
+def test_decode_split_at_the_serving_shapes():
+    """On an H100's 132 SMs: phase 1 of the target verify and the drafter's
+    draft split the 1024 slots, the drafter's prefill extend (T 511) and
+    every phase 2 (S <= 6) do not. The batch-1 admission extend (T 511 or
+    an exact 638, 12 KV heads) has 8-10 row tiles and still splits 4
+    ways, in both phases."""
+    for shape, want in (("target verify", (16, 64)),
+                        ("drafter draft", (4, 320)),
+                        ("drafter prefill extend", (1, 1024))):
+        assert ops.decode_split(1024, _row_blocks(*_DECODE_SERVING[shape]),
+                                132) == want
+    assert ops.decode_split(6, _row_blocks(8, 6, 12, 2), 132) == (1, 64)
+    for T, S, want in ((511, 1024, (4, 320)), (511, 511, (4, 128)),
+                       (638, 638, (4, 192)), (255, 255, (4, 64))):
+        rb = _row_blocks(1, T, 12, 12)
+        assert rb // 12 > 1      # several row tiles per (b, KV head)
+        assert ops.decode_split(S, rb, 132) == want
+
+
+@pytest.mark.parametrize("shape", ["target verify", "drafter draft"])
+def test_decode_chunks_merged_equal_one_pass(shape):
+    """The plain decode run over each chunk decode_split chooses, its
+    partials put in the kernel's scratch layout and merged by the plain
+    copy of the combine pass (ref.decode_combine), equals one pass over all
+    slots within 3e-5 in float32. The cache holds 576 live slots of 1024,
+    so the last chunks hold no live key, and batch row 1 is empty, so its
+    rows see no key (zeros, l 0, m NEG_INF)."""
+    B, T, H, KV = _DECODE_SERVING[shape]
+    S, hd, G = 1024, 64, H // KV
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(_rand(rng, sh)) for sh in (
+        (B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    kpos = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+    kpos = torch.where(kpos < 576, kpos, -1).to(torch.int32)
+    kpos[1] = -1
+    qpos = (576 + torch.arange(T, dtype=torch.int32))[None].repeat(B, 1)
+    splits, chunk = ops.decode_split(S, _row_blocks(B, T, H, KV), 132)
+    assert splits > 1
+    po, pm, pl = [], [], []
+    for c0 in range(0, S, chunk):
+        o, m, l = ops.decode_attention_plain(
+            q, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk],
+            kpos[:, c0:c0 + chunk].contiguous(), qpos, scale=hd ** -0.5,
+            return_stats=True)
+
+        def rows(x):   # (B, KV, G, T) -> (B*KV, T*G), row r = t*G + g
+            return x.permute(0, 1, 3, 2).reshape(B * KV, T * G)
+
+        lr = rows(l)
+        o = o.reshape(B, T, KV, G, hd).permute(0, 2, 1, 3, 4).reshape(
+            B * KV, T * G, hd) * lr[..., None]          # unnormalised
+        po.append(torch.where(lr[..., None] > 0, o, float("nan")))
+        pm.append(rows(m))
+        pl.append(lr)
+    out, m, l = ref.decode_combine(torch.stack(po, 1), torch.stack(pm, 1),
+                                   torch.stack(pl, 1), B, T, H, KV)
+    want, wm, wl = ops.decode_attention_plain(q, k, v, kpos, qpos,
+                                              scale=hd ** -0.5,
+                                              return_stats=True)
+    for got, exp in ((out, want), (m, wm), (l, wl)):
+        torch.testing.assert_close(got, exp, atol=3e-5, rtol=3e-5)
+    assert out[1].abs().max().item() == 0.0
+    assert (l[1] == 0).all() and (m[1] == ref.NEG_INF).all()
