@@ -23,22 +23,32 @@ Phases, in order; any failure exits non-zero:
    and one PyTorch call for the same function (scaled_dot_product_attention,
    a yardstick the port never calls) timed with CUDA events, beside the
    least time the card could take (bytes over 3.35 TB/s or FLOPs over the
-   dtype's peak, whichever is larger). The bfloat16 decode and flash
-   kernels run tensor-core bodies (split-K decode, FlashAttention-2 style
-   flash), so their edges are checked too: decode with S not a multiple of
-   the split chunk, chunks holding no live key, rows seeing no key (zeros,
-   l 0, m -1e30), a window across chunks and T 511; flash with ragged
-   query and key tiles (500 tokens), one token, Sq != Skv and kv_len < Skv.
+   dtype's peak, whichever is larger). The bfloat16 decode, paged decode
+   and flash kernels and the MTP kernel run tensor-core bodies (split-K
+   decode, the same body through a block table for paged, FlashAttention-2
+   style flash, a depth-split key walk in 3xTF32 for MTP), so their edges
+   are checked too: decode with S not a multiple of the split chunk, chunks
+   holding no live key, rows seeing no key (zeros, l 0, m -1e30), a window
+   across chunks and T 511; paged with 64-key tiles over 8, 4 and 2 pages,
+   nb x page not a multiple of 64, -1 and out-of-pool ids inside live
+   tiles, one split and many, and tables all -1, one launch count a call;
+   flash with ragged query and key tiles (500 tokens), one token,
+   Sq != Skv and kv_len < Skv.
    Flash is timed at the prefill (B 8 x 512), a training tap (B 1 x 2048)
    and an admission bucket (B 1 x 512), decode at every serving phase.
    The MTP kernel is held against its plain version, output and stats
    (m, l), at the training shape (n 2048, K 8, r 0.8: M 8522, the
    drafter's 12/12 heads), at the largest Algorithm-1 segment of n 4096 in
-   4 segments, at the JAX kernel sweep's
-   shapes (per-row layouts, GQA, pad rows) and on a padding-rows case; its
-   SDPA yardstick takes the dense predicate mask, built outside the timed
-   call. The paged decode kernel is held against its plain version (which
-   gathers each row's pages) at the serving path's phase-1 shapes (batch 8,
+   4 segments (its depth-0 context before an interleaved block), at the
+   JAX kernel sweep's shapes (per-row layouts, GQA, pad rows), on a COD
+   layout in random order, on GQA segments, on a layout with no chain keys
+   (K 1) and on a padding-rows case; its SDPA yardstick takes the dense
+   predicate mask, built outside the timed call, and its time stands beside
+   two bounds, both logged: f32 FLOPs at the f32 FMA peak, and the 3xTF32
+   split's three TF32 products at the TF32 tensor-core peak; the kernels
+   line's bound_ms is the smaller (for float32, the tensor-core one). The
+   paged decode kernel is held against its plain version (which gathers
+   each row's pages) at the serving path's phase-1 shapes (batch 8,
    page 16, 64 table entries a row, pages drawn at random from the pool, so
    tables are fragmented) and at the JAX kernel sweep's shapes; no single
    PyTorch call computes it, so its yardstick is a gather of the pages and
@@ -103,7 +113,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, tensor / CUDA cores
+# dense peaks: bf16 and TF32 on the tensor cores, f32 on the CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 L2_BYTES = 50e6
 SLEEP_CYCLES_PER_S = 2e9        # torch.cuda._sleep counts SM clock cycles
 # (atol, rtol) of |kernel - plain| <= atol + rtol * |plain|, elementwise.
@@ -451,17 +462,48 @@ def check_kernels(ops, dev):
                                  (3, 4, 2, 1, 128, 16, 8, 6)]):
             cases.append((f"sweep {shp}",
                           paged_sweep_case(dev, dtype, *shp, seed=10 + i)))
+        # the edges of the split-K body: a 64-key tile over 8 or 2 pages,
+        # nb x page not a multiple of 64, one split (row tiles fill the
+        # card), -1 and out-of-pool ids inside live tiles, tables all -1
+        for label, (B, T, page, nb, cc) in [
+                ("edge: tile over 8 pages, page 8", (8, 6, 8, 128, c)),
+                ("edge: tile over 2 pages, page 32", (8, 6, 32, 32, c)),
+                ("edge: nb x page 592", (8, 6, 16, 37, c)),
+                ("edge: one split, T 200", (4, 200, 16, 40, 300))]:
+            cases.append((label, paged_case(dev, dtype, B, T, 12, 2, 128,
+                                            page, nb, cc, seed=20)))
+        q, k, v, pos, table, qpos = paged_case(dev, dtype, 8, 6, 12, 2, 128,
+                                               16, 64, c, seed=21)
+        holes = table.clone()
+        n_live = -(-(c + 6) // 16)
+        holes[:, 0] = -1
+        holes[:, n_live // 2] = k.shape[0] + 7
+        holes[:, n_live - 1] = 2 ** 30
+        cases += [("edge: -1, out-of-pool ids in live tiles",
+                   (q, k, v, pos, holes, qpos)),
+                  ("edge: every table entry -1",
+                   (q, k, v, pos, torch.full_like(table, -1), qpos))]
         for label, inp in cases:
             hd = inp[0].shape[-1]
+            before = ops.launches["paged_decode_attention"]
             o, m, l = ops.paged_decode_attention(*inp, scale=hd ** -0.5,
                                                  return_stats=True)
             torch.cuda.synchronize()
+            if ops.launches["paged_decode_attention"] != before + 1:
+                fail(f"paged_decode_attention {label}: a call moved the "
+                     f"launch count by "
+                     f"{ops.launches['paged_decode_attention'] - before}")
             po, pm, pl = ops.paged_decode_attention_plain(
                 *inp, scale=hd ** -0.5, return_stats=True)
             err = compare("paged_decode_attention", o, po, dtype, label)
             check_stats("paged_decode_attention", label, dtype, (m, l),
                         (pm, pl))
-            if dtype == "bfloat16" and not label.startswith("sweep"):
+            if "every table entry -1" in label and not (
+                    o.abs().max().item() == 0.0 and (l == 0).all()
+                    and (m == -1e30).all()):
+                fail(f"paged_decode_attention {label} {dtype}: not zeros "
+                     f"with l 0, m -1e30")
+            if dtype == "bfloat16" and label in dict(paged_main):
                 worst["paged_decode_attention"] = max(
                     worst["paged_decode_attention"], err)
                 rows[("paged_decode_attention", label)] = inp
@@ -597,10 +639,19 @@ def mtp_segment_layout(n, K, r, S, seed):
     return cod.pad_to(seg.kv_pos, seg.kv_depth, M)
 
 
+def shuffled(layout, seed):
+    """A layout in random order (pad rows among the real ones)."""
+    perm = np.random.default_rng(seed).permutation(len(layout[0]))
+    return layout[0][perm], layout[1][perm]
+
+
 def mtp_case(dev, dtype, B, H, KV, hd, layouts, seed):
-    """q, k, v and per-row (B, M) pos/depth on the card, one layout a row."""
+    """q, k, v and per-row (B, M) pos/depth on the card, one layout a row
+    (padded with -1 to the longest)."""
+    from repro_torch.core import cod
     g = torch.Generator(device=dev).manual_seed(seed)
-    M = len(layouts[0][0])
+    M = max(len(p) for p, _ in layouts)
+    layouts = [cod.pad_to(p, d, M) for p, d in layouts]
     q, k, v = qkv(g, dev, dtype, (B, M, H, hd), (B, M, KV, hd))
     pos = torch.as_tensor(np.stack([p for p, _ in layouts]), device=dev)
     dep = torch.as_tensor(np.stack([d for _, d in layouts]), device=dev)
@@ -622,7 +673,9 @@ def mtp_visible(pos, dep, chunk=1024):
 def mtp_work(q, k, pos, dep):
     """Bytes and FLOPs of an MTP call for this data: q and out once, K/V of
     the live keys (depth >= 0; each sees itself) once, pos/depth once, the
-    (m, l) stats once, and 4·hd FLOPs per visible (query head, key) pair."""
+    (m, l) stats once, and 4·hd FLOPs per visible (query head, key) pair
+    (the 3xTF32 split does three TF32 products of each: 3x these FLOPs on
+    the tensor cores)."""
     B, M, H, hd = q.shape
     KV, es = k.shape[2], q.element_size()
     live = int((dep >= 0).sum())
@@ -645,14 +698,25 @@ def check_mtp(ops, dev, compare):
     """The MTP kernel against its plain version at every listed shape, in
     bfloat16 and float32, with its stats; returns the worst error per dtype
     at the training shape and the timed rows."""
-    cases = [("training shape n 2048 K 8 r 0.8", 1, 12, 12, 128,
+    timed_labels = ("training shape n 2048 K 8 r 0.8",
+                    "segment n 4096 K 8 r 0.8 S 4 (largest)")
+    cases = [(timed_labels[0], 1, 12, 12, 128,
               [mtp_layout(2048, 8, 0.8, seed=0, pad_to=1)]),
-             ("segment n 4096 K 8 r 0.8 S 4 (largest)", 1, 12, 12, 128,
+             (timed_labels[1], 1, 12, 12, 128,
               [mtp_segment_layout(4096, 8, 0.8, 4, seed=0)])]
     for n, K, r in [(48, 4, 0.7), (32, 8, 0.8), (24, 2, 0.5)]:
         for B, H, KV, hd in [(2, 4, 2, 64), (1, 2, 2, 32)]:
             cases.append((f"sweep n{n} K{K} r{r} {(B, H, KV, hd)}", B, H, KV,
                           hd, [mtp_layout(n, K, r, seed=b) for b in range(B)]))
+    # the edges of the depth-split walk: rows in random order, GQA segments
+    # (context before an interleaved block), no chain keys at all (K 1)
+    cases += [("edge: COD n 512 K 8 in random order", 1, 12, 12, 128,
+               [shuffled(mtp_layout(512, 8, 0.8, seed=5), seed=5)]),
+              ("edge: segments n 1024 S 4, GQA 4/2", 2, 4, 2, 64,
+               [mtp_segment_layout(1024, 8, 0.8, 4, seed=b)
+                for b in range(2)]),
+              ("edge: no chain keys, n 700 K 1", 1, 12, 12, 128,
+               [mtp_layout(700, 1, 0.8, seed=6)])]
     worst, timed = {}, {}
     for dtype in ("bfloat16", "float32"):
         for label, B, H, KV, hd, layouts in cases:
@@ -668,7 +732,7 @@ def check_mtp(ops, dev, compare):
                 if not rel <= STATS_TOL:
                     fail(f"mtp_attention {label} {dtype}: {stat} relative "
                          f"err {rel}")
-            if label.startswith(("training", "segment")):
+            if label in timed_labels:
                 worst[(label, dtype)] = err
                 timed[(label, dtype)] = inp
         # pad rows (depth -1) attend nothing and are written as zeros
@@ -701,15 +765,27 @@ def check_mtp(ops, dev, compare):
         lib = sdpa_mtp(*inp)
         lib_ms = time_ms(lambda: lib(), [()], 5, host_us=2000)
         del lib
-        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        # of the kernel's time: the wrapper's index lists (one int32 sort)
+        lists_ms = time_ms(ops.mtp_key_lists, [(pos, dep)], 20, host_us=500)
+        dt_ms, dt_by = bound(nbytes, flops, dtype)
+        # float32 runs as three TF32 products on the tensor cores, bfloat16
+        # (exact in TF32) as one for S and two for P·V
+        tc_flops = flops * (3 if dtype == "float32" else 1.5)
+        tc_ms, tc_by = bound(nbytes, tc_flops, "tf32")
+        # the least time the card could take: the smaller of the two
+        bound_ms, bound_by = min((dt_ms, dt_by), (tc_ms, tc_by))
         measured[(label, dtype)] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by, bytes=nbytes, flops=flops,
+            bound_by=bound_by, bound_dtype_ms=dt_ms, bound_tc_ms=tc_ms,
+            lists_ms=lists_ms, bytes=nbytes, flops=flops,
             max_abs_err=worst[(label, dtype)], M=q.shape[1])
-        log(f"  mtp_attention {label:38s} {dtype:8s} {ms:8.3f} ms  plain "
+        log(f"  mtp_attention {label:38s} {dtype:8s} {ms:8.3f} ms (index "
+            f"lists {lists_ms:.3f} ms of it)  plain "
             f"{plain_ms:8.3f} ms  sdpa {lib_ms:8.3f} ms  bound {bound_ms:7.4f}"
-            f" ms ({bound_by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-            f"GFLOP, M {q.shape[1]})")
+            f" ms ({bound_by}; {nbytes / 1e6:.1f} MB, M {q.shape[1]}): "
+            f"{dt_ms:7.4f} ms ({dt_by}; {flops / 1e9:.2f} GFLOP at the "
+            f"{dtype} peak), {tc_ms:7.4f} ms ({tc_by}; {tc_flops / 1e9:.2f} "
+            f"GFLOP of 3xTF32 products at the TF32 tensor-core peak)")
         torch.cuda.empty_cache()
     return measured
 

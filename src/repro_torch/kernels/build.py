@@ -38,13 +38,13 @@ SIGNATURES = {
                          [_PTR] * 11 + [_INT] * 6
                          + [_FLT] + [_INT] * 6 + [_PTR]),
     "paged_decode_attention": ("paged_decode_attention_launch",
-                               [_PTR] * 9 + [_INT] * 8
-                               + [_FLT, _INT, _INT, _PTR]),
+                               [_PTR] * 12 + [_INT] * 8
+                               + [_FLT] + [_INT] * 6 + [_PTR]),
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 4 + [_INT] * 6 + [_FLT, _INT, _INT, _FLT,
                                                    _INT, _INT, _PTR]),
     "mtp_attention": ("mtp_attention_launch",
-                      [_PTR] * 8 + [_INT] * 5 + [_FLT, _INT, _PTR]),
+                      [_PTR] * 11 + [_INT] * 5 + [_FLT, _INT, _PTR]),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-// Shared body of the port's attention kernels (decode_attention.cu,
-// paged_decode_attention.cu, flash_attention.cu and mtp_attention.cu):
+// The float32 body of the decode, paged decode and flash kernels
+// (decode_attention.cu, paged_decode_attention.cu, flash_attention.cu):
 // masked online-softmax attention of a tile of query rows against a
-// key/value sequence, computed with f32 FMAs.
+// key/value sequence, computed with f32 FMAs. Their bfloat16 paths, and the
+// MTP kernel in both dtypes, run tensor-core bodies of their own.
 //
 // One thread block owns ROWS query rows of one (batch row b, KV head). A
 // row is one (query t, grouped head g) pair, ordered r = t * G + g, so the
@@ -26,20 +27,10 @@
 // position -1 and its K/V are never loaded, so it cannot alias a live page.
 // A tile may span two or more pages (page < kBK); each key resolves its own.
 //
-// Masking takes positions, not indices. The visibility rule is a template
-// policy (MTP):
-//   - positional (MTP = false; decode and flash): key j is visible to a
-//     query at position qp when kp >= 0, kp <= qp (causal) and
-//     qp - kp < window (window > 0). A caller without a position array gets
-//     kp = j (-1 at j >= kv_len) and qp = t;
-//   - the closed-form MTP predicate (MTP = true; mtp_attention): query
-//     (qd, qp) sees key (kd, kp) when both depths are >= 0 and
-//     (kd == 0 && kp <= qp - qd) || (kp - kd == qp - qd && kd <= qd),
-//     read from per-row (B, S) position and depth arrays (depth -1 = pad).
-//     Every visible key has kp <= qp (real context: kp <= qp - qd; own
-//     chain: kp = qp - qd + kd <= qp), so the causal tile skip holds, with
-//     pad rows (qd < 0) left out of the block's position range.
-// p is masked explicitly, so rows with no visible
+// Masking takes positions, not indices: key j is visible to a query at
+// position qp when kp >= 0, kp <= qp (causal) and qp - kp < window
+// (window > 0). A caller without a position array gets kp = j (-1 at
+// j >= kv_len) and qp = t. p is masked explicitly, so rows with no visible
 // key end with l == 0 and are written as zeros (exp(NEG_INF - NEG_INF) = 1
 // never reaches the sum). The optional (m, l) outputs use the
 // (B, KV, G, T) layout the two-phase decode merge reads.
@@ -49,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace repro_attn {
 
@@ -70,8 +63,6 @@ struct Params {
   int B, Tq, H, KV, S, kv_len;
   int causal, window;
   float scale, softcap;
-  const int* qdepth;  // (B, Tq) query depths, -1 = pad (MTP only)
-  const int* kdepth;  // (B, S) key depths, -1 = pad (MTP only)
   const int* block_table;  // (B, S / page) pool page ids; nullptr = per row
   int page, n_pages;       // keys per pool page, pages in the pool (paged)
 };
@@ -122,14 +113,14 @@ __device__ inline float warp_sum(float x) {
 template <int HD> constexpr int kRowStride = HD + 4;
 constexpr int kPStride = kBK + 4;
 
-template <int HD, int ROWS, bool MTP>
+template <int HD, int ROWS>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (ROWS * kRowStride<HD> + kBK * kRowStride<HD> +
                           kBK * HD + ROWS * kPStride + 3 * ROWS) +
-         sizeof(int) * ((ROWS + kBK) * (MTP ? 2 : 1) + kBK);
+         sizeof(int) * (ROWS + 2 * kBK);
 }
 
-template <typename T, int HD, int ROWS, bool MTP>
+template <typename T, int HD, int ROWS>
 __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
   constexpr int QS = kRowStride<HD>;
   constexpr int VN = Vec<T>::N;
@@ -151,8 +142,6 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
   int* qp_s = reinterpret_cast<int*>(l_s + ROWS);  // ROWS
   int* kp_s = qp_s + ROWS;                   // kBK
   int* ks_s = kp_s + kBK;                    // kBK: K/V slot, -1 = none
-  int* qd_s = ks_s + kBK;                    // ROWS (MTP only)
-  int* kd_s = qd_s + ROWS;                   // kBK (MTP only)
   __shared__ int qlo_s, qhi_s;
 
   const int G = p.H / p.KV;
@@ -172,18 +161,13 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
   if (tid < ROWS) {
     const int r = row0 + tid;
     int qp = -1;                   // rows past the end see no causal key
-    int qd = -1;                   // ... and are pad rows under MTP
     if (r < nrows) {
       const int t = r / G;
       qp = p.qpos ? p.qpos[(size_t)b * p.Tq + t] : t;
-      if (MTP) qd = p.qdepth[(size_t)b * p.Tq + t];
-      if (!MTP || qd >= 0) {
-        atomicMin(&qlo_s, qp);
-        atomicMax(&qhi_s, qp);
-      }
+      atomicMin(&qlo_s, qp);
+      atomicMax(&qhi_s, qp);
     }
     qp_s[tid] = qp;
-    if (MTP) qd_s[tid] = qd;
   }
   for (int i = tid; i < ROWS * (HD / VN); i += kThreads) {
     const int rr = i / (HD / VN);
@@ -233,14 +217,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
       }
       kp_s[tid] = kp;
       ks_s[tid] = slot;
-      if (MTP) {
-        const int kd = j < p.S ? p.kdepth[(size_t)b * p.S + j] : -1;
-        kd_s[tid] = kd;
-        live = kd >= 0 && kp <= qhi;
-      } else {
-        live = kp >= 0 && (!p.causal || kp <= qhi) &&
-               (p.window <= 0 || qlo - kp < p.window);
-      }
+      live = kp >= 0 && (!p.causal || kp <= qhi) &&
+             (p.window <= 0 || qlo - kp < p.window);
     }
     if (!__syncthreads_or(live)) continue;   // no row sees this tile
 
@@ -266,7 +244,6 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
     __syncthreads();
 
     const int kp = kp_s[lane];
-    const int kd = MTP ? kd_s[lane] : 0;
     const float* kr = k_s + lane * QS;
 #pragma unroll
     for (int i = 0; i < RQK; ++i) {
@@ -285,16 +262,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
       s *= p.scale;
       if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
       const int qp = qp_s[rr];
-      bool ok;
-      if (MTP) {
-        const int qd = qd_s[rr];
-        const int anchor = qp - qd;
-        ok = qd >= 0 && kd >= 0 &&
-             ((kd == 0 && kp <= anchor) || (kp - kd == anchor && kd <= qd));
-      } else {
-        ok = kp >= 0 && (!p.causal || kp <= qp) &&
-             (p.window <= 0 || qp - kp < p.window);
-      }
+      const bool ok = kp >= 0 && (!p.causal || kp <= qp) &&
+                      (p.window <= 0 || qp - kp < p.window);
       const float m_new = fmaxf(m_r[i], warp_max(ok ? s : kNegInf));
       const float pr = ok ? expf(s - m_new) : 0.f;
       const float alpha = expf(m_r[i] - m_new);
@@ -356,46 +325,35 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params<T> p) {
   }
 }
 
-constexpr int kMaxDevices = 64;
+// whether the kernel has its shared memory opt-in (above 48 KB), per
+// device; internal linkage, so every library that holds the kernel keeps
+// its own (a static inside the template would be one object across them,
+// and the second library's kernel would skip its opt-in)
+namespace {
+template <typename T, int HD, int ROWS> bool opted_in[64];
+}
 
-template <typename T, int HD, int ROWS, bool MTP>
+template <typename T, int HD, int ROWS>
 int launch_hd(const Params<T>& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD, ROWS, MTP>();
-  // above 48 KB of dynamic shared memory needs an opt-in; it holds per
-  // device, so it is set on the first launch on each device only (setting
-  // it twice from two threads is harmless)
-  static bool opted_in[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices || !opted_in[dev]) {
-    e = cudaFuncSetAttribute(attention_kernel<T, HD, ROWS, MTP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < kMaxDevices) opted_in[dev] = true;
-  }
+  constexpr size_t smem = smem_bytes<HD, ROWS>();
+  const int e = repro_tc::opt_in_smem(attention_kernel<T, HD, ROWS>, smem,
+                                      opted_in<T, HD, ROWS>);
+  if (e) return e;
   const int nrows = (p.H / p.KV) * p.Tq;
   if (nrows == 0 || p.B == 0) return (int)cudaSuccess;
   const dim3 grid((nrows + ROWS - 1) / ROWS, p.B * p.KV);
-  attention_kernel<T, HD, ROWS, MTP><<<grid, kThreads, smem, stream>>>(p);
+  attention_kernel<T, HD, ROWS><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// MTP selects the visibility policy (see the top of this file): false for
-// decode and flash, true for mtp_attention.
-template <int ROWS, bool MTP = false, typename T>
+template <int ROWS, typename T>
 int launch(const Params<T>& p, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_hd<T, 32, ROWS, MTP>(p, stream);
-    case 64: return launch_hd<T, 64, ROWS, MTP>(p, stream);
-    case 128: return launch_hd<T, 128, ROWS, MTP>(p, stream);
+    case 32: return launch_hd<T, 32, ROWS>(p, stream);
+    case 64: return launch_hd<T, 64, ROWS>(p, stream);
+    case 128: return launch_hd<T, 128, ROWS>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace repro_attn
-
-extern "C" const char* repro_attn_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

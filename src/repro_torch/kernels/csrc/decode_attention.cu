@@ -47,8 +47,9 @@ extern "C" int decode_attention_launch(
         static_cast<const int*>(q_positions), static_cast<__nv_bfloat16*>(out),
         static_cast<float*>(m_out), static_cast<float*>(l_out),
         static_cast<float*>(po), static_cast<float*>(pm), static_cast<float*>(pl),
-        B, T, H, KV, S, window, nsplit, chunk, scale};
-    return repro_decode_tc::launch(p, hd, st);
+        B, T, H, KV, S, window, nsplit, chunk, scale,
+        /*block_table=*/nullptr, /*page=*/0, /*n_pages=*/0};
+    return repro_decode_tc::launch</*PAGED=*/false>(p, hd, st);
   }
   repro_attn::Params<float> p{
       static_cast<const float*>(q), static_cast<const float*>(k),

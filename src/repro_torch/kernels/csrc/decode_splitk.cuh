@@ -1,11 +1,14 @@
-// The bfloat16 body of the decode kernel (decode_attention.cu): split-K
-// flash-decode on the tensor cores. A few query positions per row against
-// a KV cache whose slots carry absolute positions (-1 = empty).
+// The bfloat16 body of the decode and paged decode kernels
+// (decode_attention.cu, paged_decode_attention.cu): split-K flash-decode on
+// the tensor cores. A few query positions per row against a KV cache whose
+// slots carry absolute positions (-1 = empty), held per row or in a shared
+// pool of pages reached through a block table.
 //
-// Replaces, for bfloat16, the TPU kernel
-// repro/kernels/decode_attention.py::decode_attention (_decode_kernel); the
-// float32 path stays on attention_common.cuh's FMA body, whose 1e-4
-// absolute limit admits neither bf16 MMAs nor TF32.
+// Replaces, for bfloat16, the TPU kernels
+// repro/kernels/decode_attention.py::decode_attention (_decode_kernel) and
+// ::paged_decode_attention (_paged_kernel); the float32 paths stay on
+// attention_common.cuh's FMA body, whose 1e-4 absolute limit admits neither
+// bf16 MMAs nor TF32 at these byte-bound shapes.
 //
 // What bounds it on this card: bytes. Target verify phase 1 (B 8, T 6, 12
 // heads over 2 KV heads, hd 128, 1024 slots, 576 live) moves 5.05 MB, a
@@ -32,8 +35,13 @@
 // l == 0 are written as zeros. (m, l) leave in the (B, KV, G, T) layout
 // the two-phase merge reads.
 //
-// Keys are addressed through key_slot() alone, so a paged body differs
-// only there (a block-table lookup).
+// Keys are addressed through key_slot() alone, a compile-time policy: slot
+// b * S + j of (B, S) per row, or, paged, offset j % page of pool page
+// block_table[b, j / page]. A 64-key tile spans several pages (the serving
+// page is 16 slots) and each key resolves its own; a page id outside
+// [0, n_pages) (-1 = unallocated) has no slot, reads as an empty key and is
+// never loaded (cp.async zero-fills it), so it cannot alias another
+// request's page. Both layouts instantiate this one body.
 #pragma once
 
 #include <climits>
@@ -164,9 +172,9 @@ constexpr size_t smem_bytes() {
 
 struct Params {
   const bf16* q;      // (B, T, H, hd)
-  const bf16* k;      // (B, S, KV, hd)
-  const bf16* v;      // (B, S, KV, hd)
-  const int* kpos;    // (B, S) key positions, -1 = empty
+  const bf16* k;      // (B, S, KV, hd), paged (n_pages, page, KV, hd)
+  const bf16* v;      // as k
+  const int* kpos;    // (B, S) key positions, -1 = empty; paged (n_pages, page)
   const int* qpos;    // (B, T) query positions
   bf16* out;          // (B, T, H, hd)
   float* m_out;       // (B, KV, G, T)
@@ -176,18 +184,27 @@ struct Params {
   float* pl;          // (B * KV, nsplit, G * T) partial l
   int B, T, H, KV, S, window, nsplit, chunk;
   float scale;
+  const int* block_table;  // (B, S / page) pool page ids (paged only)
+  int page, n_pages;       // slots a page, pages in the pool (paged only)
 };
 
-// The cache slot of key j of batch row b: row-major (B, S).
-__device__ __forceinline__ size_t key_slot(const Params& p, int b, int j) {
-  return (size_t)b * p.S + j;
+// The cache slot of key j of batch row b, or -1 for none.
+template <bool PAGED>
+__device__ __forceinline__ long long key_slot(const Params& p, int b, int j) {
+  if constexpr (!PAGED) {
+    return (long long)b * p.S + j;
+  } else {
+    const int pg = p.block_table[(size_t)b * (p.S / p.page) + j / p.page];
+    return pg >= 0 && pg < p.n_pages ? (long long)pg * p.page + j % p.page
+                                     : -1;
+  }
 }
 
 __device__ __forceinline__ bool visible(int kp, int qp, int window) {
   return kp >= 0 && kp <= qp && (window <= 0 || qp - kp < window);
 }
 
-template <int HD>
+template <int HD, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
     decode_tc_attention_kernel(Params p) {
   constexpr int ST = kStride<HD>;
@@ -241,7 +258,8 @@ __global__ void __launch_bounds__(kThreads)
   {
     const int qlo = qlo_s, qhi = qhi_s;
     for (int j = c0 + tid; j < c1; j += kThreads) {
-      const int kp = p.kpos[key_slot(p, b, j)];
+      const long long slot = key_slot<PAGED>(p, b, j);
+      const int kp = slot >= 0 ? p.kpos[slot] : -1;
       if (kp >= 0 && kp <= qhi && (p.window <= 0 || qlo - kp < p.window))
         live_s[(j - c0) / kBK] = 1;
     }
@@ -267,15 +285,16 @@ __global__ void __launch_bounds__(kThreads)
     bf16* vs = v_s + stage * kBK * ST;
     for (int i = tid; i < kBK * CPR; i += kThreads) {
       const int jj = i / CPR, c = (i % CPR) * 8, j = j0 + jj;
-      const bool valid = j < c1;
-      const size_t off =
-          valid ? (key_slot(p, b, j) * p.KV + kvh) * HD + c : 0;
+      const long long slot = j < c1 ? key_slot<PAGED>(p, b, j) : -1;
+      const bool valid = slot >= 0;
+      const size_t off = valid ? ((size_t)slot * p.KV + kvh) * HD + c : 0;
       cp_async16(ks + jj * ST + c, p.k + off, valid);
       cp_async16(vs + jj * ST + c, p.v + off, valid);
     }
     if (tid < kBK) {
       const int j = j0 + tid;
-      kp_s[stage * kBK + tid] = j < c1 ? p.kpos[key_slot(p, b, j)] : -1;
+      const long long slot = j < c1 ? key_slot<PAGED>(p, b, j) : -1;
+      kp_s[stage * kBK + tid] = slot >= 0 ? p.kpos[slot] : -1;
     }
   };
 #pragma unroll
@@ -403,26 +422,28 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
-// whether the kernel of head dim HD has its shared memory opt-in, per
-// device; internal linkage, so every library that holds the kernel keeps
-// its own (a static inside the template would be one object across them)
+// whether the kernel has its shared memory opt-in, per device; internal
+// linkage, so every library that holds the kernel keeps its own (a static
+// inside the template would be one object across them)
 namespace {
-template <int HD> bool opted_in[64];
+template <int HD, bool PAGED> bool opted_in[64];
 }
 
-template <int HD>
+template <int HD, bool PAGED>
 int launch_hd(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  const int e = opt_in_smem(decode_tc_attention_kernel<HD>, smem, opted_in<HD>);
+  const int e = opt_in_smem(decode_tc_attention_kernel<HD, PAGED>, smem,
+                            opted_in<HD, PAGED>);
   if (e) return e;
   const int nrows = (p.H / p.KV) * p.T;
   if (nrows == 0 || p.B == 0) return (int)cudaSuccess;
   if (p.nsplit < 1 || p.chunk % kBK || p.chunk > kMaxTiles * kBK ||
       (long long)p.nsplit * p.chunk < p.S ||
-      (p.nsplit > 1 && (p.po == nullptr || p.pm == nullptr || p.pl == nullptr)))
+      (p.nsplit > 1 && (p.po == nullptr || p.pm == nullptr || p.pl == nullptr)) ||
+      (PAGED && (p.block_table == nullptr || p.page < 1 || p.S % p.page)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((nrows + kRows - 1) / kRows, p.B * p.KV, p.nsplit);
-  decode_tc_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
+  decode_tc_attention_kernel<HD, PAGED><<<grid, kThreads, smem, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return (int)err;
   constexpr int RPB = kCombineThreads / (HD / 4);
@@ -431,11 +452,13 @@ int launch_hd(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-inline int launch(const Params& p, int hd, cudaStream_t stream) {
+// PAGED: keys through p.block_table (paged_decode_attention), else per row
+template <bool PAGED>
+int launch(const Params& p, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_hd<32>(p, stream);
-    case 64: return launch_hd<64>(p, stream);
-    case 128: return launch_hd<128>(p, stream);
+    case 32: return launch_hd<32, PAGED>(p, stream);
+    case 64: return launch_hd<64, PAGED>(p, stream);
+    case 128: return launch_hd<128, PAGED>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,13 @@
-// Building blocks shared by the bfloat16 tensor-core bodies of the flash
-// (flash_tc.cuh, wgmma) and decode (decode_splitk.cuh, mma.sync) kernels:
-// 16-byte asynchronous copies into shared memory (cp.async), the hi/lo
-// split of f32 probabilities into two bf16 MMA operands, and the online
-// softmax over a tile of scores held in accumulator registers.
+// Building blocks shared by the tensor-core bodies of the flash
+// (flash_tc.cuh, wgmma), decode and paged decode (decode_splitk.cuh,
+// mma.sync) and MTP (mtp_tc.cuh, mma.sync in TF32) kernels: 16-byte
+// asynchronous copies into shared memory (cp.async), the hi/lo split of f32
+// probabilities into two bf16 MMA operands, the online softmax over a tile
+// of scores held in accumulator registers, the shared-memory opt-in, and
+// the error string every kernel library exports.
 //
-// Accumulator layout (mma.sync m16n8k16, and per warp of a wgmma m64nNk16):
+// Accumulator layout (mma.sync m16n8k16 and m16n8k8, and per warp of a
+// wgmma m64nNk16):
 // lane = 4 * g + t holds, for each 8-column tile j, rows g (c0, c1) and
 // g + 8 (c2, c3) at columns 8j + 2t, 8j + 2t + 1. The A operand (16 x 16
 // per warp) holds rows g and g + 8 at columns 2t, 2t + 1 (regs 0, 1) and
@@ -152,3 +155,8 @@ int opt_in_smem(K kernel, size_t smem, bool (&done)[64]) {
 }
 
 }  // namespace repro_tc
+
+// the message of a launch's error code, for the ctypes wrappers
+extern "C" const char* repro_attn_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

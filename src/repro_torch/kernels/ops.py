@@ -11,9 +11,11 @@ row, (B, M); shared (M,) metadata is broadcast. ``paged_decode_attention``
 reads K/V and positions from a shared page pool through a per-row block
 table; its plain version gathers each row's pages into a contiguous view.
 
-The bfloat16 decode kernel splits the cache slots across blocks (split-K);
-``decode_split`` chooses the split, and the wrapper allocates the
-partials' scratch.
+The bfloat16 decode and paged decode kernels split the cache slots across
+blocks (split-K); ``decode_split`` chooses the split, and the wrapper
+allocates the partials' scratch. The MTP kernel walks index lists of each
+row's keys (``mtp_key_lists``), which its wrapper builds on the device once
+per call.
 
 ``launches`` counts kernel calls per kernel (a split decode call, its
 combine pass included, counts once), so a run can show that the serving
@@ -31,6 +33,8 @@ import torch
 from repro_torch.core.masks import mtp_mask_predicate
 from repro_torch.kernels import build
 from repro_torch.models import layers as L
+
+INT32_MAX = 2 ** 31 - 1
 
 launches: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
@@ -132,6 +136,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _split_k(q, S, KV):
+    """The split of a decode-shaped call over S key slots, q (B, T, H, hd):
+    (nsplit, chunk, buf, ptrs), ``decode_split``'s split in bfloat16 (the
+    f32 body walks each row's slots in one block). When it splits, ``buf``
+    holds the partials (o, m, l) of each (split, row) in one f32 buffer,
+    which must outlive the launch, and ``ptrs`` points at them (po, pm,
+    pl); else both are None."""
+    B, T, H, hd = q.shape
+    G = H // KV
+    if q.dtype != torch.bfloat16:
+        return 1, S, None, [None] * 3
+    row_blocks = -(-G * T // DECODE_ROW_TILE) * B * KV
+    nsplit, chunk = decode_split(S, row_blocks, _sm_count(q.device.index))
+    if nsplit == 1:
+        return nsplit, chunk, None, [None] * 3
+    n = B * KV * nsplit * G * T
+    buf = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+    ptrs = [buf.data_ptr(), buf[n * hd:].data_ptr(),
+            buf[n * (hd + 1):].data_ptr()]
+    return nsplit, chunk, buf, ptrs
+
+
 def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
                      return_stats=False):
     """Decode attention (see ``decode_attention_plain``): the CUDA kernel of
@@ -146,26 +172,17 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
     S, KV = k.shape[1], k.shape[2]
     _check_int32(q, k_positions=(k_positions, (B, S)),
                  q_positions=(q_positions, (B, T)))
-    G = H // KV
     out = torch.empty_like(q)
-    m = torch.empty((B, KV, G, T), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, KV, H // KV, T), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    bf16 = q.dtype == torch.bfloat16
-    nsplit, chunk, scratch = 1, S, []
-    if bf16:   # the f32 body walks each row's slots in one block
-        row_blocks = -(-G * T // DECODE_ROW_TILE) * B * KV
-        nsplit, chunk = decode_split(S, row_blocks, _sm_count(q.device.index))
-    if nsplit > 1:   # the partials (o, m, l) of each (split, row), one buffer
-        n = B * KV * nsplit * G * T
-        buf = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
-        scratch = [buf[:n * hd], buf[n * hd:n * (hd + 1)], buf[n * (hd + 1):]]
-    scratch_ptrs = [t.data_ptr() for t in scratch] or [None] * 3
+    nsplit, chunk, buf, scratch = _split_k(q, S, KV)   # buf: alive to here
     lib = build.library("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_positions.data_ptr(),
         q_positions.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        *scratch_ptrs, B, T, H, KV, S, hd, float(scale), int(window), nsplit,
-        chunk, DECODE_KEY_TILE, DECODE_ROW_TILE, int(bf16),
+        *scratch, B, T, H, KV, S, hd, float(scale), int(window), nsplit,
+        chunk, DECODE_KEY_TILE, DECODE_ROW_TILE,
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["decode_attention"] += 1
     _raise_on(lib, err, "decode_attention")
@@ -197,7 +214,9 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
                            return_stats=False):
     """Paged decode attention (see ``paged_decode_attention_plain``): the
     CUDA kernel of ``csrc/paged_decode_attention.cu`` for CUDA tensors,
-    which reads the pool through the table and builds no view."""
+    which reads the pool through the table and builds no view, split
+    across the nb * page slots a row addresses by ``decode_split`` in
+    bfloat16, as ``decode_attention`` is."""
     if _device_kind(q) == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, pos_pool, block_table, q_positions,
@@ -212,12 +231,14 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
     out = torch.empty_like(q)
     m = torch.empty((B, KV, H // KV, T), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    nsplit, chunk, buf, scratch = _split_k(q, nb * page, KV)  # buf: alive
     lib = build.library("paged_decode_attention")
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos_pool.data_ptr(), block_table.data_ptr(), q_positions.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), B, T, H, KV, NP, page, nb,
-        hd, float(scale), int(window), int(q.dtype == torch.bfloat16),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), *scratch, B, T, H, KV,
+        NP, page, nb, hd, float(scale), int(window), nsplit, chunk,
+        DECODE_KEY_TILE, DECODE_ROW_TILE, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["paged_decode_attention"] += 1
     _raise_on(lib, err, "paged_decode_attention")
@@ -304,9 +325,28 @@ def mtp_attention_plain(q, k, v, pos, depth, *, scale, return_stats=False):
     return (out, m, l) if return_stats else out
 
 
+def mtp_key_lists(pos: torch.Tensor, depth: torch.Tensor):
+    """The MTP kernel's two index lists of each row's keys, from per-row
+    int32 pos/depth (B, M): ``order`` (B, 2, M) int64, whose list 0 begins
+    with the indices of the depth-0 keys sorted by position and list 1 with
+    those of the depth >= 1 keys sorted by anchor pos - depth (ties in index
+    order); ``okey`` (B, 2, M) int32 the sort key of each entry; ``counts``
+    (B, 2) int32 the entries of each list (what follows them is the other
+    keys, under the key INT32_MAX). One stable int32 sort on the device, no
+    host sync. A query of anchor a sees, of these, the list-0 entries with
+    okey <= a and the list-1 entries with okey == a (and depth <= its
+    own)."""
+    keys = torch.stack((torch.where(depth == 0, pos, INT32_MAX),
+                        torch.where(depth > 0, pos - depth, INT32_MAX)), 1)
+    okey, order = torch.sort(keys, dim=-1, stable=True)
+    counts = torch.stack(((depth == 0).sum(1), (depth > 0).sum(1)), 1)
+    return order, okey, counts.to(torch.int32)
+
+
 def mtp_attention(q, k, v, pos, depth, *, scale, return_stats=False):
     """MTP attention (see ``mtp_attention_plain``): the CUDA kernel of
-    ``csrc/mtp_attention.cu`` for CUDA tensors."""
+    ``csrc/mtp_attention.cu`` for CUDA tensors, which walks the index lists
+    of ``mtp_key_lists``."""
     if _device_kind(q) == "cpu":
         return mtp_attention_plain(q, k, v, pos, depth, scale=scale,
                                    return_stats=return_stats)
@@ -319,13 +359,15 @@ def mtp_attention(q, k, v, pos, depth, *, scale, return_stats=False):
     for name, t in (("pos", pos), ("depth", depth)):
         if tuple(t.shape) != (B, M) or t.device != q.device:
             raise ValueError(f"{name} must be (M,) or ({B}, {M}) on {q.device}")
+    order, okey, counts = mtp_key_lists(pos, depth)
     out = torch.empty_like(q)
     m = torch.empty((B, KV, H // KV, M), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     lib = build.library("mtp_attention")
     err = lib.mtp_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        depth.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        depth.data_ptr(), order.data_ptr(), okey.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
         B, M, H, KV, hd, float(scale), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["mtp_attention"] += 1

@@ -186,18 +186,10 @@ def _paged_inputs(card, dtype, B, T, H, KV, hd, NP, page, nb, seed=0):
     return q, k, v, as_t(pos_pool), as_t(table), as_t(qpos)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H,KV,hd,NP,page,nb", [
-    (8, 6, 12, 2, 128, 513, 16, 64),    # target verify, phase 1
-    (8, 5, 12, 12, 128, 513, 16, 64),   # drafter draft, phase 1
-    (8, 6, 12, 12, 128, 513, 16, 64),   # drafter extend, phase 1
-    (2, 6, 4, 2, 64, 12, 16, 4),        # the JAX kernel sweep's shapes
-    (1, 1, 4, 4, 32, 8, 32, 3),
-    (3, 4, 2, 1, 128, 16, 8, 6),
-])
-def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
-                                    nb):
-    inp = _paged_inputs(card, dtype, B, T, H, KV, hd, NP, page, nb)
+def _paged_check(inp, dtype):
+    """One kernel call (one launch count, combine included) against the
+    plain version, output and stats."""
+    hd = inp[0].shape[-1]
     before = ops.launches["paged_decode_attention"]
     out, m, l = ops.paged_decode_attention(*inp, scale=hd ** -0.5,
                                            return_stats=True)
@@ -209,6 +201,72 @@ def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
     torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+    return out, m, l
+
+
+# splits on a 132-SM H100 (ops.decode_split) in the comments: the bfloat16
+# kernel's 64-key tiles span 8, 4 or 2 pages at page 8, 16 or 32
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KV,hd,NP,page,nb", [
+    (8, 6, 12, 2, 128, 513, 16, 64),    # target verify, phase 1 (16)
+    (8, 5, 12, 12, 128, 513, 16, 64),   # drafter draft, phase 1 (4)
+    (8, 6, 12, 12, 128, 513, 16, 64),   # drafter extend, phase 1 (4)
+    (2, 6, 4, 2, 64, 12, 16, 4),        # the JAX kernel sweep's shapes (1)
+    (1, 1, 4, 4, 32, 8, 32, 3),         # (2)
+    (3, 4, 2, 1, 128, 16, 8, 6),        # (1)
+    (8, 6, 12, 2, 128, 1025, 8, 128),   # page 8 (16)
+    (8, 6, 12, 2, 128, 257, 32, 32),    # page 32 (16)
+    (8, 6, 12, 2, 128, 600, 16, 37),    # nb * page 592, not a multiple of 64
+    (4, 200, 12, 2, 128, 160, 16, 40),  # row tiles fill the card (1)
+])
+def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
+                                    nb):
+    _paged_check(_paged_inputs(card, dtype, B, T, H, KV, hd, NP, page, nb),
+                 dtype)
+
+
+def test_paged_holes_inside_live_tiles_are_never_read(card):
+    """-1 and out-of-pool page ids inside a row's live range read as empty
+    pages (the plain version's view), never as another row's page; and a
+    batch whose tables are all -1 gives zeros with l 0, m -1e30."""
+    B, T, H, KV, hd, NP, page, nb = 8, 6, 12, 2, 128, 513, 16, 64
+    q, k, v, pos, table, qpos = _paged_inputs(card, torch.bfloat16, B, T, H,
+                                              KV, hd, NP, page, nb, seed=3)
+    holes = table.clone()
+    for b in range(B):
+        n = int((table[b] >= 0).sum())
+        holes[b, 0] = -1
+        if n > 2:
+            holes[b, n // 2] = NP + 7          # past the pool
+            holes[b, n - 1] = 2 ** 30
+    _paged_check((q, k, v, pos, holes, qpos), torch.bfloat16)
+    empty = torch.full_like(table, -1)
+    out, m, l = _paged_check((q, k, v, pos, empty, qpos), torch.bfloat16)
+    assert out.abs().max().item() == 0.0
+    assert (l == 0).all() and (m == -1e30).all()
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_f32_decode_and_paged_each_opt_in(card, hd):
+    """The float32 decode and paged kernels, two libraries holding the same
+    FMA-body instantiation, load side by side in one process and each
+    matches its plain version at every head dim. These shapes stay under
+    the 48 KB opt-in threshold, so this does not pin the opt-in flag's
+    internal linkage: test_torch_structure.py does."""
+    B, T, H, KV, S = 2, 6, 4, 2, 256
+    g = torch.Generator(device=card).manual_seed(hd)
+    q, k, v = _qkv(g, (B, T, H, hd), (B, S, KV, hd), torch.float32, card)
+    kpos = torch.arange(S, dtype=torch.int32, device=card)[None].repeat(B, 1)
+    kpos = torch.where(kpos < 200, kpos, -1).to(torch.int32).contiguous()
+    qpos = (200 + torch.arange(T, dtype=torch.int32, device=card))[
+        None].repeat(B, 1)
+    out = ops.decode_attention(q, k, v, kpos, qpos, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, ops.decode_attention_plain(q, k, v, kpos, qpos,
+                                        scale=hd ** -0.5), atol=1e-4, rtol=0)
+    _paged_check(_paged_inputs(card, torch.float32, B, T, H, KV, hd, 40, 16,
+                               16, seed=hd), torch.float32)
 
 
 def test_paged_cuda_tensor_never_takes_the_plain_path(card, monkeypatch):
@@ -304,6 +362,61 @@ def test_mtp_kernel_matches_plain(card, dtype, n, K, r, B, H, KV, hd):
     pad = dep < 0
     if pad.any():
         assert out[pad].abs().max().item() == 0.0
+
+
+def _mtp_layout(kind, seed=0):
+    """(pos, depth) of one row, padded with -1 to a multiple of 64:
+    "shuffled" a COD layout in random order (pad rows among the real ones),
+    "segment" the largest Algorithm-1 segment of n 1024 in 4 (its depth-0
+    context first, then an interleaved block), "no chains" a layout of
+    depth-0 keys only (K 1: every chain pass is empty)."""
+    from repro_torch.core import cod, partition
+    rng = np.random.default_rng(seed)
+    if kind == "segment":
+        p, d = cod.sample_cod(rng, 1024, 8, 0.8)
+        seg = max(partition.build_segments(p, d, 1024, 4),
+                  key=lambda sg: len(sg.kv_pos))
+        p, d = seg.kv_pos, seg.kv_depth
+    else:
+        p, d = cod.sample_cod(rng, 700, 1 if kind == "no chains" else 8, 0.8)
+    p, d = cod.pad_to(p, d, int(np.ceil(len(p) / 64) * 64))
+    if kind == "shuffled":
+        perm = rng.permutation(len(p))
+        p, d = p[perm], d[perm]
+    return p, d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,H,KV,hd", [
+    ("shuffled", 4, 2, 64), ("shuffled", 12, 12, 128),
+    ("segment", 12, 12, 128), ("segment", 4, 2, 32),
+    ("no chains", 4, 2, 64),
+])
+def test_mtp_kernel_layouts_match_plain(card, dtype, kind, H, KV, hd):
+    """The depth-split walk gives the predicate's function for any layout:
+    rows in random order, a segment's context before its interleaved block,
+    and rows that have no chain keys."""
+    from repro_torch.core import cod
+    layouts = [_mtp_layout(kind, seed=b) for b in range(2)]
+    M = max(len(p) for p, _ in layouts)
+    layouts = [cod.pad_to(p, d, M) for p, d in layouts]
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = _qkv(g, (2, M, H, hd), (2, M, KV, hd), dtype, card)
+    pos = torch.as_tensor(np.stack([p for p, _ in layouts]), device=card)
+    dep = torch.as_tensor(np.stack([d for _, d in layouts]), device=card)
+    before = ops.launches["mtp_attention"]
+    out, m, l = ops.mtp_attention(q, k, v, pos, dep, scale=hd ** -0.5,
+                                  return_stats=True)
+    torch.cuda.synchronize()
+    assert ops.launches["mtp_attention"] == before + 1
+    po, pm, pl = ops.mtp_attention_plain(q, k, v, pos, dep, scale=hd ** -0.5,
+                                         return_stats=True)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
+    for got, want in ((m, pm), (l, pl)):    # STATS_TOL: 1e-4 of 1 + |want|
+        assert ((got - want).abs() / (1 + want.abs())).max().item() <= 1e-4
+    pad = dep < 0
+    assert out[pad].abs().max().item() == 0.0
 
 
 def test_mtp_flash_grads_match_plain_autograd(card, monkeypatch):

@@ -268,6 +268,56 @@ def test_card_bf16_limit_rejects_bf16_rounded_p(shape):
     assert _used(split, want) <= 0.5
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    as cvt.rna.tf32.f32 rounds: integer ops on the float32 bits."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, n):
+    """einsum ``eq`` of a and b as the tensor cores take f32 operands in
+    TF32, accumulated in f32: n = 1, tf32(a)·tf32(b); n = 3, the split
+    hi·hi + hi·lo + lo·hi with hi = tf32(x), lo = tf32(x - hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if n == 3:
+        out = (out + torch.einsum(eq, ah, _tf32(b - bh))
+               + torch.einsum(eq, _tf32(a - ah), bh))
+    return out
+
+
+def test_card_f32_limit_rejects_one_tf32_product():
+    """Why the MTP kernel takes S = Q·Kᵀ and P·V as three TF32 products: on
+    the card's inputs (score std 2) at a reduced MTP shape, one TF32 product
+    for each uses more than the whole float32 limit 1e-4 the card holds the
+    kernel to, while hi·hi + hi·lo + lo·hi uses at most a tenth of it."""
+    from repro_torch.core import cod
+    from repro_torch.core.masks import mtp_mask_predicate
+    pos, dep = cod.sample_cod(np.random.default_rng(0), 256, 8, 0.8)
+    pos, dep = torch.from_numpy(pos), torch.from_numpy(dep)
+    B, M, H, hd = 1, len(pos), 2, 128
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (sc * torch.randn(sh, generator=g)
+               for sc, sh in ((2.0, (B, M, H, hd)), (1.0, (B, M, H, hd)),
+                              (1.0, (B, M, H, hd))))
+    want = ops.mtp_attention_plain(q, k, v, pos, dep, scale=hd ** -0.5)
+    ok = mtp_mask_predicate(dep, pos, dep, pos)
+
+    def emulate(n):
+        s = _tf32_product("bqhd,bjhd->bhqj", q, k, n) * hd ** -0.5
+        s = torch.where(ok, s, ref.NEG_INF)
+        p = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        o = _tf32_product("bhqj,bjhd->bqhd", p, v, n)
+        return o / p.sum(-1).transpose(1, 2)[..., None]
+
+    def used(got):      # the worst element's share of the limit 1e-4
+        return float((got - want).abs().max()) / 1e-4
+
+    assert used(emulate(1)) > 1.0
+    assert used(emulate(3)) <= 0.1
+
+
 # the decode serving shapes: (B, T, H, KV), S 1024
 _DECODE_SERVING = {"target verify": (8, 6, 12, 2),
                    "drafter draft": (8, 5, 12, 12),

@@ -2,8 +2,11 @@
 PyTorch version, held against the JAX package: the Pallas kernel (interpret
 mode) and its jnp oracle on the ``tests/test_kernels.py`` sweep, and the
 flash training attention (``core/flash_train.py``) forward and gradients
-through ``jax.vjp``. Also the port's numpy copies (COD, masks, Algorithm 1)
-against the originals. Inputs are made with numpy from a seed.
+through ``jax.vjp``; the CUDA kernel's depth-split key walk, in plain
+PyTorch (``mtp_two_pass`` below, over ``ops.mtp_key_lists``), against the
+Pallas kernel on COD, segment, permuted and padded layouts. Also the port's
+numpy copies (COD, masks, Algorithm 1) against the originals. Inputs are
+made with numpy from a seed.
 
 Tolerances: the kernel sweep's 3e-5 in float32 and 2e-2 in bfloat16 (both
 sides accumulate in float32, in another order); forward 3e-5 and gradients
@@ -25,6 +28,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import cod, masks, partition
 from repro_torch.core.flash_train import MTPFlashAttention, mtp_flash_attention
 from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import blocked_attention, merge_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 3e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -106,6 +110,160 @@ def test_mtp_stats_match_direct_computation():
     np.testing.assert_allclose(l.numpy(), want_l.numpy(), atol=1e-5,
                                rtol=1e-5)
     assert (m[..., pad] == -1e30).all() and (l[..., pad] == 0).all()
+
+
+def _walk_layout(kind, seed=0):
+    """(pos, depth), (M,) int32 with M a multiple of 64: "cod" a COD layout,
+    "segment" the largest Algorithm-1 segment of n 96 in 3 (its depth-0
+    context, then an interleaved block), "permuted" a padded COD layout in
+    random order, "pad rows" a short COD layout in mostly pad rows."""
+    rng = np.random.default_rng(seed)
+    if kind == "segment":
+        p, d = cod.sample_cod(rng, 96, 6, 0.8)
+        seg = max(partition.build_segments(p, d, 96, 3),
+                  key=lambda sg: len(sg.kv_pos))
+        p, d = seg.kv_pos, seg.kv_depth
+    elif kind == "pad rows":
+        p, d = cod.sample_cod(rng, 16, 3, 0.6)
+    else:
+        p, d = cod.sample_cod(rng, 48, 6, 0.8)
+    p, d = cod.pad_to(p, d, int(np.ceil(len(p) / 64) * 64))
+    if kind == "permuted":
+        perm = rng.permutation(len(p))
+        p, d = p[perm], d[perm]
+    return p, d
+
+
+@pytest.mark.parametrize("kind", ["cod", "segment", "permuted", "pad rows"])
+def test_mtp_key_lists_order_the_keys(kind):
+    """The kernel's index lists: list 0 begins with the depth-0 keys by
+    position, list 1 with the depth >= 1 keys by anchor, ties in index
+    order; sort keys and counts beside them."""
+    rows = [_walk_layout(kind, seed=s) for s in range(2)]
+    pos = torch.from_numpy(np.stack([p for p, _ in rows]))
+    dep = torch.from_numpy(np.stack([d for _, d in rows]))
+    order, okey, counts = ops.mtp_key_lists(pos, dep)
+    assert okey.dtype == counts.dtype == torch.int32
+    assert order.shape == okey.shape == (2, 2, len(rows[0][0]))
+    for b, (p, d) in enumerate(rows):
+        for i, (member, key) in enumerate(((d == 0, p), (d > 0, p - d))):
+            idx = np.nonzero(member)[0]
+            want = idx[np.argsort(key[idx], kind="stable")]
+            assert int(counts[b, i]) == len(idx)
+            np.testing.assert_array_equal(order[b, i, :len(idx)], want)
+            np.testing.assert_array_equal(okey[b, i, :len(idx)], key[want])
+            np.testing.assert_array_equal(okey[b, i, len(idx):],
+                                          ops.INT32_MAX)
+
+
+def mtp_two_pass(q, k, v, pos, depth, *, scale, rows=64):
+    """The MTP kernel's depth-split key walk (``csrc/mtp_tc.cuh``) in plain
+    PyTorch: q (B,M,H,hd), k/v (B,M,KV,hd), per-row int32 pos/depth (B,M).
+    The queries of each row go in blocks of ``rows // G`` (the kernel's
+    blocks of ``rows`` (query, head) rows when G divides it). A block with
+    a real query takes, from the index lists of ``ops.mtp_key_lists``, the
+    context pass (the depth-0 entries whose position is <= the block's
+    largest anchor) and the chain pass (the depth >= 1 entries whose anchor
+    lies within the block's smallest and largest anchor), each an online
+    softmax with (m, l) under the closed-form predicate, and merges the two
+    by (m, l) (``layers.merge_attention``). Returns out and the f32 (m, l),
+    each (B, KV, G, M), as ``ops.mtp_attention_plain`` does."""
+    B, M, H, hd = q.shape
+    G = H // k.shape[2]
+    order, okey, counts = ops.mtp_key_lists(pos, depth)
+    out = torch.zeros_like(q)
+    m = torch.full((B, k.shape[2], G, M), ref.NEG_INF, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    nq = max(1, rows // G)
+    for b in range(B):
+        nc, nch = (int(x) for x in counts[b])
+        ctx_keys, chain_keys = okey[b, 0, :nc], okey[b, 1, :nch]
+        for t0 in range(0, M, nq):
+            t1 = min(t0 + nq, M)
+            qd, qp = depth[b, t0:t1], pos[b, t0:t1]
+            real = qd >= 0
+            if not real.any():
+                continue
+            anchors = (qp - qd)[real]
+            lo, hi = anchors.min().reshape(1), anchors.max().reshape(1)
+            n1 = int(torch.searchsorted(ctx_keys, hi, right=True))
+            c2 = int(torch.searchsorted(chain_keys, lo))
+            e2 = int(torch.searchsorted(chain_keys, hi, right=True))
+            passes = []
+            for idx in (order[b, 0, :n1], order[b, 1, c2:e2]):
+                kd, kp = depth[b, idx], pos[b, idx]
+
+                def mask(qi, ki, kd=kd, kp=kp):
+                    return masks.mtp_mask_predicate(
+                        qd[qi], qp[qi], kd[ki], kp[ki])[None, None, None]
+                passes.append(blocked_attention(
+                    q[b:b + 1, t0:t1], k[b:b + 1, idx], v[b:b + 1, idx],
+                    scale=scale, mask_fn=mask, return_stats=True))
+            (o1, m1, l1), (o2, m2, l2) = passes
+            out[b, t0:t1] = merge_attention(o1, m1, l1, o2, m2, l2)[0]
+            mm = torch.maximum(m1, m2)
+            m[b, ..., t0:t1] = mm[0]
+            l[b, ..., t0:t1] = (l1 * torch.exp(m1 - mm)
+                                + l2 * torch.exp(m2 - mm))[0]
+    return out, m, l
+
+
+@pytest.mark.parametrize("kind", ["cod", "segment", "permuted", "pad rows"])
+@pytest.mark.parametrize("B,H,KV,hd,rows", [(2, 4, 2, 32, 64),
+                                            (1, 2, 2, 64, 16)])
+def test_mtp_two_pass_matches_jax_kernel(kind, B, H, KV, hd, rows):
+    """The depth-split walk the CUDA kernel runs (context pass and chain
+    pass over the index list, merged by (m, l)), in plain PyTorch, against
+    the Pallas kernel in interpret mode and, with its stats, against the
+    plain version: float32, 3e-5."""
+    pos, dep = _walk_layout(kind)
+    M = len(pos)
+    arrs = _qkv(np.random.default_rng(6), B, M, H, KV, hd)
+    tq, tk, tv = (torch.from_numpy(a) for a in arrs)
+    tpos = torch.from_numpy(np.stack([pos] * B))
+    tdep = torch.from_numpy(np.stack([dep] * B))
+    out, m, l = mtp_two_pass(tq, tk, tv, tpos, tdep, scale=hd ** -0.5,
+                                 rows=rows)
+    want = jops.mtp_attention(*(jnp.asarray(a) for a in arrs),
+                              jnp.asarray(pos), jnp.asarray(dep),
+                              scale=hd ** -0.5, block_q=64, block_k=64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=3e-5,
+                               rtol=3e-5)
+    _, pm, pl = ops.mtp_attention_plain(tq, tk, tv, tpos, tdep,
+                                        scale=hd ** -0.5, return_stats=True)
+    np.testing.assert_allclose(m.numpy(), pm.numpy(), atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(l.numpy(), pl.numpy(), atol=3e-5, rtol=3e-5)
+    assert out[:, dep < 0].abs().max().item() == 0.0
+
+
+def test_mtp_walk_scores_little_beyond_the_visible_pairs():
+    """Why the kernel walks index lists: at the training shape (n 2048,
+    K 8, r 0.8) the tiles its 64-row blocks walk (the context prefix up to
+    the block's largest anchor, the chain range of its anchors, 32 keys a
+    tile) cover at most 1.15 (query, key) pairs per visible pair, where
+    walking every 32-key tile of the layout up to the block's largest
+    position covers over 4."""
+    pos, dep = cod.sample_cod(np.random.default_rng(0), 2048, 8, 0.8)
+    M, rows, tile = len(pos), 64, 32
+    tpos, tdep = torch.from_numpy(pos), torch.from_numpy(dep)
+    visible = sum(int(masks.mtp_mask_predicate(tdep[i:i + 1024],
+                                               tpos[i:i + 1024], tdep,
+                                               tpos).sum())
+                  for i in range(0, M, 1024))
+    order, okey, counts = ops.mtp_key_lists(tpos[None], tdep[None])
+    nc, nch = (int(x) for x in counts[0])
+    ctx, chain = okey[0, 0, :nc].numpy(), okey[0, 1, :nch].numpy()
+    walk = every = 0
+    for r0 in range(0, M, rows):
+        a = pos[r0:r0 + rows] - dep[r0:r0 + rows]
+        n1 = np.searchsorted(ctx, a.max(), "right")
+        n2 = (np.searchsorted(chain, a.max(), "right")
+              - np.searchsorted(chain, a.min()))
+        walk += rows * tile * (-(-n1 // tile) + -(-n2 // tile))
+        last = np.nonzero(pos <= pos[r0:r0 + rows].max())[0].max()
+        every += rows * tile * (last // tile + 1)
+    assert walk <= 1.15 * visible
+    assert every >= 4 * visible
 
 
 def test_mtp_dispatch_on_cpu_counts_no_launch():

@@ -2,6 +2,7 @@
 package, and its entry points run on the card unless the caller asks for
 the CPU (a missing card raises, nothing falls back)."""
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +44,26 @@ def test_port_has_cuda_sources_for_every_kernel():
         assert f'extern "C" int {name}_launch' in text
         # names the TPU kernel it replaces
         assert f"repro/kernels/{tpu}" in text
+
+
+CSRC_FILES = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
+                    .glob("*.cu*"))
+
+
+@pytest.mark.parametrize("path", CSRC_FILES, ids=lambda p: p.name)
+def test_smem_opt_in_flags_have_internal_linkage(path):
+    """A shared-memory opt-in flag kept as a static inside a template is one
+    object across every loaded library holding that instantiation, so a
+    second library's kernel would skip its own opt-in. Each flag is a
+    variable template in an anonymous namespace instead."""
+    text = path.read_text()
+    assert not re.search(r"\bstatic\s+bool\b", text), \
+        f"{path.name} keeps a static flag"
+    for decl in re.finditer(r"^(.*)\bbool\s+opted_in\s*\[", text, re.M):
+        before = text[:decl.start()].rstrip().splitlines()[-1]
+        assert decl.group(1).startswith("template") \
+            and before.strip() == "namespace {", \
+            f"{path.name}: {decl.group(0)!r} is not in an anonymous namespace"
 
 
 @pytest.fixture
