@@ -3,9 +3,10 @@
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version, serves the full-width qwen2-1.5b with the 4-layer
 parallel drafter through the kernels (whole batch, and continuous batching
-over the paged KV layout), checks greedy losslessness, and trains the
-full-width drafter (whole-sequence and Algorithm-1 segmented) through the
-MTP kernel.
+over the paged KV layout), checks greedy losslessness, serves sampled
+requests (seeded rejection verification) and checks their streams, and
+trains the full-width drafter (whole-sequence and Algorithm-1 segmented)
+through the MTP kernel.
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -56,8 +57,8 @@ Phases, in order; any failure exits non-zero:
    attention (kernel forward, recompute-by-block backward) against autograd
    through the plain version at M 1998, float32;
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
-   512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache, run
-   twice; the warm run is reported (OTPS, prefill seconds, decode seconds
+   512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache,
+   after a cold run of 8 steps; the warm run is reported (OTPS, prefill seconds, decode seconds
    per step, acceptance length, peak memory) with the kernels' launch
    counts, which must be 28 flash launches per prefill and 8 + 72 decode
    launches per step (drafter prefill extend; target verify 28x2, draft
@@ -67,7 +68,8 @@ Phases, in order; any failure exits non-zero:
    full rows need, so requests are preempted), incremental growth,
    bucketed admission prefill; 24 requests, prompts of 256-640 tokens and
    budgets of 64-192 drawn from seed 0, Exp(1) arrival gaps on the
-   virtual clock, no EOS; run twice, the warm run reported (OTPS, virtual
+   virtual clock, no EOS; after a cold serve of the first 8 prompts with
+   8-token budgets, the warm run reported (OTPS, virtual
    clock OTPS and p50/p99 latency, wall seconds, peak pages, preemptions)
    and checked: every request finishes once with its budget, preemptions
    occur, the pool ends empty, and every decode step launched the paged
@@ -80,6 +82,23 @@ Phases, in order; any failure exits non-zero:
    them spoiled) so that drafts are accepted (AL must exceed 2), and a
    paged Scheduler.serve of the same prompts under pool pressure. A token
    that differs from none must sit at a near-tie of the none run;
+3c / 4b. sampled serving: the threefry PRNG's known answers (JAX 0.9.0's
+   words) on the card and the CPU, and 3 x 2^20 uniforms bitwise equal
+   between them; then, bfloat16 at phase 3's shapes, Engine.run under
+   temperature 0.8, top-k 50, top-p 0.95, seed 0 with draft sampling off
+   and on, and Scheduler.serve of phase 3b's traffic with even requests
+   greedy and odd ones sampled (seed = index): OTPS, ms/step or
+   ms/iteration and AL beside phase 3 / 3b's greedy numbers, and the
+   attention launch counts of the greedy path's formula (sampling adds no
+   attention launch); then, float32 full width (phase 4's prompts): two
+   seeded runs identical, each sampled request's stream the same served
+   alone and in a mixed batch, contiguous and paged under pool pressure
+   that preempts sampled requests, greedy rows equal to phase 4's greedy
+   run (a stream may part only after a decision of margin < 1e-4 for
+   sampled ones, a top-2 logit gap < 1e-3 for greedy ones), and the
+   chi-square losslessness check of rejection_verify_rows on the card
+   (first committed token over 2^14 rows against the warped target, one-hot
+   and sampled drafts, at the 0.999 quantile);
 5. training at full width: qwen2-1.5b bfloat16 target (seeded weights), the
    4-layer full-width drafter in float32, markov_corpus, batch 1, through
    Trainer.train_batch: (a) 3 whole-sequence steps at n 2048 (M 8522) and
@@ -858,7 +877,7 @@ def main_path(ops, dev):
         f"{eng.dcfg.d_model} heads {eng.dcfg.n_heads}/{eng.dcfg.n_kv_heads} "
         f"d_ff {eng.dcfg.d_ff})")
     prompts = random_prompts(cfg.vocab_size, B, P, seed=0)
-    eng.run(prompts)                                   # cold run
+    eng.run(prompts, max_iters=8)                      # cold run, 8 steps
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     r = eng.run(prompts)
@@ -924,7 +943,8 @@ def scheduler_path(ops, dev):
                 for p, b, t in zip(prompts, budgets, arrivals)]
 
     sched = Scheduler(eng, sync_every=1)
-    sched.serve(requests())                            # cold run
+    # cold run: the first 8 requests with 8-token budgets, all at once
+    sched.serve([Request(p, max_new_tokens=8) for p in prompts[:8]])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     eng.allocator.reset_stats()
@@ -944,10 +964,7 @@ def scheduler_path(ops, dev):
         f"tokens {rep['total_new_tokens']}, peak memory {peak_gb:.2f} GB")
     log(f"  launches: {counts}")
     n_d = eng.dcfg.n_layers
-    want = {"paged_decode_attention": it * (cfg.n_layers + 2 * n_d),
-            "decode_attention": it * (cfg.n_layers + 2 * n_d)
-            + admissions * 2 * n_d,
-            "flash_attention": admissions * cfg.n_layers, "mtp_attention": 0}
+    want = sched_launches_want(cfg, n_d, it, admissions)
     if counts != want:
         fail(f"scheduler launch counts {counts} != expected {want} "
              f"({it} iterations, {admissions} admissions)")
@@ -1109,6 +1126,333 @@ def losslessness(ops, dev):
                      f"gap {gap} >= {NEAR_TIE}")
     del engines, ref_eng
     torch.cuda.empty_cache()
+    return {"prompts": prompts, "none": toks["none"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c / 4b: sampled serving
+# ---------------------------------------------------------------------------
+
+# threefry words from JAX 0.9.0 (jax_threefry_partitionable=True), the
+# reference the port's PRNG is bitwise equal to on the CPU
+PRNG_KNOWN = {
+    "fold_in(PRNGKey(7), 3)": [276534068, 1641862660],
+    "split(PRNGKey(7), 3)": [[3625411723, 1954958720],
+                             [195045567, 4062205631],
+                             [966301609, 1948237315]],
+    "bits(PRNGKey(1234), (4,))": [3715183467, 3461522409, 1578076316,
+                                  3641478021],
+    "uniform(PRNGKey(1234), (4,)) bits": [1063088434, 1062097570, 1052516112,
+                                          1062800522],
+    "categorical(PRNGKey(1234), log [.1 .2 .3 .4])": 3,
+    "step_keys(seed 1234, [517, 518])": [[4162650630, 3893356881],
+                                         [3651137254, 884596093]],
+    "draft_keys(seed 1234, 517, K 3)": [[1546567615, 1943629236],
+                                        [3829688118, 1817850175],
+                                        [1043616496, 743150992]],
+}
+# the sampled phase's policy; a sampled decision's margin below this may
+# part two runs (the near-tie rule of the CPU parity tests)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SAMPLED_NEAR_TIE = 1e-4
+
+
+def prng_answers(dev):
+    from repro_torch import prng
+    from repro_torch.serving import sampling as S
+    k7, k1234 = prng.PRNGKey(7, device=dev), prng.PRNGKey(1234, device=dev)
+    samp = S.batch_sampling_state(S.SamplingParams(seed=1234), 2, device=dev)
+    return {
+        "fold_in(PRNGKey(7), 3)": prng.fold_in(k7, 3).tolist(),
+        "split(PRNGKey(7), 3)": prng.split(k7, 3).tolist(),
+        "bits(PRNGKey(1234), (4,))": prng.bits(k1234, (4,)).tolist(),
+        "uniform(PRNGKey(1234), (4,)) bits":
+            prng.uniform(k1234, (4,)).view(torch.int32).tolist(),
+        "categorical(PRNGKey(1234), log [.1 .2 .3 .4])": prng.categorical(
+            k1234, torch.log(torch.tensor([.1, .2, .3, .4], device=dev))
+        ).item(),
+        "step_keys(seed 1234, [517, 518])": S.step_keys(
+            samp, torch.tensor([517, 518], device=dev)).tolist(),
+        "draft_keys(seed 1234, 517, K 3)": S.draft_keys(samp, 517, 3)[0]
+        .tolist(),
+    }
+
+
+def check_prng(dev):
+    from repro_torch import prng
+    for where in (torch.device("cpu"), dev):
+        got = prng_answers(where)
+        for name, want in PRNG_KNOWN.items():
+            if got[name] != want:
+                fail(f"prng on {where}: {name} = {got[name]}, want {want}")
+    n = 1 << 20
+    keys = prng.split(prng.PRNGKey(5), 3)
+    for i, k in enumerate(keys):
+        cpu = prng.uniform(k, (n,)).view(torch.int32)
+        card = prng.uniform(k.to(dev), (n,)).view(torch.int32).cpu()
+        if not torch.equal(cpu, card):
+            fail(f"prng: 2^20 uniforms of key {i} differ between the card "
+                 f"and the CPU at {int((cpu != card).sum())} places")
+    log(f"  prng: known answers equal on the CPU and the card; 3 x 2^20 "
+        f"uniforms bitwise equal between them")
+
+
+def first_token_chi2(dev, sampled_drafts, N=1 << 14):
+    """(statistic, threshold, draws outside the support) of the first
+    committed token of rejection_verify_rows over N seeded rows against
+    the warped target (the CPU test's check, on the card)."""
+    from scipy.stats import chi2
+    from repro_torch import prng
+    from repro_torch.core import spec_decode as SD
+    V, K = 8, 3
+    g = np.random.default_rng(0)
+    logits = torch.from_numpy((1.5 * g.standard_normal((1, K + 1, V)))
+                              .astype(np.float32)).to(dev)
+    p = SD.warp_probs(logits, torch.tensor([0.8], device=dev),
+                      torch.tensor([6], device=dev),
+                      torch.tensor([1.0], device=dev))[0]
+    q = torch.softmax(torch.from_numpy(g.standard_normal((K, V)).astype(
+        np.float32)).to(dev), -1)
+    keys = prng.split(prng.PRNGKey(0, device=dev), N)
+    kd, kv = prng.split(keys, 2).unbind(1)
+    if sampled_drafts:
+        drafts = prng.categorical(prng.split(kd, K), torch.log(q)[None])
+        dprobs = q.expand(N, K, V)
+    else:
+        drafts = q.argmax(-1).expand(N, K)
+        dprobs = F.one_hot(drafts, V).float()
+    _, committed = SD.rejection_verify_rows(
+        kv, drafts.to(torch.int32), dprobs, p.expand(N, K + 1, V))
+    obs = torch.bincount(committed[:, 0].long(), minlength=V).cpu().numpy()
+    exp = p[0].cpu().numpy().astype(np.float64) * N
+    live = exp > 0
+    stat = float((((obs - exp) ** 2)[live] / exp[live]).sum())
+    return stat, float(chi2.ppf(0.999, live.sum() - 1)), int(obs[~live].sum())
+
+
+def sched_launches_want(cfg, n_d, iterations, admissions):
+    return {"paged_decode_attention": iterations * (cfg.n_layers + 2 * n_d),
+            "decode_attention": iterations * (cfg.n_layers + 2 * n_d)
+            + admissions * 2 * n_d,
+            "flash_attention": admissions * cfg.n_layers, "mtp_attention": 0}
+
+
+def sampled_throughput(ops, dev, path, sched):
+    """bfloat16 full width: Engine.run under the sampled policy with draft
+    sampling off and on (phase 3's shapes), and a mixed Scheduler.serve
+    (phase 3b's traffic, odd requests sampled); launch counts as greedy."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW, K, MAX_LEN = 8, 512, 128, 5, 1024
+    sp = SamplingParams(seed=0, **SAMPLED)
+    log(f"  Engine.run, {SAMPLED}, seed 0, phase 3's shapes")
+    eng = build_engine(mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev, sampling=sp)
+    cfg, n_d = eng.tcfg, eng.dcfg.n_layers
+    prompts = random_prompts(cfg.vocab_size, B, P, seed=0)
+    out = {}
+    for ds in (False, True):
+        e = Engine(cfg, eng.dcfg, eng.tparams, eng.dparams,
+                   dataclasses.replace(eng.ecfg, draft_sampling=ds), B,
+                   device=dev)
+        e.run(prompts, max_iters=4)                    # warm-up
+        ops.reset_launches()
+        r = e.run(prompts)
+        counts = dict(ops.launches)
+        steps = r["steps"]
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": 2 * n_d + steps * (2 * cfg.n_layers
+                                                       + 4 * n_d),
+                "paged_decode_attention": 0, "mtp_attention": 0}
+        if counts != want:
+            fail(f"sampled Engine.run (draft_sampling {ds}): launch counts "
+                 f"{counts} != the greedy path's {want}")
+        if not bool((r["state"]["new_count"] == NEW).all()):
+            fail(f"sampled run: new_count {r['state']['new_count'].tolist()}")
+        gen = r["tokens"][:, P:P + NEW]
+        if gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            fail("sampled run: tokens out of range")
+        row = dict(otps=r["otps"], decode_ms_per_step=r["decode_s"] / steps
+                   * 1e3, steps=steps, acceptance_length=r["acceptance_length"],
+                   prefill_s=r["prefill_s"], launches=counts)
+        out[f"engine_run_draft_sampling_{'on' if ds else 'off'}"] = row
+        log(f"    draft_sampling {'on ' if ds else 'off'}: otps "
+            f"{row['otps']:.1f} tok/s, {row['decode_ms_per_step']:.2f} ms/step"
+            f" over {steps}, AL {row['acceptance_length']:.4f} (greedy, "
+            f"phase 3: {path['otps']:.1f} tok/s, "
+            f"{path['decode_ms_per_step']:.2f} ms/step, AL "
+            f"{path['acceptance_length']:.4f}); launches as greedy")
+        del e, r
+    del eng
+    torch.cuda.empty_cache()
+
+    POOL, N = 256, 24
+    log(f"  Scheduler.serve, paged, pool {POOL}, phase 3b's {N} requests, "
+        f"even greedy, odd sampled ({SAMPLED}, seed = index)")
+    eng = build_engine(mode="parallel", K=K, max_new=192, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev, kv_layout="paged",
+                       page_size=16, pool_pages=POOL)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 641, N)
+    budgets = rng.integers(64, 193, N)
+    arrivals = np.cumsum(rng.exponential(1.0, N))
+    prompts = [rng.integers(0, cfg.vocab_size - 1, n).astype(np.int32)
+               for n in lens]
+    reqs = [Request(p, max_new_tokens=int(b), arrival_time=float(t),
+                    sampling=None if i % 2 == 0
+                    else SamplingParams(seed=i, **SAMPLED))
+            for i, (p, b, t) in enumerate(zip(prompts, budgets, arrivals))]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rep = Scheduler(eng, sync_every=1).serve(reqs)
+    counts = dict(ops.launches)
+    it, pre = rep["iterations"], rep["preemptions"]
+    want = sched_launches_want(cfg, n_d, it, N + pre)
+    if counts != want:
+        fail(f"sampled scheduler launch counts {counts} != the greedy "
+             f"path's {want} ({it} iterations, {N + pre} admissions)")
+    for r, b in zip(rep["results"], budgets):
+        if r["n_new"] != b:
+            fail(f"sampled serve: request {r['rid']} emitted {r['n_new']}, "
+                 f"budget {b}")
+    if eng.allocator.n_used:
+        fail(f"{eng.allocator.n_used} pages allocated after the sampled serve")
+    row = {k: rep[k] for k in ("otps", "otps_vt", "wall_s", "iterations",
+                               "total_new_tokens", "preemptions",
+                               "weighted_acceptance_length", "peak_pages",
+                               "p50_latency_vt", "p99_latency_vt")}
+    row.update(ms_per_iteration=rep["wall_s"] / it * 1e3, launches=counts,
+               sampled_preempted=sum(r["n_preempt"] for r in rep["results"]
+                                     if r["rid"] % 2))
+    out["scheduler_mixed"] = row
+    log(f"    otps {rep['otps']:.1f} tok/s, {row['ms_per_iteration']:.2f} "
+        f"ms/iteration over {it}, AL {rep['weighted_acceptance_length']:.4f}"
+        f", preemptions {pre} (greedy, phase 3b: {sched['otps']:.1f} tok/s, "
+        f"{sched['ms_per_iteration']:.2f} ms/iteration over "
+        f"{sched['iterations']}, preemptions {sched['preemptions']}); "
+        f"launches as greedy")
+    del eng, rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def greedy_gap(eng, context):
+    with torch.no_grad():
+        ids = torch.as_tensor(np.asarray(context, np.int32)[None],
+                              device=eng.device)
+        logits = eng.model.forward(eng.tparams, ids,
+                                   head_last_only=True).logits[0, -1]
+    top2 = logits.topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def streams_agree(what, eng, log_, req, got, want):
+    """Fail unless ``got`` equals ``want`` up to where they part after a
+    decision of margin below the near-tie limit (then compare no further);
+    returns the position they part at, or None."""
+    n = min(len(got), len(want))
+    diff = np.flatnonzero(np.asarray(got[:n]) != np.asarray(want[:n]))
+    if not len(diff) and len(got) == len(want):
+        return None
+    j = int(diff[0]) if len(diff) else n
+    P = req.prompt.size
+    if req.sampling is None or req.sampling.is_greedy:
+        margin = greedy_gap(eng, np.concatenate([req.prompt, want[:j]]))
+        limit = NEAR_TIE
+    else:
+        margin = log_.min_margin(req.sampling.seed, P, P + j)
+        limit = SAMPLED_NEAR_TIE
+    log(f"    {what}: request {req.rid} parts at token {j}, margin "
+        f"{margin:.3e}")
+    if not margin < limit:
+        fail(f"{what}: request {req.rid} differs at token {j} with margin "
+             f"{margin} >= {limit}")
+    return P + j
+
+
+def sampled_correctness(dev, greedy_ref):
+    """float32 full width: seeded reproducibility, a sampled stream the
+    same alone, in a mixed batch, contiguous and paged, preempted or not;
+    greedy rows equal to phase 4's greedy run."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.margins import MarginLog
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW, K, MAX_LEN = 4, 128, 32, 5, 256
+    prompts, none = greedy_ref["prompts"], greedy_ref["none"]
+    log(f"  float32 full width, batch {B}, prompt {P}, max_new {NEW}, K {K}")
+    eng = build_engine(mode="parallel", dtype="float32", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev,
+                       sampling=SamplingParams(seed=3, **SAMPLED))
+    a, b = eng.run(prompts)["tokens"], eng.run(prompts)["tokens"]
+    if not np.array_equal(a, b):
+        fail("two sampled runs with the same seeds differ")
+    log("    two seeded Engine.run calls: identical tokens")
+
+    # even requests sampled, odd ones greedy: all arrive at once, and the
+    # pool's growth preempts the lowest-priority runner, request 2
+    def requests():
+        return [Request(p, max_new_tokens=NEW,
+                        sampling=SamplingParams.greedy() if i % 2
+                        else SamplingParams(seed=10 + i, **SAMPLED))
+                for i, p in enumerate(prompts)]
+
+    paged = build_engine(mode="parallel", dtype="float32", K=K, max_new=NEW,
+                         max_len=MAX_LEN, batch=B, seed=0, device=dev,
+                         kv_layout="paged", page_size=16, pool_pages=30)
+    runs, parted = {}, 0
+    with MarginLog() as margins:
+        for i in (0, 2):                           # each sampled one alone
+            r = requests()[i]
+            runs[f"alone {i}"] = Scheduler(eng).serve([r])["results"][0]
+        for name, e in (("contiguous", eng), ("paged", paged)):
+            reqs = requests()
+            runs[name] = Scheduler(e).serve(reqs)
+        pre = [r["n_preempt"] for r in runs["paged"]["results"]]
+    if not any(pre[i] for i in (0, 2)):
+        fail(f"paged mixed serve preempted no sampled request ({pre})")
+    if paged.allocator.n_used:
+        fail("pages left allocated after the paged mixed serve")
+    reqs = requests()
+    for name in ("contiguous", "paged"):
+        for i, req in enumerate(reqs):
+            got = runs[name]["results"][i]["tokens"]
+            if i % 2:
+                want = none[i, P:P + NEW]
+            else:
+                want = runs[f"alone {i}"]["tokens"]
+            parted += streams_agree(f"{name} mixed vs "
+                                    f"{'greedy' if i % 2 else 'alone'}",
+                                    eng, margins, req, got, want) is not None
+    log(f"    sampled requests alone == in the mixed batch (contiguous, "
+        f"paged with preemptions {pre}); greedy rows == phase 4's greedy "
+        f"run; {parted} streams parted at a near-tie")
+    out = {"reproducible": True, "paged_preemptions": pre,
+           "parted_at_near_tie": parted, "chi2": {}}
+    del eng, paged
+    torch.cuda.empty_cache()
+    for sampled_drafts in (False, True):
+        stat, limit, outside = first_token_chi2(dev, sampled_drafts)
+        name = "sampled drafts" if sampled_drafts else "one-hot drafts"
+        log(f"    rejection_verify_rows on the card, {name}: chi-square "
+            f"{stat:.2f} < {limit:.2f} over 2^14 rows, {outside} outside "
+            f"the support")
+        if outside or not stat < limit:
+            fail(f"chi-square of {name}: {stat} (limit {limit}), {outside} "
+                 f"draws outside the support")
+        out["chi2"][name] = stat
+    return out
+
+
+def sampled_path(ops, dev, path, sched, greedy_ref):
+    log("phase 3c / 4b: sampled serving")
+    check_prng(dev)
+    out = sampled_throughput(ops, dev, path, sched)
+    out["correctness"] = sampled_correctness(dev, greedy_ref)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1335,7 +1679,8 @@ def run_phases(ops, dev) -> list:
     worst, measured = check_kernels(ops, dev)
     path = main_path(ops, dev)
     sched = scheduler_path(ops, dev)
-    losslessness(ops, dev)
+    greedy_ref = losslessness(ops, dev)
+    sampled = sampled_path(ops, dev, path, sched, greedy_ref)
     train = training_path(ops, dev)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -1379,6 +1724,7 @@ def run_phases(ops, dev) -> list:
         "shape": f"{mtp_shape[0]}, {mtp_shape[1]} (M {m['M']})"})
     log(f"serving: {json.dumps({k: v for k, v in path.items()})}")
     log(f"scheduler serving: {json.dumps(sched)}")
+    log(f"sampled serving: {json.dumps(sampled)}")
     log("paged_decode_attention timing: " + json.dumps(
         {key[1]: v for key, v in measured.items()
          if key[0] == "paged_decode_attention"}))

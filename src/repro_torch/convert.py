@@ -114,11 +114,17 @@ def drafter_cache(jcache: dict, *, device="cpu") -> dict:
 
 def decode_state(jstate: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     """A JAX engine's decode state (nested dicts of numpy arrays) -> the
-    port's, without the sampling policy (the port is greedy). A paged
-    state's pools (NP, page, ...) get the port's sink page appended
-    (positions -1, K/V 0) and keep their ``block_table``."""
+    port's. The ``"sampling"`` subtree keeps its leaves; its uint32 keys
+    become int64 words. A paged state's pools (NP, page, ...) get the
+    port's sink page appended (positions -1, K/V 0) and keep their
+    ``block_table``."""
     out = {k: tensor(v, device) for k, v in jstate.items()
            if k not in ("tcache", "dcache", "sampling")}
+    if "sampling" in jstate:
+        samp = jstate["sampling"]
+        out["sampling"] = {k: tensor(np.asarray(v).astype(np.int64)
+                                     if k == "key" else v, device)
+                           for k, v in samp.items()}
     out["tcache"] = target_cache(jstate["tcache"], cfg, device=device)
     if "dcache" in jstate:
         out["dcache"] = drafter_cache(jstate["dcache"], device=device)

@@ -34,7 +34,9 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import prng
 from repro_torch.configs.base import DrafterConfig, ModelConfig
+from repro_torch.core import spec_decode as SD
 from repro_torch.core.flash_train import mtp_flash_attention
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -179,12 +181,13 @@ def make_cache(dcfg: DrafterConfig, batch: int, max_len: int, *,
 
 def _hidden_inputs(dcfg: DrafterConfig, params: dict, fc_taps: Tensor,
                    depth: Tensor, anchor_fc: Tensor, *,
-                   generator: Optional[torch.Generator] = None) -> Tensor:
+                   rng: Optional[Tensor] = None) -> Tensor:
     """Per-position drafter 'hidden' input: fc(taps) at depth 0, the variant
     formula at MTP depths. fc_taps (B,M,D) is fc(taps) at each position;
     anchor_fc (B,M,D) fc(taps) at each anchor; depth (M,) or (B, M). The
-    regularized variant drops 10% of its injection (inverted dropout) with
-    draws from ``generator``, and not at all without one."""
+    regularized variant drops 10% of its injection (inverted dropout), the
+    mask ``prng.bernoulli(rng, 0.9, shape)`` as the JAX package draws it,
+    and not at all without a key."""
     v = dcfg.hidden_state_variant
     h = params["h_shared"].to(fc_taps.dtype).expand_as(fc_taps)
     if v in ("depth_encoding", "ntp_hidden_depth"):
@@ -193,9 +196,8 @@ def _hidden_inputs(dcfg: DrafterConfig, params: dict, fc_taps: Tensor,
     if v in ("ntp_hidden", "ntp_hidden_depth", "regularized"):
         inj = anchor_fc @ params["ntp_proj"]
         if v == "regularized":
-            if generator is not None:
-                keep = torch.rand(inj.shape, generator=generator,
-                                  device=inj.device) < 0.9
+            if rng is not None:
+                keep = prng.bernoulli(rng.to(inj.device), 0.9, inj.shape)
                 inj = inj * keep / 0.9
             inj = params["alpha"].to(inj.dtype) * inj
         h = h + inj
@@ -218,12 +220,13 @@ def embed_tokens(dcfg: DrafterConfig, params: dict, tok: Tensor) -> Tensor:
 
 def mtp_forward(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
                 tokens: Tensor, taps: Tensor, pos: Tensor, depth: Tensor, *,
-                generator: Optional[torch.Generator] = None):
+                rng: Optional[Tensor] = None):
     """Training forward over COD-expanded positions.
 
     tokens (B, n) original sequence; taps (B, n, num_taps·D_t) target taps;
     pos/depth (M,) shared or (B, M) per-row int32 expanded metadata
-    (padding: -1). ``generator`` draws the regularized variant's dropout.
+    (padding: -1). ``rng`` (2,) is the key of the regularized variant's
+    dropout.
     Returns (logits (B,M,V) f32, hidden (B,M,D))."""
     B, n = tokens.shape
     if pos.dim() == 1:
@@ -237,7 +240,7 @@ def mtp_forward(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
 
     fc_all = taps.to(params["fc"].dtype) @ params["fc"]         # (B, n, D)
     hid = _hidden_inputs(dcfg, params, fc_all[rows, safe_pos], depth,
-                         fc_all[rows, anchor], generator=generator)
+                         fc_all[rows, anchor], rng=rng)
     tok_in = tokens[rows, (safe_pos + 1).clamp(0, n - 1)]
     tok_in = torch.where(depth == 0, tok_in, mask_token_id(tcfg))
     emb = embed_tokens(dcfg, params, tok_in)
@@ -283,11 +286,29 @@ def draft_block_inputs(dcfg, tcfg, params, token_next, taps_last, anchor_pos,
     return x, positions
 
 
+def _draw(policy, logits: Tensor, toks: Tensor) -> Tensor:
+    """Sampled drafts under ``policy = (keys (B, T, 2), temperature, top_k,
+    top_p)``: rows with temperature > 0 draw each slot from the row-warped
+    distribution of its logits (B, T, V) with the slot's key; greedy rows
+    keep ``toks``."""
+    keys, temperature, top_k, top_p = policy
+    probs = SD.warp_probs(logits, temperature, top_k, top_p)
+    drawn = prng.categorical(keys, torch.log(probs)).to(torch.int32)
+    return torch.where((temperature > 0)[:, None], drawn, toks)
+
+
 def draft_parallel(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
                    cache: dict, token_next: Tensor, taps_last: Tensor,
                    anchor_pos: Tensor, K: int,
-                   block_table: Optional[Tensor] = None):
+                   block_table: Optional[Tensor] = None, policy=None):
     """P-EAGLE: one forward pass drafts K tokens (argmax per slot).
+
+    ``policy`` = (keys (B, K, 2), temperature, top_k, top_p (B,)) samples
+    the drafts of rows with temperature > 0 from the row-warped drafter
+    distribution, one key a slot; greedy rows stay on the argmax. The K
+    slots are conditioned on mask tokens in one forward, so their logits do
+    not depend on the drafts chosen: drawing after the forward is drawing
+    from the proposal the verifier is handed as q.
 
     Returns (draft_tokens (B,K) int32, draft_logits (B,K,V) f32, cache)."""
     x, positions = draft_block_inputs(dcfg, tcfg, params, token_next,
@@ -295,15 +316,22 @@ def draft_parallel(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
     x = _run_blocks(dcfg, params, x, positions=positions, cache=cache,
                     mode="draft", block_table=block_table)
     logits, _ = _head(dcfg, params, x)
-    return logits.argmax(-1).to(torch.int32), logits, cache
+    toks = logits.argmax(-1).to(torch.int32)
+    if policy is not None:
+        toks = _draw(policy, logits, toks)
+    return toks, logits, cache
 
 
 def draft_ar(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
              cache: dict, token_next: Tensor, taps_last: Tensor,
              anchor_pos: Tensor, K: int,
-             block_table: Optional[Tensor] = None):
+             block_table: Optional[Tensor] = None, policy=None):
     """AR EAGLE-3 baseline: K sequential single-position forwards; step i
-    feeds (token d_i, drafter hidden h_i) into step i+1 (argmax)."""
+    feeds (token d_i, drafter hidden h_i) into step i+1 (argmax).
+
+    ``policy`` as in :func:`draft_parallel`, drawn inside the loop: slot i
+    is fed forward, so slot i+1's logits are conditioned on the slot
+    actually drawn, and its warped distribution is the true proposal."""
     hid = taps_last.to(params["fc"].dtype) @ params["fc"]           # (B, D)
     tok = token_next
     toks, logits_all = [], []
@@ -315,8 +343,11 @@ def draft_ar(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
                         mode="extend", block_table=block_table)
         logits, h = _head(dcfg, params, x)
         tok = logits[:, 0].argmax(-1).to(torch.int32)
+        if policy is not None:
+            keys, temperature, top_k, top_p = policy
+            tok = _draw((keys[:, i:i + 1], temperature, top_k, top_p),
+                        logits, tok[:, None])[:, 0]
         hid = h[:, 0]
         toks.append(tok)
         logits_all.append(logits[:, 0])
     return torch.stack(toks, 1), torch.stack(logits_all, 1), cache
-

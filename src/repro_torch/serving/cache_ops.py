@@ -9,8 +9,10 @@ position beyond the last accepted token is marked empty (-1), and the next
 write reuses it.
 
 The port's decode state is batch-first everywhere: every per-slot leaf has
-the batch on axis 0, the global counters (``iters``, ``row_iters``,
-``committed``) are 0-dim, and a cache's ``ring`` flag is a Python bool. So
+the batch on axis 0 (the ``"sampling"`` policy rows too, so admission
+writes a request's policy and a freed slot's row reads zero, the blank
+policy), the global counters (``iters``, ``row_iters``, ``committed``) are
+0-dim, and a cache's ``ring`` flag is a Python bool. So
 ``write_slot`` / ``reset_slot`` need no inferred batch axes (the JAX
 package diffs two abstract evaluations for them). Trees are matched by key,
 and the functions that take a ``spec`` expect the state without its

@@ -1,4 +1,4 @@
-"""Batched speculative-decoding engine, greedy verification (PyTorch).
+"""Batched speculative-decoding engine (PyTorch).
 
 Counterpart of the JAX package's ``serving/engine.py``: whole-batch serving
 (``prefill`` / ``step`` / ``run``, contiguous KV layout only) and the
@@ -12,10 +12,18 @@ batch), ``ensure_capacity`` (incremental page growth), ``free_slot`` and
   "ar"       — AR EAGLE-3 baseline: K sequential drafter forwards
   "none"     — vanilla autoregressive decoding (one target forward a token)
 
-Every mode emits the target's greedy output: drafts only decide how many
-tokens one verify forward commits. The decode state has the JAX engine's
-leaves except the per-slot sampling policy (sampled verification is not
-ported yet); KV caches inside it are updated in place by each step.
+Verification policy is per request (``serving/sampling.py``): every slot
+carries its own ``SamplingParams`` row in the decode state's
+``"sampling"`` subtree, and one step runs the greedy prefix match for
+``temperature == 0`` rows and seeded lossless rejection sampling against
+the row-warped target for the rest (``core/spec_decode.mixed_verify``).
+Greedy rows emit the target's greedy output in every mode: drafts only
+decide how many tokens one verify forward commits. A sampled row's keys are
+re-derived each step as ``fold_in(seed, position)``, so its stream is a
+pure function of ``(seed, committed prefix)``, and equal to the JAX
+engine's. When no slot samples, a step takes the greedy-only lane, which
+launches no warp, sort or threefry op. KV caches inside the state are
+updated in place by each step.
 
 Two KV layouts: "contiguous" (every slot owns a max_len cache row) and
 "paged" (every attention cache is a pool of ``page_size``-position pages
@@ -23,23 +31,29 @@ behind a per-slot ``block_table``, pages handed out by a
 ``cache_ops.BlockAllocator``). Unlike the JAX engine, whose paged step
 gathers each slot's pages into a contiguous view and scatters it back, the
 paged step reads and writes the pools through the table: phase 1 of every
-decode attention runs the paged decode kernel. Sharding, sampling, the
-prefix cache and swap-to-host are not ported yet.
+decode attention runs the paged decode kernel. Sharding, the prefix cache
+and swap-to-host are not ported yet.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import DrafterConfig, ModelConfig
 from repro_torch.core import drafter as D
 from repro_torch.core import spec_decode as SD
 from repro_torch.models.registry import get_model
 from repro_torch.serving import cache_ops
+from repro_torch.serving.sampling import (SamplingParams,
+                                          batch_sampling_state,
+                                          blank_sampling_state, draft_keys,
+                                          step_keys)
 
 Tensor = torch.Tensor
 DRAFTER_MODES = ("parallel", "ar", "none")
@@ -80,6 +94,14 @@ class EngineConfig:
         whole lifetime).
       bucket_prefill: pad admission prefills to the next power of two, so
         distinct prompt lengths share O(log2 max_len) shapes.
+      sampling: the default ``SamplingParams`` of whole-batch ``prefill`` /
+        ``run`` and of requests without their own; None is greedy.
+      draft_sampling: sampled rows draw their K drafts from the row-warped
+        drafter distribution (keys ``sampling.draft_keys``) and verify
+        against it as the proposal q; off, drafts are the drafter argmax
+        and q its one-hot. Greedy rows take the argmax either way.
+      greedy: deprecated alias (one ``DeprecationWarning``): True is
+        ``SamplingParams.greedy()``, False a temperature-1.0 default.
     """
     K: int = 5
     max_new_tokens: int = 64
@@ -91,8 +113,24 @@ class EngineConfig:
     pool_pages: int = 0
     kv_growth: str = "incremental"
     bucket_prefill: bool = True
+    sampling: Optional[SamplingParams] = None
+    draft_sampling: bool = False
+    greedy: Optional[bool] = None
 
     def __post_init__(self):
+        if self.greedy is not None:
+            warnings.warn(
+                "EngineConfig(greedy=...) is deprecated: decoding policy is "
+                "per request; pass SamplingParams (Request(sampling=...) or "
+                "EngineConfig(sampling=...)) instead",
+                DeprecationWarning, stacklevel=3)
+            if self.sampling is None:
+                object.__setattr__(
+                    self, "sampling",
+                    SamplingParams.greedy() if self.greedy
+                    else SamplingParams(temperature=1.0))
+        if self.sampling is None:
+            object.__setattr__(self, "sampling", SamplingParams.greedy())
         if self.drafter_mode not in DRAFTER_MODES:
             raise ValueError(f"unknown drafter_mode {self.drafter_mode!r}")
         if self.kv_layout not in ("contiguous", "paged"):
@@ -104,11 +142,14 @@ class EngineConfig:
 def make_decode_state(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
                       ecfg: EngineConfig, batch: int, *, device,
                       new_count_fill: int = 1,
-                      cache_rows: Optional[int] = None) -> dict:
-    """The decode-state skeleton: the JAX engine's leaves (minus the
-    sampling policy), on ``device``. ``new_count`` starts at
-    ``new_count_fill`` (1: prefill commits the first generated token). The
-    caches have ``cache_rows`` rows (default ``batch``)."""
+                      cache_rows: Optional[int] = None,
+                      sampling: Optional[dict] = None) -> dict:
+    """The decode-state skeleton: the JAX engine's leaves, on ``device``.
+    ``new_count`` starts at ``new_count_fill`` (1: prefill commits the
+    first generated token). The caches have ``cache_rows`` rows (default
+    ``batch``). ``sampling`` is the per-slot policy subtree
+    (``batch_sampling_state``); None fills every slot with
+    ``ecfg.sampling``."""
     cdt = getattr(torch, ecfg.cache_dtype)
     rows = batch if cache_rows is None else cache_rows
     i32 = dict(dtype=torch.int32, device=device)
@@ -128,6 +169,9 @@ def make_decode_state(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         "iters": torch.zeros((), **i32),
         "row_iters": torch.zeros((), **i32),
         "committed": torch.zeros((), **i32),
+        "sampling": (sampling if sampling is not None else
+                     batch_sampling_state(ecfg.sampling, batch,
+                                          device=device)),
     }
     if ecfg.drafter_mode != "none":
         state["dcache"] = D.make_cache(dcfg, rows, ecfg.max_len, dtype=cdt,
@@ -152,7 +196,7 @@ def _scatter_drop(buf: Tensor, idx: Tensor, val: Tensor) -> Tensor:
 
 
 class Engine:
-    """Greedy speculative-decoding engine over ``batch`` slots.
+    """Speculative-decoding engine over ``batch`` slots.
 
     Args:
       tcfg / dcfg: target and drafter configs (dcfg None for mode "none").
@@ -175,6 +219,9 @@ class Engine:
         self.tparams = _to(tparams, self.device)
         self.dparams = _to(dparams, self.device)
         self.last_logprob = 0.0     # of the last admission's first token
+        # host-side mirror of which slots hold a sampled policy: a step with
+        # none takes the greedy-only lane (the same tokens, fewer launches)
+        self._slot_sampled = [False] * batch
         self.paged = ecfg.kv_layout == "paged"
         self.incremental = self.paged and ecfg.kv_growth == "incremental"
         if self.paged:
@@ -196,22 +243,31 @@ class Engine:
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
-    def _prefill_rows(self, prompts: Tensor, true_len: int) -> dict:
+    def _prefill_rows(self, prompts: Tensor, true_len: int, samp: dict,
+                      greedy: bool) -> dict:
         """A fresh contiguous state for ``prompts`` (B, Pb), whose first
         ``true_len`` tokens are real and the rest right-padding (Pb ==
-        true_len: none). Causal attention leaves the real positions blind
-        to the pads; the head reads position true_len - 1, which commits
-        the first generated token (the target argmax), and the pads' cache
-        entries are invalidated afterwards."""
+        true_len: none), under the policy rows ``samp``. Causal attention
+        leaves the real positions blind to the pads; the head reads
+        position true_len - 1, which commits the first generated token (the
+        argmax for greedy rows, a draw from the warped target keyed by
+        ``fold_in(seed, true_len)`` for sampled ones; ``greedy`` says every
+        row is greedy and skips the warp), and the pads' cache entries are
+        invalidated afterwards."""
         B, Pb = prompts.shape
         P = true_len
-        state = self._state_template(B, device=self.device)
+        state = self._state_template(B, device=self.device, sampling=samp)
         hp = torch.full((B,), P - 1, dtype=torch.int32, device=self.device)
         out = self.model.forward(self.tparams, prompts, mode="prefill",
                                  cache=state["tcache"], collect_taps=True,
                                  head_positions=hp)
         head = out.logits[:, 0]
-        first = head.argmax(-1).to(torch.int32)
+        if greedy:
+            first = head.argmax(-1).to(torch.int32)
+        else:
+            first = SD.sample_token(step_keys(samp, P), head,
+                                    samp["temperature"], samp["top_k"],
+                                    samp["top_p"])
         state["tokens"][:, :Pb] = prompts
         state["tokens"][:, P] = first
         state["logprobs"][:, P] = _token_logprob(head, first)
@@ -231,9 +287,11 @@ class Engine:
                 cache_ops.commit(state["dcache"], cp - 1)
         return state
 
-    def prefill(self, prompts) -> dict:
+    def prefill(self, prompts,
+                sampling: Optional[SamplingParams] = None) -> dict:
         """Whole-batch prefill of ``prompts`` (B, P): a fresh contiguous
-        decode state committing the first generated token per row."""
+        decode state committing the first generated token per row, every
+        row under ``sampling`` (default ``ecfg.sampling``)."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                   device=self.device)
         B, P = prompts.shape
@@ -244,8 +302,10 @@ class Engine:
             raise ValueError(
                 f"prompt {P} + max_new_tokens {self.ecfg.max_new_tokens} + "
                 f"K {K} exceeds max_len {self.ecfg.max_len}")
+        sp = sampling or self.ecfg.sampling
+        samp = batch_sampling_state(sp, B, device=self.device)
         with torch.no_grad():
-            return self._prefill_rows(prompts, P)
+            return self._prefill_rows(prompts, P, samp, sp.is_greedy)
 
     def prefill_bucket(self, length: int) -> int:
         """Tokens the admission prefill of a ``length``-token prompt runs:
@@ -257,11 +317,12 @@ class Engine:
             return length
         return pb
 
-    def _admission_prefill(self, prompt: Tensor) -> dict:
+    def _admission_prefill(self, prompt: Tensor,
+                           sp: SamplingParams) -> dict:
         P = prompt.shape[1]
-        padded = torch.nn.functional.pad(prompt, (0, self.prefill_bucket(P)
-                                                  - P))
-        return self._prefill_rows(padded, P)
+        padded = F.pad(prompt, (0, self.prefill_bucket(P) - P))
+        samp = batch_sampling_state(sp, 1, device=self.device)
+        return self._prefill_rows(padded, P, samp, sp.is_greedy)
 
     # ------------------------------------------------------------------
     # per-slot lifecycle (continuous batching; serving/scheduler.py)
@@ -274,10 +335,12 @@ class Engine:
         if not self.paged:
             return self._state_template(
                 self.batch, device=self.device,
-                new_count_fill=self.ecfg.max_new_tokens)
-        state = self._state_template(self.batch, device=self.device,
-                                     new_count_fill=self.ecfg.max_new_tokens,
-                                     cache_rows=1)
+                new_count_fill=self.ecfg.max_new_tokens,
+                sampling=blank_sampling_state(self.batch, device=self.device))
+        state = self._state_template(
+            self.batch, device=self.device,
+            new_count_fill=self.ecfg.max_new_tokens, cache_rows=1,
+            sampling=blank_sampling_state(self.batch, device=self.device))
         state = cache_ops.paged_state(state, self.pspec, self.ecfg.page_size,
                                       self.pool_pages)
         state["block_table"] = torch.full(
@@ -308,25 +371,31 @@ class Engine:
         return self.pages_for(prompt_len + budget + self.ecfg.K + 1)
 
     def initial_pages(self, prompt_len: int,
-                      max_new: Optional[int] = None) -> int:
+                      max_new: Optional[int] = None, *,
+                      resume: bool = False) -> int:
         """Pages an admission claims: the whole lifetime (upfront), or the
-        prompt plus one speculative block (incremental)."""
+        prompt plus one speculative block (incremental). A sampled
+        ``resume`` of a ``prompt_len`` stream commits nothing past its last
+        token, so its next step writes one position less than a fresh
+        admission's, and it claims one position less."""
         if not self.paged:
             return 0
         if not self.incremental:
             return self.pages_needed(prompt_len, max_new)
-        return self.pages_for(prompt_len + self.commit_stride)
+        return self.pages_for(prompt_len + self.commit_stride
+                              - (1 if resume else 0))
 
     def can_admit(self, prompt_len: int, max_new: Optional[int] = None,
-                  full: bool = False) -> bool:
+                  full: bool = False, resume: bool = False) -> bool:
         """Whether the pool can take one more request of this shape now
         (always, contiguous). ``full`` gates on the whole-lifetime need, as
         the scheduler does for a preempted request's resume, so the same
-        pressure cannot evict it again at once."""
+        pressure cannot evict it again at once; ``resume`` mirrors
+        ``prefill_into_slot(resume=)``."""
         if not self.paged:
             return True
         need = (self.pages_needed(prompt_len, max_new) if full
-                else self.initial_pages(prompt_len, max_new))
+                else self.initial_pages(prompt_len, max_new, resume=resume))
         return need <= self.allocator.n_free
 
     def slot_capacity(self, slot: int) -> int:
@@ -362,27 +431,44 @@ class Engine:
         return state, True
 
     def prefill_into_slot(self, state: dict, prompt, slot: int,
-                          max_new: Optional[int] = None):
+                          max_new: Optional[int] = None,
+                          sampling: Optional[SamplingParams] = None,
+                          resume: bool = False):
         """Admit one request into slot ``slot`` of a live state: prefill
-        ``prompt`` (1-D) as a batch-1 state (bucketed), then write its row
-        into the slot, in place; other slots are untouched. Paged: the slot
-        first claims ``initial_pages(len(prompt), max_new)`` pages (callers
-        gate on ``can_admit``) and the prefilled caches are scattered into
-        them. A preempted request resumes by admitting prompt + the tokens
-        it generated: its greedy continuation is a function of that prefix.
-        Returns ``(state, first_token, last_position)``, and leaves the
-        first token's logprob in ``last_logprob``."""
+        ``prompt`` (1-D) as a batch-1 state (bucketed) under the request's
+        policy ``sampling`` (default ``ecfg.sampling``), then write its row,
+        the policy row included, into the slot, in place; other slots are
+        untouched. Paged: the slot first claims ``initial_pages`` pages
+        (callers gate on ``can_admit``) and the prefilled caches are
+        scattered into them.
+
+        A fresh admission (``resume=False``) commits the first generated
+        token and returns ``(state, first_token, last_position)``, leaving
+        its logprob in ``last_logprob``. A preempted request resumes by
+        admitting prompt + the tokens it generated. A greedy stream simply
+        continues from that prefix. A sampled one passes ``resume=True``:
+        the engine prefills ``prompt[:-1]``, forces the committed token to
+        ``prompt[-1]`` and starts the slot's count at 0, so the slot holds
+        the uninterrupted run's step-boundary state and the next step
+        re-derives the same ``fold_in(seed, position)`` keys; it returns
+        ``(state, None, last_position)``."""
         prompt = torch.as_tensor(np.asarray(prompt, np.int32).reshape(1, -1),
                                  device=self.device)
+        res_tok = None
+        if resume:
+            prompt, res_tok = prompt[:, :-1], prompt[0, -1]
+        sp = sampling or self.ecfg.sampling
+        self._slot_sampled[slot] = not sp.is_greedy
         with torch.no_grad():
             if not self.paged:
-                src = self._admission_prefill(prompt)
-                cache_ops.write_slot(state, src, slot)
+                src = self._admission_prefill(prompt, sp)
+                cache_ops.write_slot(state, _resume_fixup(src, res_tok), slot)
             else:
                 if self._slot_pages[slot]:
                     raise RuntimeError(f"slot {slot} still holds pages; "
                                        "free_slot it before re-admission")
-                n = self.initial_pages(prompt.shape[1], max_new)
+                n = self.initial_pages(prompt.shape[1] + (1 if resume else 0),
+                                       max_new, resume=resume)
                 pages = self.allocator.alloc(n)
                 if pages is None:
                     raise RuntimeError(
@@ -392,11 +478,15 @@ class Engine:
                 row = torch.full((self.pages_per_slot,), -1,
                                  dtype=torch.int32, device=self.device)
                 row[:n] = torch.tensor(pages, dtype=torch.int32)
-                src = self._admission_prefill(prompt)
-                cache_ops.admit_pages(self._core(state), src, slot, row,
+                src = self._admission_prefill(prompt, sp)
+                cache_ops.admit_pages(self._core(state),
+                                      _resume_fixup(src, res_tok), slot, row,
                                       self.pspec)
                 state["block_table"][slot] = row
         last = int(src["last"][0])
+        if resume:
+            self.last_logprob = 0.0
+            return state, None, last
         self.last_logprob = float(src["logprobs"][0, last])
         return state, int(src["tokens"][0, last]), last
 
@@ -405,6 +495,7 @@ class Engine:
         max_new_tokens) until its next admission; paged, its pages return
         to the pool and its table row becomes -1."""
         fills = {"new_count": self.ecfg.max_new_tokens}
+        self._slot_sampled[slot] = False
         if not self.paged:
             return cache_ops.reset_slot(state, slot, fills=fills)
         self.allocator.free(self._slot_pages[slot])
@@ -416,12 +507,20 @@ class Engine:
     # ------------------------------------------------------------------
     # one speculative iteration
     # ------------------------------------------------------------------
+    def _mixed_policy(self) -> bool:
+        """Whether a step needs the sampled lane: an admitted slot samples,
+        or the engine default does (whole-batch prefill fills every row
+        with it). False selects the greedy-only lane: the same tokens, no
+        warp, sort or threefry launch."""
+        return any(self._slot_sampled) or not self.ecfg.sampling.is_greedy
+
     def step(self, state: dict, active=None, max_new=None,
-             k_row=None) -> dict:
+             k_row=None, greedy_only: Optional[bool] = None) -> dict:
         """One speculative iteration. The scheduler passes ``active`` (B,)
         bool, per-slot budgets ``max_new`` (B,) and draft caps ``k_row``
         (B,); without them every row is live under the engine's budget and
-        full K. A paged state needs its block table."""
+        full K. ``greedy_only`` picks the lane (default: greedy-only unless
+        ``_mixed_policy``). A paged state needs its block table."""
         if self.paged and "block_table" not in state:
             raise ValueError("a paged Engine steps a paged state "
                              "(blank_state + prefill_into_slot)")
@@ -429,35 +528,41 @@ class Engine:
         def dev(x, dtype):
             return None if x is None else torch.as_tensor(
                 x, dtype=dtype, device=self.device)
+        if greedy_only is None:
+            greedy_only = not self._mixed_policy()
         with torch.no_grad():
             return speculative_step(
                 self.model, self.tcfg, self.dcfg, self.ecfg, self.tparams,
                 self.dparams, state, active_mask=dev(active, torch.bool),
                 max_new=dev(max_new, torch.int32),
-                k_row=dev(k_row, torch.int32))
+                k_row=dev(k_row, torch.int32), greedy_only=greedy_only)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, prompts, max_iters: int = 10_000) -> Dict[str, Any]:
+    def run(self, prompts, sampling: Optional[SamplingParams] = None,
+            max_iters: int = 10_000) -> Dict[str, Any]:
         """Prefill, then step until every row has its ``max_new_tokens``
-        (checked every 8 steps, as the JAX engine does). ``steps`` counts
-        the step calls, ``iterations`` those in which some row was live.
-        Contiguous only: a paged engine serves through the scheduler."""
+        (checked every 8 steps, as the JAX engine does), every row under
+        ``sampling`` (default ``ecfg.sampling``; a greedy policy takes the
+        greedy-only lane). ``steps`` counts the step calls, ``iterations``
+        those in which some row was live. Contiguous only: a paged engine
+        serves through the scheduler."""
         if self.paged:
             raise ValueError("Engine.run is the whole-batch contiguous loop; "
                              "drive a paged engine through "
                              "serving.scheduler.Scheduler")
+        sp = sampling or self.ecfg.sampling
         t0 = time.perf_counter()
-        state = self.prefill(prompts)
+        state = self.prefill(prompts, sampling=sp)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
         steps = 0
         t0 = time.perf_counter()
         while steps < max_iters:
-            state = self.step(state)
+            state = self.step(state, greedy_only=sp.is_greedy)
             steps += 1
             if steps % 8 == 0 or steps < 2:
                 if bool((state["new_count"] >= self.ecfg.max_new_tokens).all()):
@@ -480,6 +585,19 @@ class Engine:
         }
 
 
+def _resume_fixup(src: dict, res_tok: Optional[Tensor]) -> dict:
+    """Turn a batch-1 admission prefill into a step-boundary resume when
+    ``res_tok`` is given: the token committed at ``last`` becomes
+    ``res_tok`` (the prefix's final, already emitted token; the prefill's
+    own draw is discarded) and the committed count starts at 0, so nothing
+    is harvested twice and the next step verifies the true continuation.
+    In place; returns ``src``."""
+    if res_tok is not None:
+        src["tokens"][0, src["last"][0]] = res_tok
+        src["new_count"].zero_()
+    return src
+
+
 def _to(tree, device):
     if tree is None:
         return None
@@ -494,32 +612,52 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
                      ecfg: EngineConfig, tparams, dparams, state: dict,
                      active_mask: Optional[Tensor] = None,
                      max_new: Optional[Tensor] = None,
-                     k_row: Optional[Tensor] = None) -> dict:
-    """One iteration: draft K -> verify K+1 -> accept -> commit (greedy).
+                     k_row: Optional[Tensor] = None,
+                     # eager PyTorch: no trace to specialize
+                     greedy_only: bool = False,  # repro-lint: disable=TRACE01
+                     ) -> dict:
+    """One iteration: draft K -> verify K+1 -> accept -> commit.
 
     ``active_mask`` (B,) bool masks out free or stalled slots and
     ``max_new`` (B,) gives per-slot budgets (default: every row, the
     engine's budget); a row out of budget or masked is frozen: it commits
     nothing and keeps last/taps/counters. ``k_row`` (B,) caps each row's
-    accepted drafts (the correction token is then the target argmax at the
-    cap, so the stream is unchanged). With ``state["block_table"]`` the
+    accepted drafts (a greedy row's correction token is then the target
+    argmax at the cap, so its stream is unchanged; a sampled row
+    force-rejects past it, losslessly). With ``state["block_table"]`` the
     caches are page pools read and written through it. The caches of
-    ``state`` are updated in place; the returned state holds them."""
+    ``state`` are updated in place; the returned state holds them.
+
+    Verification is per row (``state["sampling"]``): greedy rows take the
+    argmax prefix match on the raw target logits; sampled rows run seeded
+    rejection sampling against the row-warped target with the keys
+    ``fold_in(seed, c + 1)``, c + 1 being the first position the step
+    determines. With ``ecfg.draft_sampling`` sampled rows draw their drafts
+    from the row-warped drafter distribution (``draft_keys``) and hand it
+    to the verifier as q; otherwise q is the one-hot of the argmax drafts.
+    ``greedy_only`` skips the sampled lane altogether (no warp, sort or
+    threefry op); for greedy rows both lanes give the same tokens."""
     B = state["tokens"].shape[0]
     K = ecfg.K if ecfg.drafter_mode != "none" else 0
     c = state["last"]
     tok_next = state["tokens"].gather(1, c[:, None].long())[:, 0]
     dcache = state.get("dcache")
     table = state.get("block_table")
+    samp = state["sampling"]
 
+    policy = None
+    if ecfg.draft_sampling and not greedy_only and K > 0:
+        policy = (draft_keys(samp, c + 1, K), samp["temperature"],
+                  samp["top_k"], samp["top_p"])
+    dlogits = None
     if ecfg.drafter_mode == "parallel":
-        drafts, _, dcache = D.draft_parallel(dcfg, tcfg, dparams, dcache,
-                                             tok_next, state["taps_last"],
-                                             c - 1, K, block_table=table)
+        drafts, dlogits, dcache = D.draft_parallel(
+            dcfg, tcfg, dparams, dcache, tok_next, state["taps_last"], c - 1,
+            K, block_table=table, policy=policy)
     elif ecfg.drafter_mode == "ar":
-        drafts, _, dcache = D.draft_ar(dcfg, tcfg, dparams, dcache, tok_next,
-                                       state["taps_last"], c - 1, K,
-                                       block_table=table)
+        drafts, dlogits, dcache = D.draft_ar(
+            dcfg, tcfg, dparams, dcache, tok_next, state["taps_last"], c - 1,
+            K, block_table=table, policy=policy)
     else:
         drafts = torch.zeros((B, 0), dtype=torch.int32, device=c.device)
 
@@ -533,11 +671,26 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
                          block_table=table)
     if K == 0:
         accept_len = torch.zeros((B,), dtype=torch.int32, device=c.device)
-        t_star = tout.logits.argmax(-1).to(torch.int32)
-    else:
+        if greedy_only:
+            t_star = tout.logits.argmax(-1).to(torch.int32)
+        else:
+            t_star = SD.sample_token(step_keys(samp, c + 1),
+                                     tout.logits[:, 0], samp["temperature"],
+                                     samp["top_k"], samp["top_p"])[:, None]
+    elif greedy_only:
         accept_len, t_star = SD.greedy_verify(drafts, tout.logits)
         if k_row is not None:
             accept_len = torch.minimum(accept_len, k_row)
+    else:
+        V = tout.logits.shape[-1]
+        q = F.one_hot(drafts.long(), V).to(tout.logits.dtype)
+        if policy is not None:
+            q = torch.where((samp["temperature"] > 0)[:, None, None],
+                            SD.warp_probs(dlogits, samp["temperature"],
+                                          samp["top_k"], samp["top_p"]), q)
+        accept_len, t_star = SD.mixed_verify(
+            step_keys(samp, c + 1), drafts, q, tout.logits,
+            samp["temperature"], samp["top_k"], samp["top_p"], k_row)
 
     budget = ecfg.max_new_tokens if max_new is None else max_new
     active = state["new_count"] < budget
@@ -583,6 +736,7 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         iters=state["iters"] + act.max(),
         row_iters=state["row_iters"] + act.sum(dtype=torch.int32),
         committed=state["committed"] + ncommit.sum(dtype=torch.int32),
+        sampling=samp,
     )
     if table is not None:
         new_state["block_table"] = table

@@ -1,10 +1,11 @@
-"""Continuous-batching scheduler over the engine's slots, greedy requests
-(PyTorch).
+"""Continuous-batching scheduler over the engine's slots (PyTorch).
 
 Counterpart of the JAX package's ``serving/scheduler.py`` (``Request`` and
 ``Scheduler.serve``, the virtual-clock loop), without what the port does
-not carry yet: sampled requests, the prefix cache, swap-to-host, adaptive
-K, the wall-clock streaming front end and ``LLMEngine``.
+not carry yet: the prefix cache, swap-to-host, adaptive K, the wall-clock
+streaming front end and ``LLMEngine``. Each request carries its own
+decoding policy (``serving/sampling.SamplingParams``), so one batch mixes
+greedy and sampled requests.
 
 Request lifecycle::
 
@@ -30,15 +31,18 @@ Under incremental page growth a slot claims pages as its length crosses
 page boundaries, so the pool can run out mid-decode. Then the
 lowest-priority running slot is preempted: its pages return to the pool,
 its prompt and generated tokens stay on the host, and it is re-admitted
-later by recompute-prefill of that prefix, which continues the greedy
-stream token for token. A resume gates on its whole remaining need, so the
-pressure that evicted it cannot evict it again at once. With
-``preempt=False`` slots stall instead.
+later by recompute-prefill of that prefix, which continues the stream token
+for token: a greedy stream is a function of its prefix, and a sampled one
+resumes with ``prefill_into_slot(resume=True)`` at the step boundary it
+had, re-deriving the same per-position keys. A resume gates on its whole
+remaining need, so the pressure that evicted it cannot evict it again at
+once. With ``preempt=False`` slots stall instead.
 
 Termination is host-driven: after every ``sync_every`` iterations one
 readback brings the per-slot counters and committed tokens to the host;
-streams are trimmed at the first ``eos_id`` and at their budget
-(speculative commits overshoot it by up to K).
+streams are trimmed at the first ``eos_id`` or stop token of the request's
+policy (inclusive) and at their budget (speculative commits overshoot it by
+up to K).
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.sampling import SamplingParams
 
 QUEUED = "queued"
 PREFILLING = "prefilling"
@@ -64,15 +69,16 @@ _rid_counter = itertools.count()
 
 @dataclass(eq=False)          # identity semantics: membership means THIS one
 class Request:
-    """One greedy generation request. ``prompt`` is a 1-D token array; the
-    prefill commits the first generated token, which counts toward
-    ``max_new_tokens`` (None = the engine's default). ``arrival_time`` is
-    in virtual time units. ``sampling`` must be None: sampled decoding is
-    not ported, so a request carrying a policy raises."""
+    """One generation request. ``prompt`` is a 1-D token array; the prefill
+    commits the first generated token, which counts toward the budget.
+    ``sampling`` is its decoding policy (None: the engine's
+    ``ecfg.sampling``). The budget is ``max_new_tokens``, else
+    ``sampling.max_new_tokens``, else the engine's default.
+    ``arrival_time`` is in virtual time units."""
     prompt: Any
     max_new_tokens: Optional[int] = None
     arrival_time: float = 0.0
-    sampling: Any = None
+    sampling: Optional[SamplingParams] = None
     rid: int = field(default_factory=lambda: next(_rid_counter))
     # lifecycle (managed by the scheduler)
     status: str = QUEUED
@@ -94,13 +100,10 @@ class Request:
     _committed: int = 0            # tokens committed across all admissions
     _prefills: int = 0             # prefill-committed tokens (1 + resumes)
     _seq: int = 0                  # submission index (FIFO tie-break)
-    _scanned: int = 0              # out_tokens prefix already EOS-scanned
+    _scanned: int = 0              # out_tokens prefix already stop-scanned
+    _stop_set: frozenset = frozenset()   # eos + stop ids, set at submission
 
     def __post_init__(self):
-        if self.sampling is not None:
-            raise NotImplementedError(
-                "sampled decoding is not ported; requests are greedy "
-                "(sampling=None)")
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
         if self.prompt.size == 0:
             raise ValueError("empty prompt")
@@ -117,9 +120,10 @@ class Request:
 class Scheduler:
     """Continuous-batching loop over an Engine's B slots.
 
-    ``eos_id``: the token that ends a request (its output is trimmed after
-    the first one); a finished slot is freed at once (paged: its pages
-    return to the pool). ``sync_every``: iterations dispatched between host syncs; outputs are
+    ``eos_id``: the token that ends every request, beside each request's
+    own stop tokens (its output is trimmed after the first); a finished
+    slot is freed at once (paged: its pages return to the pool).
+    ``sync_every``: iterations dispatched between host syncs; outputs are
     the same for any value. ``iter_cost`` / ``prefill_cost``: virtual-clock
     cost of one iteration / one admission prefill. ``preempt``: evict the
     lowest-priority running slot when the pool runs out (default), else
@@ -178,8 +182,12 @@ class Scheduler:
         if r.status != QUEUED or r.out_tokens:
             raise ValueError(f"request {r.rid} is {r.status}; Request "
                              "objects are single-use")
+        if r.sampling is None:
+            r.sampling = eng.ecfg.sampling
         if r.max_new_tokens is None:
-            r.max_new_tokens = eng.ecfg.max_new_tokens
+            r.max_new_tokens = (r.sampling.max_new_tokens
+                                if r.sampling.max_new_tokens is not None
+                                else eng.ecfg.max_new_tokens)
         # prompt + budget + the worst speculative overshoot must fit
         if r.prompt.size + r.max_new_tokens + eng.ecfg.K + 1 > eng.ecfg.max_len:
             raise ValueError(
@@ -194,6 +202,10 @@ class Scheduler:
         r.t_submit = t_submit
         r._seq = self._next_seq
         self._next_seq += 1
+        stops = set(r.sampling.stop_token_ids)
+        if self.eos_id is not None:
+            stops.add(self.eos_id)
+        r._stop_set = frozenset(stops)
 
     def _finish_slot(self, s: int) -> None:
         req = self._slot_req[s]
@@ -228,24 +240,33 @@ class Scheduler:
             return None
         return max(live, key=lambda s: self._prio(self._slot_req[s]))
 
+    @staticmethod
+    def _resumes_sampled(req: Request) -> bool:
+        """A sampled request re-admitted after a preemption resumes without
+        a commit (``prefill_into_slot(resume=True)``)."""
+        return bool(req.out_tokens) and not req.sampling.is_greedy
+
     def _head_admissible(self, req: Request) -> bool:
-        # a resumed request gates on its whole remaining need
+        # a resumed request gates on its whole remaining need; ``resume``
+        # mirrors the admission's flag so the gate prices its exact claim
         return self.engine.can_admit(
             req.prompt.size + len(req.out_tokens),
-            req.max_new_tokens - len(req.out_tokens), full=req.n_preempt > 0)
+            req.max_new_tokens - len(req.out_tokens), full=req.n_preempt > 0,
+            resume=self._resumes_sampled(req))
 
     def _clip_and_check_done(self, req: Request) -> bool:
-        """Trim at the first EOS and at the budget; True when the request
-        is complete. Only tokens appended since the last call are scanned."""
+        """Trim at the first stop token (``eos_id`` or the request's
+        ``stop_token_ids``, inclusive) and at the budget; True when the
+        request is complete. Only tokens appended since the last call are
+        scanned."""
         out = req.out_tokens
         done = False
-        if self.eos_id is not None:
-            for i in range(req._scanned, len(out)):
-                if out[i] == self.eos_id:
-                    del out[i + 1:]
-                    del req.out_logprobs[i + 1:]
-                    done = True
-                    break
+        for i in range(req._scanned, len(out)):
+            if out[i] in req._stop_set:
+                del out[i + 1:]
+                del req.out_logprobs[i + 1:]
+                done = True
+                break
         if len(out) >= req.max_new_tokens:
             del out[req.max_new_tokens:]          # speculative overshoot
             del req.out_logprobs[req.max_new_tokens:]
@@ -255,10 +276,13 @@ class Scheduler:
 
     def _admit(self, req: Request, s: int) -> None:
         """Prefill ``req`` into slot s: its prompt, or on a resume the prompt
-        and the tokens it generated before it was evicted."""
+        and the tokens it generated before it was evicted (a sampled resume
+        commits nothing new; the next step restarts its verification at the
+        same committed prefix and key as the uninterrupted run)."""
         eng = self.engine
         prompt = (self._committed_stream(req) if req.out_tokens
                   else req.prompt)
+        resume = self._resumes_sampled(req)
         remaining = req.max_new_tokens - len(req.out_tokens)
         req.status = PREFILLING
         req.slot = s
@@ -267,15 +291,19 @@ class Scheduler:
             req.vt_admit = self._clock
         self._event("admit", req.rid)
         self._state, first, last = eng.prefill_into_slot(
-            self._state, prompt, s, max_new=remaining)
+            self._state, prompt, s, max_new=remaining, sampling=req.sampling,
+            resume=resume)
         if first_admission:
             req.t_admit = time.perf_counter()
         self._clock += self.prefill_cost
-        req.out_tokens.append(first)
-        req.out_logprobs.append(eng.last_logprob)
-        req._committed += 1
-        req._prefills += 1
-        req._prev_new, req._prev_last = 1, last
+        if first is None:                  # no-commit resume (sampled)
+            req._prev_new, req._prev_last = 0, last
+        else:
+            req.out_tokens.append(first)
+            req.out_logprobs.append(eng.last_logprob)
+            req._committed += 1
+            req._prefills += 1
+            req._prev_new, req._prev_last = 1, last
         req.status = DECODING
         self._slot_req[s] = req
         self._active[s] = True

@@ -17,6 +17,10 @@ forward under ``torch.no_grad()``, the counterpart of ``stop_gradient``;
 its attention is the flash kernel on the card), ``loss`` (the drafter
 forward; its attention is the MTP kernel on the card), ``grads`` (the
 backward) and ``apply`` (AdamW). The drafter parameters stay float32.
+
+The regularized variant's dropout keys are the JAX trainer's: the stream
+starts at ``fold_in(PRNGKey(seed), 7)`` and is split once per forward (a
+whole batch, or each segment), so its masks are the reference's.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import DrafterConfig, ModelConfig
 from repro_torch.core import drafter as D
 from repro_torch.core import losses
@@ -60,7 +65,7 @@ class Trainer:
       tparams: target parameters (``models.transformer`` layout).
       tc: optimizer and loss settings.
       seed: seeds the drafter init (when ``dparams`` is None) and the
-        regularized variant's dropout stream.
+        regularized variant's dropout key stream.
       dparams: initial drafter parameters; drawn from ``seed`` if None.
       device: "cuda" (the default) or "cpu"; a missing card raises.
     """
@@ -77,8 +82,7 @@ class Trainer:
             dparams = D.init_params(dcfg, tcfg, gen, device=self.device)
         self.dparams = tree_map(lambda t: t.to(self.device), dparams)
         self.opt_state = adamw_init(self.dparams)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            seed + 7)
+        self.rng = prng.fold_in(prng.PRNGKey(seed, device=self.device), 7)
         self.sched = linear_warmup_schedule(tc.lr, tc.total_steps,
                                             tc.warmup_ratio)
         self.metrics_log: List[dict] = []
@@ -89,6 +93,12 @@ class Trainer:
 
     def _tensor(self, a) -> Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _advance_rng(self) -> Tensor:
+        """The next dropout key: split the carried key, keep the first half
+        (the JAX trainer's sequential data-order stream)."""
+        self.rng, sub = prng.split(self.rng, 2)
+        return sub
 
     # -- the four stages of a step ------------------------------------------
 
@@ -101,12 +111,12 @@ class Trainer:
                                       head_last_only=True).taps
 
     def loss(self, params: dict, tokens: Tensor, taps: Tensor, pos: Tensor,
-             depth: Tensor, labels: Tensor):
-        """The drafter forward and its loss: (loss, metrics)."""
+             depth: Tensor, labels: Tensor, rng: Optional[Tensor] = None):
+        """The drafter forward and its loss: (loss, metrics); ``rng`` keys
+        the regularized variant's dropout."""
         if self.dcfg.parallel:
             logits, _ = D.mtp_forward(self.dcfg, self.tcfg, params, tokens,
-                                      taps, pos, depth,
-                                      generator=self.generator)
+                                      taps, pos, depth, rng=rng)
             return losses.mtp_loss(
                 logits, labels, depth,
                 depth_weight_decay=self.tc.depth_weight_decay)
@@ -139,7 +149,8 @@ class Trainer:
         loss, metrics = self.loss(params, tokens, taps,
                                   self._tensor(batch.pos),
                                   self._tensor(batch.depth),
-                                  self._tensor(batch.labels))
+                                  self._tensor(batch.labels),
+                                  rng=self._advance_rng())
         return self.grads(loss, params), metrics
 
     def batch_grads(self, batch: Union[MTPBatch, List[MTPBatch]]):

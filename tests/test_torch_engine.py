@@ -191,13 +191,17 @@ def test_accepting_drafts_equal_plain_decoding(runs, oracle_runs, mode):
 
 
 def test_decode_state_leaves(runs):
-    """The port's state has the JAX engine's leaves, minus the sampling
-    policy (greedy only), with the same shapes."""
+    """The port's state has the JAX engine's leaves, the sampling policy
+    included, with the same shapes."""
     jr, tr = runs["parallel"]
     jstate, tstate = jr["state"], tr["state"]
-    assert set(tstate) == set(jstate) - {"sampling"}
+    assert set(tstate) == set(jstate)
+    assert set(tstate["sampling"]) == set(jstate["sampling"])
     for leaf in tstate:
-        if leaf not in ("tcache", "dcache"):
+        if leaf == "sampling":
+            for k, v in tstate[leaf].items():
+                assert tuple(v.shape) == tuple(jstate[leaf][k].shape), k
+        elif leaf not in ("tcache", "dcache"):
             assert tuple(tstate[leaf].shape) == tuple(jstate[leaf].shape), leaf
 
 

@@ -1,6 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 on the card, the engine's greedy losslessness through the kernels, paged
-scheduler serving through the paged decode kernel, the flash training
+scheduler serving through the paged decode kernel, greedy and sampled,
+the threefry PRNG's words on the card against the CPU's, the chi-square
+losslessness of rejection verification on the card, the flash training
 attention's gradients, and reduced training steps through the MTP kernel.
 
 Marked ``gpu``; each test decides inside the ``card`` fixture whether a
@@ -322,6 +324,97 @@ def test_engine_lossless_through_kernels(card):
         assert ops.launches["decode_attention"] > 0
     np.testing.assert_array_equal(toks["parallel"], toks["none"])
     np.testing.assert_array_equal(toks["ar"], toks["none"])
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 70001), (2, 8, 151936)],
+                         ids=str)
+def test_prng_on_card_equals_cpu(card, shape):
+    """Threefry words, uniforms and Bernoulli masks from keys on the card
+    equal the CPU's bit for bit (both hold 32-bit words in int64)."""
+    from repro_torch import prng
+    keys = prng.split(prng.fold_in(prng.PRNGKey(2 ** 40 + 7), 517), 3)
+    for k in (keys, keys[1]):
+        for fn in (lambda k: prng.bits(k, shape),
+                   lambda k: prng.uniform(k, shape).view(torch.int32),
+                   lambda k: prng.bernoulli(k, 0.9, shape),
+                   lambda k: prng.split(k, 5)):
+            assert torch.equal(fn(k.to(card)).cpu(), fn(k))
+
+
+def _first_token_chi2(device, sampled_drafts, N=2 ** 14):
+    """tests/test_torch_sampling.py's losslessness check: (statistic,
+    threshold, draws outside the support) of the first committed token
+    over N seeded rows against the warped target."""
+    from scipy.stats import chi2
+    from repro_torch import prng
+    from repro_torch.core import spec_decode as SD
+    V, Kc = 8, 3
+    g = np.random.default_rng(0)
+    logits = torch.from_numpy((1.5 * g.standard_normal((1, Kc + 1, V)))
+                              .astype(np.float32)).to(device)
+    p = SD.warp_probs(logits, torch.tensor([0.8], device=device),
+                      torch.tensor([6], device=device),
+                      torch.tensor([1.0], device=device))[0]
+    q = torch.softmax(torch.from_numpy(g.standard_normal((Kc, V)).astype(
+        np.float32)).to(device), -1)
+    keys = prng.split(prng.PRNGKey(0, device=device), N)
+    kd, kv = prng.split(keys, 2).unbind(1)
+    if sampled_drafts:
+        drafts = prng.categorical(prng.split(kd, Kc), torch.log(q)[None])
+        dprobs = q.expand(N, Kc, V)
+    else:
+        drafts = q.argmax(-1).expand(N, Kc)
+        dprobs = torch.nn.functional.one_hot(drafts, V).float()
+    _, committed = SD.rejection_verify_rows(
+        kv, drafts.to(torch.int32), dprobs, p.expand(N, Kc + 1, V))
+    obs = torch.bincount(committed[:, 0].long(), minlength=V).cpu().numpy()
+    exp = p[0].cpu().numpy().astype(np.float64) * N
+    live = exp > 0
+    stat = float((((obs - exp) ** 2)[live] / exp[live]).sum())
+    return stat, chi2.ppf(0.999, live.sum() - 1), int(obs[~live].sum())
+
+
+@pytest.mark.parametrize("sampled_drafts", [False, True],
+                         ids=["one-hot drafts", "sampled drafts"])
+def test_rejection_verify_lossless_on_card(card, sampled_drafts):
+    stat, threshold, outside = _first_token_chi2(card, sampled_drafts)
+    assert outside == 0
+    assert stat < threshold, (stat, threshold)
+
+
+def test_sampled_paged_serve_matches_contiguous_engine(card):
+    """Reduced width, sampled: each request served by a paged scheduler
+    under pool pressure (preempting sampled requests) emits what the
+    contiguous engine's run emits for its row, except after a decision
+    whose margin is below 1e-4; the kernels' launch counts are the greedy
+    path's."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.margins import MarginLog
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW = 3, 20, 12
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=4)
+    eng = build_engine(reduced=True, mode="parallel", K=3, max_new=NEW,
+                       max_len=64, batch=1, seed=0, device=card, sampling=sp)
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    with MarginLog() as log:
+        want = [eng.run(p[None])["tokens"][0, P:P + NEW] for p in prompts]
+        peng = Engine(eng.tcfg, eng.dcfg, eng.tparams, eng.dparams,
+                      dataclasses.replace(eng.ecfg, kv_layout="paged",
+                                          page_size=8, pool_pages=9), B,
+                      device=card)
+        ops.reset_launches()
+        rep = Scheduler(peng).serve([Request(p, max_new_tokens=NEW)
+                                     for p in prompts])
+    assert rep["preemptions"] > 0 and peng.allocator.n_used == 0
+    assert ops.launches["paged_decode_attention"] == (
+        (eng.tcfg.n_layers + 2 * eng.dcfg.n_layers) * rep["iterations"])
+    for r, w in zip(rep["results"], want):
+        diff = np.flatnonzero(r["tokens"] != w)
+        if len(diff):
+            assert log.min_margin(sp.seed, P, P + int(diff[0])) < 1e-4
 
 
 def _mtp_inputs(card, dtype, B, H, KV, hd, n, K, r, mult=64):

@@ -193,6 +193,11 @@ def _assert_state(got: dict, want_np: dict, tcfg, what: str):
                     np.testing.assert_allclose(
                         g[kv][:n].numpy(), w[kv][:n].numpy(), atol=TOL,
                         rtol=TOL, err_msg=f"{what} {name} layer {i} {kv}")
+        elif name == "sampling":
+            assert set(got[name]) == set(want[name]), what
+            for k, v in got[name].items():
+                np.testing.assert_array_equal(v.numpy(), want[name][k].numpy(),
+                                              f"{what} sampling {k}")
         elif got[name].dtype.is_floating_point:
             np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
                                        atol=TOL, rtol=TOL,

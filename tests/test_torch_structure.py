@@ -105,6 +105,77 @@ def test_serve_rehearses_paged_arrivals_on_cpu():
     assert r["p99_latency_vt"] >= r["p50_latency_vt"] > 0
 
 
+def test_serve_rehearses_mixed_sampling_on_cpu():
+    """The sampled flags of the launcher: even requests greedy, odd ones
+    sampled with sampled drafts, every request to its budget; a mixed
+    batch needs a temperature."""
+    r = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                    "--requests", "4", "--prompt-len", "8", "--max-new", "6",
+                    "--max-len", "32", "--runs", "1", "--temperature", "0.8",
+                    "--top-k", "50", "--top-p", "0.95", "--seed", "1",
+                    "--mixed-sampling", "--draft-sampling"])
+    assert r["new_tokens"] == 24 and r["mixed_sampling"]
+    assert r["draft_sampling"] and r["temperature"] == 0.8
+    with pytest.raises(SystemExit):
+        serve.main(["--reduced", "--device", "cpu", "--mixed-sampling"])
+
+
 def test_random_prompts_avoid_mask_token():
     p = serve.random_prompts(16, 4, 64, seed=0)
     assert p.dtype == np.int32 and p.max() < 15
+
+
+def test_prng_and_policy_modules_load_without_jax():
+    """``repro_torch.prng`` and ``repro_torch.serving.sampling`` (and all
+    they import) load with ``jax`` and ``repro`` made unimportable."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = "
+            "None; import repro_torch.prng, repro_torch.serving.sampling")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": str(ROOT / "src")}, cwd=ROOT)
+
+
+# torch's own random streams; the sampled lane and the dropout draw from
+# repro_torch.prng, the JAX package's threefry words
+_TORCH_RANDOM = re.compile(
+    r"^torch\.(Generator|rand\w*|bernoulli|multinomial|normal|poisson)$"
+    r"|\.(manual_seed|bernoulli_|uniform_|random_|exponential_|normal_)$")
+# (file, functions) on the serving and training paths' sampling and
+# dropout; None: the whole file
+_SAMPLING_PATHS = {
+    "prng.py": None,
+    "serving/sampling.py": None,
+    "serving/engine.py": None,
+    "serving/scheduler.py": None,
+    "serving/cache_ops.py": None,
+    "core/spec_decode.py": None,
+    "core/drafter.py": ("_hidden_inputs", "mtp_forward", "extend", "_draw",
+                        "draft_block_inputs", "draft_parallel", "draft_ar"),
+    "training/trainer.py": ("_advance_rng", "taps", "loss", "grads", "apply",
+                            "_loss_and_grads", "batch_grads", "train_batch",
+                            "train"),
+}
+
+
+def _dotted(node):
+    if isinstance(node, ast.Name):
+        return node.id
+    if isinstance(node, ast.Attribute):
+        inner = _dotted(node.value)
+        return f"{inner}.{node.attr}" if inner else f".{node.attr}"
+    return ""
+
+
+@pytest.mark.parametrize("rel", sorted(_SAMPLING_PATHS))
+def test_sampling_and_dropout_use_no_torch_random_stream(rel):
+    tree = ast.parse((ROOT / "src" / "repro_torch" / rel).read_text())
+    names = _SAMPLING_PATHS[rel]
+    roots = [tree] if names is None else [
+        n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+        and n.name in names]
+    if names is not None:
+        assert {n.name for n in roots} == set(names), rel
+    bad = {_dotted(c.func) for r in roots for c in ast.walk(r)
+           if isinstance(c, ast.Call) and _TORCH_RANDOM.search(_dotted(c.func))}
+    assert not bad, f"{rel} calls {sorted(bad)}"

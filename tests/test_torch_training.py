@@ -30,7 +30,7 @@ from repro.optim import adamw_update as jadamw_update
 from repro.optim import linear_warmup_schedule as jschedule
 from repro.training import TrainConfig as JTrainConfig
 from repro.training import Trainer as JTrainer
-from repro_torch import convert
+from repro_torch import convert, prng
 from repro_torch.checkpoint import latest_step, load_pytree, save_pytree
 from repro_torch.configs import DrafterConfig, get_config
 from repro_torch.core import drafter as D
@@ -153,23 +153,28 @@ def test_mtp_forward_matches_jax(setup, variant):
 
 
 def test_regularized_dropout_draws_from_the_generator(setup):
-    """With a generator the regularized variant drops 10% of its injection
-    (the JAX package draws with threefry, so only the port is checked):
-    equal seeds give equal outputs, other seeds and no generator differ."""
+    """With a key the regularized variant drops 10% of its injection, the
+    mask drawn by threefry as the JAX package draws it: the forward equals
+    the JAX forward under the same key; equal keys give equal outputs,
+    other keys and no key differ."""
     s = setup
-    _, d, _, dp = _drafters(s, n_layers=1, k_train=4,
-                            hidden_state_variant="regularized")
-    tokens, taps, pos, dep = (torch.from_numpy(a) for a in
-                              _mtp_inputs(s, 2, 32, 4, 0.7))
+    jd, d, jdp, dp = _drafters(s, n_layers=1, k_train=4,
+                               hidden_state_variant="regularized")
+    arrays = _mtp_inputs(s, 2, 32, 4, 0.7)
+    tokens, taps, pos, dep = (torch.from_numpy(a) for a in arrays)
 
     def run(seed):
-        g = None if seed is None else torch.Generator().manual_seed(seed)
+        rng = None if seed is None else prng.fold_in(prng.PRNGKey(seed), 7)
         return D.mtp_forward(d, s["tcfg"], dp, tokens, taps, pos, dep,
-                             generator=g)[0]
+                             rng=rng)[0]
     plain, a, b = run(None), run(1), run(1)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.allclose(a, plain)
     assert not torch.allclose(run(2), a)
+    jl, _ = JD.mtp_forward(jd, s["jcfg"], jdp,
+                           *(jnp.asarray(x) for x in arrays),
+                           rng=jax.random.fold_in(jax.random.PRNGKey(1), 7))
+    np.testing.assert_allclose(a.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("branch", ["blocked", "flash"])
@@ -318,14 +323,17 @@ def test_adamw_and_accumulator_match_jax_over_three_steps():
 @pytest.fixture(scope="module")
 def trained(setup):
     """Two whole-sequence and two segmented (segments 2) steps of both
-    trainers from the same converted drafter, on the same batches."""
+    trainers from the same converted drafter, on the same batches; and two
+    segmented steps of the regularized variant, whose dropout keys both
+    trainers split from the same stream."""
     s = setup
-    kw = dict(n_layers=1, k_train=3)
-    jd, d = (JDrafterConfig(**kw).resolve(s["jcfg"]),
-             DrafterConfig(**kw).resolve(s["tcfg"]))
     corpus = P.markov_corpus(0, 8, 24, s["tcfg"].vocab_size, branch=2)
     out = {}
-    for segments in (1, 2):
+    for segments, variant in ((1, "shared"), (2, "shared"),
+                              (2, "regularized")):
+        kw = dict(n_layers=1, k_train=3, hidden_state_variant=variant)
+        jd, d = (JDrafterConfig(**kw).resolve(s["jcfg"]),
+                 DrafterConfig(**kw).resolve(s["tcfg"]))
         tc = dict(lr=2e-3, total_steps=20, warmup_ratio=0.1)
         jtr = JTrainer(s["jcfg"], jd, s["jp"], JTrainConfig(**tc), seed=0)
         init = np_tree(jtr.dparams)
@@ -338,11 +346,12 @@ def trained(setup):
         batches = zip(list(P.MTPPipeline(corpus, **pkw))[:2],
                       list(JP.MTPPipeline(corpus, **pkw))[:2])
         logs = [(tr.train_batch(b), jtr.train_batch(jb)) for b, jb in batches]
-        out[segments] = dict(tr=tr, jtr=jtr, logs=logs, init=init)
+        key = segments if variant == "shared" else variant
+        out[key] = dict(tr=tr, jtr=jtr, logs=logs, init=init)
     return out
 
 
-@pytest.mark.parametrize("segments", [1, 2])
+@pytest.mark.parametrize("segments", [1, 2, "regularized"])
 def test_trainer_steps_match_jax(trained, segments):
     r = trained[segments]
     for tm, jm in r["logs"]:
