@@ -36,7 +36,8 @@ Phases, in order; any failure exits non-zero:
    flash with ragged query and key tiles (500 tokens), one token,
    Sq != Skv and kv_len < Skv.
    Flash is timed at the prefill (B 8 x 512), a training tap (B 1 x 2048)
-   and an admission bucket (B 1 x 512), decode at every serving phase.
+   and an admission bucket (B 1 x 512), decode at every serving phase
+   (phase 3d's hit chunks included: T 256 / 255 against 320 live keys).
    The MTP kernel is held against its plain version, output and stats
    (m, l), at the training shape (n 2048, K 8, r 0.8: M 8522, the
    drafter's 12/12 heads), at the largest Algorithm-1 segment of n 4096 in
@@ -51,8 +52,9 @@ Phases, in order; any failure exits non-zero:
    paged decode kernel is held against its plain version (which gathers
    each row's pages) at the serving path's phase-1 shapes (batch 8,
    page 16, 64 table entries a row, pages drawn at random from the pool, so
-   tables are fragmented) and at the JAX kernel sweep's shapes; no single
-   PyTorch call computes it, so its yardstick is a gather of the pages and
+   tables are fragmented), with every row's first 20 table entries naming
+   the same pages (phase 3d's shared prefix), and at the JAX kernel sweep's
+   shapes; no single PyTorch call computes it, so its yardstick is a gather of the pages and
    SDPA on the view, two calls. Then the gradients of the flash training
    attention (kernel forward, recompute-by-block backward) against autograd
    through the plain version at M 1998, float32;
@@ -99,6 +101,28 @@ Phases, in order; any failure exits non-zero:
    chi-square losslessness check of rejection_verify_rows on the card
    (first committed token over 2^14 rows against the warped target, one-hot
    and sampled drafts, at the 0.999 quantile);
+3d / 4c. the serving policies: Scheduler.serve of phase 3b's engine
+   (bfloat16) with the prefix cache, swap to a 1 GiB pinned host pool and
+   adaptive K (the default SpeculationConfig) on shared-prefix traffic: 24
+   requests in 3 groups, each group's own 320-token system prompt and a
+   unique suffix of 16-256 tokens, then 4 requests repeating an earlier
+   prompt exactly, budgets 64-192, Exp(1) arrival gaps, seed 0, on a pool
+   of 192 pages, so that requests are preempted to the host; after
+   a cold serve of 8 other prompts and a flush, the warm run reported
+   (OTPS, ms/iteration and otps_vt beside phase 3b's, the hit and cold
+   admissions' device ms, the same prompt admitted cold and from the
+   cache, swap-out / swap-in ms, bytes and GB/s, the k_row histogram and
+   the controller's report) and checked: at least 20 requests hit, the
+   repeats hit their whole system prompt, at least one preemption goes to
+   the host with its swap_out / swap_in events, every request to its
+   budget, the attention launches of the stated formula (a hit's suffix
+   chunks run the decode kernel), the allocator and the host pool empty
+   after a flush and reset_stats; then float32, the same traffic served
+   with the three policies on and off (cold prefill, recompute preemption,
+   fixed K), one request sampled and swapped out: every stream equal
+   between the two (a greedy one may part only at a top-2 gap < 1e-3 of
+   the off run, a sampled one after a margin < 1e-4), and the sampled one
+   equal to itself served alone;
 5. training at full width: qwen2-1.5b bfloat16 target (seeded weights), the
    4-layer full-width drafter in float32, markov_corpus, batch 1, through
    Trainer.train_batch: (a) 3 whole-sequence steps at n 2048 (M 8522) and
@@ -147,6 +171,8 @@ KERNEL_TOL = {"bfloat16": (1e-4, 2 ** -6), "float32": (1e-4, 0.0)}
 # model: a dropped or misplaced key tile moves the output by far more than
 # the tolerance.
 Q_SCALE = 2.0
+# phase 2's paged case with every row's first 20 table entries the same
+PAGED_SHARED = "target verify phase 1, 20 shared pages"
 # Oracle drafts must lift the acceptance length above this (a fifth of the
 # drafts are spoiled, so about 3.7 is expected at K 5).
 ORACLE_MIN_AL = 2.0
@@ -344,11 +370,18 @@ def paged_work(q, k, pos, table, qpos):
     can see, and 4·hd FLOPs per visible (query head, key) pair."""
     from repro_torch.models.layers import paged_view
     B, T, H, hd = q.shape
+    NP, page = pos.shape
     KV, es = k.shape[2], q.element_size()
     kpos = paged_view(pos, table, empty=-1)
     vis = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
-    live_keys = int(vis.any(1).sum())
-    named = int((table >= 0).sum()) * pos.shape[1]
+    # a key slot two rows' tables share (a shared prefix) is read once
+    ok = (table >= 0) & (table < NP)
+    slot = (torch.where(ok, table, 0).long()[:, :, None] * page
+            + torch.arange(page, device=table.device)).reshape(B, -1)
+    live = torch.zeros(NP * page, dtype=torch.bool, device=table.device)
+    live[slot[vis.any(1)]] = True
+    live_keys = int(live.sum())
+    named = int(torch.unique(table[ok]).numel()) * page
     nbytes = (2 * B * T * H * hd * es + 2 * B * T * H * 4
               + 4 * (table.numel() + qpos.numel() + named)
               + 2 * live_keys * KV * hd * es)
@@ -416,6 +449,13 @@ def check_kernels(ops, dev):
         ("admission extend phase 2", (1, 511, 12, 12, 128, 511, 511)),
         ("admission extend 256 phase 2", (1, 255, 12, 12, 128, 255, 255)),
         ("admission extend exact phase 2", (1, 638, 12, 12, 128, 638, 638)),
+        # phase 3d's prefix-cache hits: the suffix chunks (powers of two up
+        # to 256 here) run in decode mode on a batch-1 view whose cache
+        # holds the shared 320-token system prompt; the drafter extends c-1
+        # pairs of the first chunk at 12/12 heads
+        ("target hit chunk phase 1", (1, 256, 12, 2, 128, 1024, 320)),
+        ("target hit chunk phase 2", (1, 256, 12, 2, 128, 256, 256)),
+        ("drafter hit extend phase 1", (1, 255, 12, 12, 128, 1024, 320)),
     ]
     def check_stats(name, label, dtype, got, want):
         # stats: relative to 1 + |value| (l grows with the visible keys)
@@ -502,6 +542,13 @@ def check_kernels(ops, dev):
                    (q, k, v, pos, holes, qpos)),
                   ("edge: every table entry -1",
                    (q, k, v, pos, torch.full_like(table, -1), qpos))]
+        # phase 3d's shared prefix: all 8 rows' tables name the same first
+        # 20 pages (a 320-token system prompt), each row its own after them
+        q, k, v, pos, table, qpos = paged_case(dev, dtype, 8, 6, 12, 2, 128,
+                                               16, 64, c, seed=22)
+        shared = table.clone()
+        shared[:, :20] = table[0, :20]
+        cases.append((PAGED_SHARED, (q, k, v, pos, shared, qpos)))
         for label, inp in cases:
             hd = inp[0].shape[-1]
             before = ops.launches["paged_decode_attention"]
@@ -525,6 +572,8 @@ def check_kernels(ops, dev):
             if dtype == "bfloat16" and label in dict(paged_main):
                 worst["paged_decode_attention"] = max(
                     worst["paged_decode_attention"], err)
+            if dtype == "bfloat16" and (label in dict(paged_main)
+                                        or label == PAGED_SHARED):
                 rows[("paged_decode_attention", label)] = inp
 
         g = torch.Generator(device=dev).manual_seed(1)
@@ -1456,6 +1505,350 @@ def sampled_path(ops, dev, path, sched, greedy_ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d / 4c: the prefix cache, swap-to-host and adaptive speculation
+# ---------------------------------------------------------------------------
+
+# 24 requests in 3 groups, each group's own 320-token system prompt (20 full
+# pages) and a unique suffix of 16-256 tokens, then 4 requests repeating an
+# earlier prompt exactly; budgets 64-192, Exp(1) arrival gaps, seed 0
+POLICY_TRAFFIC = dict(n=24, prefix_len=320, groups=3, suffix_lens=(16, 256),
+                      budgets=(64, 192), mean_gap=1.0, seed=0, repeats=4)
+# at these lengths phase 3b's 256 pages preempt nothing once the cache is
+# on (the groups share 60 pages, and cache-only pages are evicted before a
+# slot stalls); 192 pages (3/8 of what 8 full rows need) preempt
+POLICY_POOL = 192
+HOST_POOL_BYTES = 1 << 30
+# phase 3d must see at least this many of its requests admitted on hits
+POLICY_MIN_HITS = 20
+# phase 4c's one sampled request, among those the pool swaps out
+POLICY_SAMPLED = 7
+
+
+def policy_requests(vocab, sampled=None):
+    """Phase 3d's traffic (``launch.serve.shared_prefix_requests``);
+    ``sampled``: the index of one request to sample (SAMPLED, seed 5)."""
+    from repro_torch.launch.serve import shared_prefix_requests
+    from repro_torch.serving.sampling import SamplingParams
+    t = POLICY_TRAFFIC
+    reqs = shared_prefix_requests(vocab, t["n"], t["prefix_len"], t["groups"],
+                                  t["suffix_lens"], t["budgets"],
+                                  t["mean_gap"], t["seed"],
+                                  repeats=t["repeats"])
+    if sampled is not None:
+        reqs[sampled].sampling = SamplingParams(seed=5, **SAMPLED)
+    return reqs
+
+
+class PolicyProbe:
+    """Host-side record of what a serve did on the engine's policy paths:
+    each admission (device ms, cold or served from the cache), the hit
+    suffix chunks (width, first or later), each swap (device ms, bytes)
+    and the draft caps of every dispatched iteration. It wraps the
+    engine's and the scheduler's methods on the instances and restores
+    them on exit; the timed calls are bracketed by synchronizations."""
+
+    def __init__(self, eng, sched):
+        self.eng, self.sched = eng, sched
+        self.admissions, self.chunks, self.swaps = [], [], []
+        self.cold_prefills = 0
+        self.k_rows = {}
+
+    def _timed(self, fn, after):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            after((time.perf_counter() - t0) * 1e3, out)
+            return out
+        return run
+
+    def __enter__(self):
+        eng, sched = self.eng, self.sched
+        prefill, chunk = eng._admission_prefill, eng._chunk
+        dispatch = sched._dispatch
+
+        def cold(*a, **kw):
+            self.cold_prefills += 1
+            return prefill(*a, **kw)
+
+        def hit_chunk(src, piece, start, greedy, hit=False):
+            self.chunks.append((piece.shape[1], hit))
+            return chunk(src, piece, start, greedy, hit=hit)
+
+        def caps(run):
+            for k in sched._k_row[run].tolist():
+                self.k_rows[k] = self.k_rows.get(k, 0) + 1
+            return dispatch(run)
+
+        eng._admission_prefill, eng._chunk, sched._dispatch = cold, hit_chunk, caps
+        eng.prefill_into_slot = self._timed(
+            eng.prefill_into_slot, lambda ms, _: self.admissions.append(
+                (ms, eng.last_hit_tokens)))
+        eng.swap_out_slot = self._timed(
+            eng.swap_out_slot, lambda ms, out: out[1] and self.swaps.append(
+                ("out", ms, eng.swap_last_bytes)))
+        eng.swap_in_slot = self._timed(
+            eng.swap_in_slot, lambda ms, _: self.swaps.append(
+                ("in", ms, eng.swap_last_bytes)))
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("_admission_prefill", "_chunk", "prefill_into_slot",
+                     "swap_out_slot", "swap_in_slot"):
+            delattr(self.eng, name)
+        del self.sched._dispatch
+
+    def launches_want(self, cfg, n_d, iterations):
+        """Attention launches of the serve: each iteration 36 paged phase-1
+        and 36 decode phase-2 launches; a cold admission 28 flash and 2 x 4
+        decode (the drafter's extend); a hit chunk 2 x 28 decode (the
+        target in decode mode, both phases) and 2 x 4 more when it runs the
+        drafter's extend (a later chunk, or a first one wider than 1)."""
+        step = iterations * (cfg.n_layers + 2 * n_d)
+        chunks = sum(2 * cfg.n_layers + (2 * n_d if (c > 1 or not hit) else 0)
+                     for c, hit in self.chunks)
+        return {"paged_decode_attention": step,
+                "decode_attention": step + self.cold_prefills * 2 * n_d
+                + chunks,
+                "flash_attention": self.cold_prefills * cfg.n_layers,
+                "mtp_attention": 0}
+
+    def summary(self):
+        hit = [ms for ms, h in self.admissions if h > 0]
+        cold = [ms for ms, h in self.admissions if h == 0]
+        out = {"hit_admissions": len(hit), "cold_admissions": len(cold),
+               "hit_admission_ms": float(np.mean(hit)) if hit else None,
+               "cold_admission_ms": float(np.mean(cold)) if cold else None,
+               "hit_chunks": len(self.chunks),
+               "k_row_histogram": dict(sorted(self.k_rows.items()))}
+        for way in ("out", "in"):
+            rows = [(ms, b) for w, ms, b in self.swaps if w == way]
+            ms = sum(r[0] for r in rows)
+            nbytes = sum(r[1] for r in rows)
+            out[f"swap_{way}"] = {"n": len(rows), "ms": ms, "bytes": nbytes,
+                                  "gb_per_s": nbytes / ms / 1e6 if ms else None}
+        return out
+
+
+def hit_against_cold(eng, prompt, reps=3):
+    """Device ms of admitting ``prompt`` cold (cache flushed) and then again
+    from the pages its first admission indexed (everything but the last
+    partial page is a hit), ``reps`` times each, into slot 0 of the
+    engine's retained serving state."""
+    state = eng.serve_state()
+    cold, hit, served = [], [], []
+    for _ in range(reps):
+        eng.prefix_cache.flush(eng.allocator)
+        for times in (cold, hit):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _, _ = eng.prefill_into_slot(state, prompt, 0, max_new=64)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            served.append(eng.last_hit_tokens)
+            state = eng.free_slot(state, 0, final_tokens=prompt)
+    eng.prefix_cache.flush(eng.allocator)
+    eng.retain_state(state)
+    return {"prompt_len": int(prompt.size), "cold_ms": cold, "hit_ms": hit,
+            "hit_tokens": served[1], "cold_mean_ms": float(np.mean(cold)),
+            "hit_mean_ms": float(np.mean(hit))}
+
+
+def policy_engine(dev, dtype, on, build=None):
+    """Phase 3b's engine geometry, with the three policies on (prefix cache,
+    swap to a 1 GiB host pool; the scheduler adds adaptive K) or off;
+    ``build`` shares its weights."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import Engine
+    kw = dict(prefix_cache=on, swap="host" if on else "none",
+              host_pool_bytes=HOST_POOL_BYTES if on else 0)
+    if build is None:
+        return build_engine(mode="parallel", dtype=dtype, K=5, max_new=192,
+                            max_len=1024, batch=8, seed=0, device=dev,
+                            kv_layout="paged", page_size=16,
+                            pool_pages=POLICY_POOL, **kw)
+    return Engine(build.tcfg, build.dcfg, build.tparams, build.dparams,
+                  dataclasses.replace(build.ecfg, **kw), build.batch,
+                  device=dev)
+
+
+def policy_path(ops, dev, sched3b):
+    """Phase 3d: the prefix cache, swap-to-host and adaptive K at full
+    width, bfloat16, on shared-prefix traffic."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    log(f"phase 3d: Scheduler.serve, full-width qwen2-1.5b bfloat16, "
+        f"parallel K 5, batch 8, max_len 1024, paged: page 16, pool "
+        f"{POLICY_POOL} pages; prefix cache, swap to a {HOST_POOL_BYTES} B "
+        f"host pool, adaptive K (default SpeculationConfig); traffic "
+        f"{POLICY_TRAFFIC}")
+    eng = policy_engine(dev, "bfloat16", True)
+    cfg, V, n_d = eng.tcfg, eng.tcfg.vocab_size, eng.dcfg.n_layers
+    # cold run: 8 requests of other prompts, 8-token budgets, all at once;
+    # then the cache is flushed so that the measured serve starts cold
+    warm = policy_requests(V)[:8]
+    rng = np.random.default_rng(1)
+    Scheduler(eng, adaptive_k=True).serve([
+        Request(rng.integers(0, V - 1, r.prompt.size).astype(np.int32),
+                max_new_tokens=8) for r in warm])
+    eng.prefix_cache.flush(eng.allocator)
+    torch.cuda.synchronize()
+    eng.reset_stats()
+    sched = Scheduler(eng, adaptive_k=True, sync_every=1)
+    reqs = policy_requests(V)
+    budgets = [r.max_new_tokens for r in reqs]
+    ops.reset_launches()
+    with PolicyProbe(eng, sched) as probe:
+        rep = sched.serve(reqs)
+    counts = dict(ops.launches)
+    it = rep["iterations"]
+    ms_it = rep["wall_s"] / it * 1e3
+    kinds = [e[1] for e in rep["events"]]
+    log(f"  warm run: otps {rep['otps']:.1f} tok/s, {ms_it:.2f} ms/iteration "
+        f"over {it}, otps_vt {rep['otps_vt']:.4f}, makespan_vt "
+        f"{rep['makespan_vt']:.2f}, p50/p99 latency_vt "
+        f"{rep['p50_latency_vt']:.2f}/{rep['p99_latency_vt']:.2f}, AL "
+        f"{rep['weighted_acceptance_length']:.4f}, new tokens "
+        f"{rep['total_new_tokens']} (phase 3b: otps {sched3b['otps']:.1f}, "
+        f"{sched3b['ms_per_iteration']:.2f} ms/iteration over "
+        f"{sched3b['iterations']}, otps_vt {sched3b['otps_vt']:.4f})")
+    log(f"  cache: {rep['cache_hit_requests']} of {len(reqs)} requests hit, "
+        f"{rep['cache_hit_tokens']} positions served from cached pages; "
+        f"cached_tokens per request "
+        f"{[r['cached_tokens'] for r in rep['results']]}; index "
+        f"{eng.prefix_cache.stats}")
+    log(f"  preemptions {rep['preemptions']} (swap {rep['preempt_swap']}, "
+        f"recompute {rep['preempt_recompute']}, swap drops "
+        f"{rep['swap_drops']}), host pool {rep['host_pool']}, peak pages "
+        f"{rep['peak_pages']}/{POLICY_POOL}")
+    summary = probe.summary()
+    log(f"  admissions: {summary['hit_admissions']} hits, mean "
+        f"{summary['hit_admission_ms']} ms; {summary['cold_admissions']} "
+        f"cold, mean {summary['cold_admission_ms']} ms; "
+        f"{summary['hit_chunks']} hit chunks")
+    for way in ("out", "in"):
+        sw = summary[f"swap_{way}"]
+        log(f"  swap-{way}: {sw['n']} calls, {sw['ms']:.3f} ms, "
+            f"{sw['bytes']} bytes, {sw['gb_per_s']} GB/s")
+    log(f"  k_row histogram over live rows of each iteration: "
+        f"{summary['k_row_histogram']}; speculation {rep['speculation']}; "
+        f"k_final per request {[r['k_final'] for r in rep['results']]} "
+        f"(the drafter is untrained, AL ~ 1: the controller drives rows to "
+        f"k_row 1)")
+    log(f"  launches: {counts}")
+    want = probe.launches_want(cfg, n_d, it)
+    if counts != want:
+        fail(f"phase 3d launch counts {counts} != expected {want} ({it} "
+             f"iterations, {probe.cold_prefills} cold admissions, "
+             f"{len(probe.chunks)} hit chunks)")
+    if not (rep["cache_hit_requests"] >= POLICY_MIN_HITS
+            and rep["cache_hit_tokens"] > 0):
+        fail(f"{rep['cache_hit_requests']} requests hit the cache, "
+             f"{rep['cache_hit_tokens']} positions: expected >= "
+             f"{POLICY_MIN_HITS} and > 0")
+    for r in rep["results"][POLICY_TRAFFIC["n"]:]:
+        if r["cached_tokens"] <= POLICY_TRAFFIC["prefix_len"]:
+            fail(f"repeated request {r['rid']} served {r['cached_tokens']} "
+                 f"positions from the cache: no more than its system prompt")
+    if not rep["preempt_swap"] >= 1:
+        fail(f"no preemption went to the host ({rep['preemptions']} "
+             f"preemptions)")
+    if not (kinds.count("swap_out") == rep["preempt_swap"]
+            == kinds.count("swap_in") + kinds.count("swap_drop")):
+        fail(f"swap events out {kinds.count('swap_out')}, in "
+             f"{kinds.count('swap_in')}, drops {kinds.count('swap_drop')} "
+             f"for {rep['preempt_swap']} swap preemptions")
+    for r, b in zip(rep["results"], budgets):
+        toks = r["tokens"]
+        if r["n_new"] != b or toks.min() < 0 or toks.max() >= V:
+            fail(f"request {r['rid']} emitted {r['n_new']} tokens (budget "
+                 f"{b}) or tokens out of range")
+        if not (np.isfinite(r["logprobs"]).all() and r["logprobs"].max() <= 0):
+            fail(f"request {r['rid']} logprobs are not log-probabilities")
+    if len(eng.host_pool) or eng.host_pool.used_bytes:
+        fail("the host pool holds a snapshot after serve")
+    held = eng.prefix_cache.pages()
+    if eng.allocator.n_used != len(held):
+        fail(f"{eng.allocator.n_used} pages allocated, {len(held)} cached")
+    same = hit_against_cold(eng, reqs[0].prompt)
+    log(f"  the same {same['prompt_len']}-token prompt admitted cold "
+        f"{same['cold_mean_ms']:.3f} ms, then from the cache "
+        f"({same['hit_tokens']} positions) {same['hit_mean_ms']:.3f} ms "
+        f"(means of 3; cold {same['cold_ms']}, hit {same['hit_ms']})")
+    eng.reset_stats()
+    if (eng.allocator.n_used or eng.allocator.peak_used
+            or eng.host_pool.peak_used):
+        fail("the allocator or the host pool is not empty after flush and "
+             "reset_stats")
+    result = {k: rep[k] for k in (
+        "otps", "otps_vt", "wall_s", "iterations", "total_new_tokens",
+        "weighted_acceptance_length", "makespan_vt", "p50_latency_vt",
+        "p99_latency_vt", "preemptions", "preempt_swap", "preempt_recompute",
+        "swap_drops", "recomputed_prefill_tokens", "host_pool", "peak_pages",
+        "cache_hit_tokens", "cache_hit_requests", "speculation")}
+    result.update(ms_per_iteration=ms_it, launches=counts,
+                  same_prompt=same, **summary)
+    del eng, sched, rep, probe
+    torch.cuda.empty_cache()
+    return result
+
+
+def policy_losslessness(dev):
+    """Phase 4c: phase 3d's traffic twice in float32 at full width, the
+    three policies on and off; one request sampled and swapped."""
+    from repro_torch.serving.margins import MarginLog
+    from repro_torch.serving.scheduler import Scheduler
+    log("phase 4c: phase 3d's traffic in float32 at full width, prefix "
+        "cache + swap + adaptive K against cold prefill + recompute + "
+        f"fixed K; request {POLICY_SAMPLED} sampled ({SAMPLED}, seed 5)")
+    off = policy_engine(dev, "float32", False)
+    on = policy_engine(dev, "float32", True, build=off)
+    V = off.tcfg.vocab_size
+    runs = {}
+    with MarginLog() as margins:
+        for name, eng, adaptive in (("on", on, True), ("off", off, False)):
+            t0 = time.perf_counter()
+            runs[name] = Scheduler(eng, adaptive_k=adaptive).serve(
+                policy_requests(V, sampled=POLICY_SAMPLED))
+            rep = runs[name]
+            log(f"  {name:3s}: {rep['iterations']} iterations, "
+                f"{time.perf_counter() - t0:.1f} s, preemptions "
+                f"{rep['preemptions']} (swap {rep['preempt_swap']}), cache "
+                f"hits {rep['cache_hit_requests']}")
+        req = policy_requests(V, sampled=POLICY_SAMPLED)[POLICY_SAMPLED]
+        alone = Scheduler(off).serve([req])["results"][0]
+    swapped = runs["on"]["results"][POLICY_SAMPLED]["n_swap"]
+    if not swapped:
+        fail(f"the sampled request {POLICY_SAMPLED} was not swapped out "
+             f"(n_preempt {runs['on']['results'][POLICY_SAMPLED]['n_preempt']})")
+    if not (runs["on"]["preempt_swap"] >= 1
+            and runs["on"]["cache_hit_requests"] >= POLICY_MIN_HITS):
+        fail("the policies' run did not swap or hit the cache")
+    parted = 0
+    reqs = policy_requests(V, sampled=POLICY_SAMPLED)
+    for i, req in enumerate(reqs):
+        got = runs["on"]["results"][i]["tokens"]
+        want = runs["off"]["results"][i]["tokens"]
+        parted += streams_agree("policies on vs off", off, margins, req, got,
+                                want) is not None
+    parted += streams_agree("sampled swapped vs alone", off, margins,
+                            reqs[POLICY_SAMPLED],
+                            runs["on"]["results"][POLICY_SAMPLED]["tokens"],
+                            alone["tokens"]) is not None
+    log(f"  every stream equal with the policies on and off, the sampled "
+        f"request (swapped {swapped} time(s)) equal to itself served alone; "
+        f"{parted} streams parted at a near-tie")
+    out = {"parted_at_near_tie": parted, "sampled_swaps": swapped,
+           **{f"{name}_{k}": runs[name][k] for name in runs
+              for k in ("iterations", "preemptions", "preempt_swap",
+                        "cache_hit_requests", "cache_hit_tokens")}}
+    del on, off, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
@@ -1681,6 +2074,8 @@ def run_phases(ops, dev) -> list:
     sched = scheduler_path(ops, dev)
     greedy_ref = losslessness(ops, dev)
     sampled = sampled_path(ops, dev, path, sched, greedy_ref)
+    policies = policy_path(ops, dev, sched)
+    policies["losslessness"] = policy_losslessness(dev)
     train = training_path(ops, dev)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -1725,6 +2120,10 @@ def run_phases(ops, dev) -> list:
     log(f"serving: {json.dumps({k: v for k, v in path.items()})}")
     log(f"scheduler serving: {json.dumps(sched)}")
     log(f"sampled serving: {json.dumps(sampled)}")
+    log(f"policies: {json.dumps(policies)}")
+    log("decode_attention timing: " + json.dumps(
+        {key[1]: v for key, v in measured.items()
+         if key[0] == "decode_attention"}))
     log("paged_decode_attention timing: " + json.dumps(
         {key[1]: v for key, v in measured.items()
          if key[0] == "paged_decode_attention"}))

@@ -10,6 +10,14 @@ makes even requests greedy and odd ones sampled in one batch, and
 ``--draft-sampling`` draws sampled requests' drafts from the warped
 drafter distribution.
 
+``--prefix-cache`` admits prompts against the pages of earlier streams,
+``--swap host`` preempts to a pinned host pool of ``--host-pool-bytes``
+(0: unbounded) instead of recomputing, and ``--adaptive-k`` sets each
+request's draft length from its own acceptance (all three paged only).
+``--shared-prefix N --prefix-groups G`` makes shared-prefix traffic:
+request i opens with the N-token system prompt of group i mod G, followed
+by its own suffix of ``--prompt-len / 16`` to ``--prompt-len`` tokens.
+
 The target is full-width qwen2-1.5b in bfloat16 with a 4-layer parallel
 drafter, both with random weights drawn from ``--seed``; prompts are random
 tokens from the same seed and arrive with Exp(``--mean-gap``) gaps on the
@@ -25,6 +33,9 @@ repeated and the last (warm) run is reported.
         --kv-layout paged --page-size 8 --pool-pages 12   # CPU rehearsal
     PYTHONPATH=src python -m repro_torch.launch.serve --temperature 0.8 \
         --top-k 50 --seed 1 [--draft-sampling]        # sampled, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 \
+        --mean-gap 1 --pool-pages 256 --shared-prefix 320 --prefix-groups 3 \
+        --prompt-len 256 --prefix-cache --swap host --adaptive-k
 """
 from __future__ import annotations
 
@@ -46,7 +57,8 @@ def build_engine(*, reduced=False, dtype=None, mode="parallel", K=5,
                  max_new=128, max_len=1024, batch=8, seed=0, device="cuda",
                  kv_layout="contiguous", page_size=16, pool_pages=0,
                  kv_growth="incremental", sampling=None,
-                 draft_sampling=False):
+                 draft_sampling=False, prefix_cache=False, swap="none",
+                 host_pool_bytes=0):
     """qwen2-1.5b + the 4-layer drafter with seeded random weights, wrapped
     in an Engine. ``dtype`` defaults to bfloat16 at full width and float32
     reduced; ``sampling`` is the engine's default policy (None: greedy)."""
@@ -67,7 +79,9 @@ def build_engine(*, reduced=False, dtype=None, mode="parallel", K=5,
                         cache_dtype=dtype, max_len=max_len,
                         kv_layout=kv_layout, page_size=page_size,
                         pool_pages=pool_pages, kv_growth=kv_growth,
-                        sampling=sampling, draft_sampling=draft_sampling)
+                        sampling=sampling, draft_sampling=draft_sampling,
+                        prefix_cache=prefix_cache, swap=swap,
+                        host_pool_bytes=host_pool_bytes)
     return Engine(tcfg, dcfg if mode != "none" else None, tparams, dparams,
                   ecfg, batch, device=dev)
 
@@ -99,6 +113,37 @@ def make_requests(vocab: int, n: int, prompt_len: int, max_new: int,
     return [Request(p, max_new_tokens=max_new, arrival_time=float(t),
                     sampling=None if policy is None else policy(i))
             for i, (p, t) in enumerate(zip(prompts, np.cumsum(gaps)))]
+
+
+def shared_prefix_requests(vocab: int, n: int, prefix_len: int, groups: int,
+                           suffix_lens, budgets, mean_gap: float, seed: int,
+                           repeats: int = 0, policy=None):
+    """``n`` requests in ``groups`` groups, request i in group i % groups:
+    the group's ``prefix_len``-token system prompt, then a suffix of its
+    own whose length is drawn from the inclusive range ``suffix_lens``;
+    budgets drawn from the inclusive range ``budgets``; then ``repeats``
+    more requests repeating the last ``repeats`` prompts exactly, budgets
+    too (arriving soon after them, they find those prompts' pages still
+    mapped or recently cached). Exp(``mean_gap``) arrival gaps (0: all at
+    time 0); ``policy(i)`` as in ``make_requests``. Tokens avoid the
+    drafter's mask token."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab - 1, (groups, prefix_len)).astype(np.int32)
+    lens = rng.integers(suffix_lens[0], suffix_lens[1] + 1, n)
+    spend = rng.integers(budgets[0], budgets[1] + 1, n)
+    prompts = [np.concatenate([system[i % groups],
+                               rng.integers(0, vocab - 1, int(m))
+                               .astype(np.int32)])
+               for i, m in enumerate(lens)]
+    prompts += prompts[n - repeats:n]
+    spend = np.concatenate([spend, spend[n - repeats:n]]).astype(int)
+    total = n + repeats
+    gaps = (rng.exponential(mean_gap, total) if mean_gap > 0
+            else np.zeros(total))
+    return [Request(p, max_new_tokens=int(b), arrival_time=float(t),
+                    sampling=None if policy is None else policy(i))
+            for i, (p, b, t) in enumerate(zip(prompts, spend,
+                                              np.cumsum(gaps)))]
 
 
 def main(argv=None):
@@ -141,9 +186,28 @@ def main(argv=None):
     ap.add_argument("--draft-sampling", action="store_true",
                     help="sampled requests draw their drafts from the warped "
                          "drafter distribution (greedy ones are unchanged)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="admit prompts against cached pages of earlier "
+                         "streams (paged)")
+    ap.add_argument("--swap", choices=("none", "host"), default="none",
+                    help="host: preempt to pinned host memory and restore "
+                         "bitwise, instead of recompute-prefill (paged)")
+    ap.add_argument("--host-pool-bytes", type=int, default=0,
+                    help="host swap budget (0 = unbounded); a snapshot "
+                         "that does not fit is recomputed instead")
+    ap.add_argument("--adaptive-k", action="store_true",
+                    help="per-request draft length from the request's own "
+                         "acceptance (serving/speculation.py)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="system-prompt tokens shared within a group of "
+                         "requests (0: independent random prompts)")
+    ap.add_argument("--prefix-groups", type=int, default=1,
+                    help="groups of --shared-prefix traffic")
     args = ap.parse_args(argv)
     if args.mixed_sampling and args.temperature <= 0:
         ap.error("--mixed-sampling needs --temperature > 0")
+    if args.prefix_groups < 1:
+        ap.error("--prefix-groups must be at least 1")
 
     dev = resolve_device(args.device)
     layout = args.kv_layout or ("paged" if dev.type == "cuda"
@@ -153,19 +217,29 @@ def main(argv=None):
                        batch=args.batch, seed=args.seed, device=dev,
                        kv_layout=layout, page_size=args.page_size,
                        pool_pages=args.pool_pages, kv_growth=args.kv_growth,
-                       draft_sampling=args.draft_sampling)
+                       draft_sampling=args.draft_sampling,
+                       prefix_cache=args.prefix_cache, swap=args.swap,
+                       host_pool_bytes=args.host_pool_bytes)
     n_req = args.requests or args.batch
     sched = Scheduler(eng, eos_id=args.eos_id, sync_every=args.sync_every,
-                      preempt=not args.no_preempt)
+                      preempt=not args.no_preempt, adaptive_k=args.adaptive_k)
 
     def policy(i):
         return request_policy(i, temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p,
                               seed=args.seed, mixed=args.mixed_sampling)
+    def requests():
+        if args.shared_prefix > 0:
+            return shared_prefix_requests(
+                eng.tcfg.vocab_size, n_req, args.shared_prefix,
+                args.prefix_groups, (max(args.prompt_len // 16, 1),
+                                     args.prompt_len),
+                (args.max_new, args.max_new), args.mean_gap, args.seed,
+                policy=policy)
+        return make_requests(eng.tcfg.vocab_size, n_req, args.prompt_len,
+                             args.max_new, args.mean_gap, args.seed, policy)
     for _ in range(args.runs):
-        r = sched.serve(make_requests(eng.tcfg.vocab_size, n_req,
-                                      args.prompt_len, args.max_new,
-                                      args.mean_gap, args.seed, policy))
+        r = sched.serve(requests())
     report = {
         "device": (torch.cuda.get_device_name(eng.device)
                    if eng.device.type == "cuda" else "cpu"),
@@ -179,6 +253,14 @@ def main(argv=None):
         "otps": r["otps"], "otps_vt": r["otps_vt"],
         "acceptance_length": r["weighted_acceptance_length"],
         "preemptions": r["preemptions"], "peak_pages": r["peak_pages"],
+        "prefix_cache": args.prefix_cache, "swap": args.swap,
+        "adaptive_k": args.adaptive_k, "shared_prefix": args.shared_prefix,
+        "cache_hit_tokens": r["cache_hit_tokens"],
+        "cache_hit_requests": r["cache_hit_requests"],
+        "preempt_swap": r["preempt_swap"],
+        "preempt_recompute": r["preempt_recompute"],
+        "host_pool_peak_bytes": r["host_pool"]["peak_bytes"],
+        "speculation": r.get("speculation"),
         "p50_latency_vt": r["p50_latency_vt"],
         "p99_latency_vt": r["p99_latency_vt"],
         "makespan_vt": r["makespan_vt"], "wall_s": r["wall_s"],

@@ -51,20 +51,20 @@ PAGED_KV = 1           # k/v pool (NP + 1, page, KV, hd)
 PAGED_POS = 2          # positions pool (NP + 1, page)
 
 
-def _map(fn, tree, *rest, path=""):
+def map_tree(fn, tree, *rest, path=""):
     """fn(path, leaf, *matching leaves) over trees of dicts and lists,
     matched by key (not by order), rebuilt with fn's results."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v, *(r[k] for r in rest), path=f"{path}/{k}")
+        return {k: map_tree(fn, v, *(r[k] for r in rest), path=f"{path}/{k}")
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map(fn, v, *(r[i] for r in rest), path=f"{path}/{i}")
+        return [map_tree(fn, v, *(r[i] for r in rest), path=f"{path}/{i}")
                 for i, v in enumerate(tree)]
     return fn(path, tree, *rest)
 
 
 def _spec_or_flat(tree, spec):
-    return spec if spec is not None else _map(lambda *_: NOT_PAGED, tree)
+    return spec if spec is not None else map_tree(lambda *_: NOT_PAGED, tree)
 
 
 def commit(cache, commit_pos: Tensor,
@@ -104,7 +104,7 @@ def write_slot(dst: dict, src: dict, slot: int, spec=None) -> dict:
     def w(_, d, s, tag):
         if _per_slot(d, tag):
             d[slot] = s[0].to(d.dtype)
-    _map(w, dst, src, _spec_or_flat(dst, spec))
+    map_tree(w, dst, src, _spec_or_flat(dst, spec))
     return dst
 
 
@@ -120,7 +120,7 @@ def reset_slot(tree: dict, slot: int, spec=None,
         if _per_slot(leaf, tag):
             name = path.rsplit("/", 1)[-1]
             leaf[slot] = fills.get(name, -1 if name == "positions" else 0)
-    _map(r, tree, _spec_or_flat(tree, spec))
+    map_tree(r, tree, _spec_or_flat(tree, spec))
     return tree
 
 
@@ -178,6 +178,10 @@ class BlockAllocator:
         for p in pages:
             self._ref[p] += 1
 
+    def refcount(self, page: int) -> int:
+        """Current owner count of ``page`` (0 when free)."""
+        return self._ref.get(page, 0)
+
     def free(self, pages: List[int]) -> None:
         """Drop one reference per page (a page returns to the pool at zero);
         raises on a page not allocated, changing nothing."""
@@ -193,6 +197,65 @@ class BlockAllocator:
     def reset_stats(self) -> None:
         """Restart the ``peak_used`` high-water mark at current residency."""
         self.peak_used = self.n_used
+
+
+class HostPagePool:
+    """Byte-budgeted host store of swapped-out requests. Entries are opaque
+    handles keyed by request id; the pool only keeps the byte account:
+    ``put`` refuses (returns False) when the budget would overflow, which
+    is the scheduler's signal to fall back to recompute-prefill preemption.
+    ``capacity_bytes`` 0 is unbounded. ``peak_used`` / ``reset_stats`` as
+    the ``BlockAllocator``'s."""
+
+    def __init__(self, capacity_bytes: int = 0):
+        if capacity_bytes < 0:
+            raise ValueError(f"host_pool_bytes={capacity_bytes}")
+        self.capacity = int(capacity_bytes)
+        self._entries: Dict[object, tuple] = {}   # key -> (handle, nbytes)
+        self.used_bytes = 0
+        self.peak_used = 0
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def can_store(self, nbytes: int) -> bool:
+        """Whether ``nbytes`` more would still fit the budget."""
+        return self.capacity <= 0 or self.used_bytes + nbytes <= self.capacity
+
+    def put(self, key, handle, nbytes: int) -> bool:
+        """Store ``handle`` under ``key``; False (storing nothing) when the
+        budget cannot hold it. A duplicate key raises: two live snapshots of
+        one request would mean a lost or a double resume."""
+        if key in self._entries:
+            raise ValueError(f"swap handle for {key!r} already stored")
+        nbytes = int(nbytes)
+        if not self.can_store(nbytes):
+            return False
+        self._entries[key] = (handle, nbytes)
+        self.used_bytes += nbytes
+        self.peak_used = max(self.peak_used, self.used_bytes)
+        return True
+
+    def get(self, key):
+        """The stored handle, or None."""
+        ent = self._entries.get(key)
+        return None if ent is None else ent[0]
+
+    def pop(self, key):
+        """Remove and return the handle, releasing its bytes; a missing key
+        raises."""
+        if key not in self._entries:
+            raise KeyError(f"no swap handle for {key!r}")
+        handle, nbytes = self._entries.pop(key)
+        self.used_bytes -= nbytes
+        return handle
+
+    def reset_stats(self) -> None:
+        """Restart the ``peak_used`` high-water mark at current usage."""
+        self.peak_used = self.used_bytes
 
 
 def paged_spec(tree):
@@ -223,7 +286,7 @@ def paged_pool(leaf: Tensor, tag: int, page: int, n_pages: int) -> Tensor:
 def paged_state(state: dict, spec, page: int, n_pages: int) -> dict:
     """``state`` with every paged leaf replaced by its pool (other leaves
     are the same objects)."""
-    return _map(lambda _, leaf, tag: leaf if tag == NOT_PAGED
+    return map_tree(lambda _, leaf, tag: leaf if tag == NOT_PAGED
                 else paged_pool(leaf, tag, page, n_pages), state, spec)
 
 
@@ -251,7 +314,7 @@ def scatter_pages(pool: Tensor, view: Tensor, table: Tensor) -> Tensor:
 
 def gather_state(pstate: dict, table: Tensor, spec) -> dict:
     """Paged state -> contiguous per-slot view (other leaves pass through)."""
-    return _map(lambda _, leaf, tag: leaf if tag == NOT_PAGED
+    return map_tree(lambda _, leaf, tag: leaf if tag == NOT_PAGED
                 else gather_pages(leaf, table, tag), pstate, spec)
 
 
@@ -259,7 +322,7 @@ def scatter_state(pstate: dict, view_state: dict, table: Tensor,
                   spec) -> dict:
     """Contiguous view -> paged state: paged leaves scatter into the pools
     of ``pstate`` (in place); every other leaf takes the view's value."""
-    return _map(lambda _, pool, view, tag: view if tag == NOT_PAGED
+    return map_tree(lambda _, pool, view, tag: view if tag == NOT_PAGED
                 else scatter_pages(pool, view, table), pstate, view_state, spec)
 
 
@@ -272,19 +335,67 @@ def blank_pages(pstate: dict, table_row: Tensor, spec) -> dict:
         if tag == PAGED_POS:
             pool[_sink_index(table_row, pool)] = -1
         return pool
-    return _map(blank, pstate, spec)
+    return map_tree(blank, pstate, spec)
+
+
+def copy_page(pstate: dict, src: int, dst: int, spec) -> dict:
+    """Copy pool page ``src`` to page ``dst``, K/V and positions alike, in
+    every paged leaf, in place: the copy-on-write step of the prefix cache
+    (a cached page whose last drafter entry a new request must amend is
+    duplicated into a page the request owns; the original stays
+    byte-stable for its other owners). Neither page may be the sink."""
+    def cp(_, pool, tag):
+        if tag != NOT_PAGED:
+            sink = pool.shape[0] - 1
+            if not (0 <= src < sink and 0 <= dst < sink):
+                raise ValueError(f"copy_page({src} -> {dst}) outside pages "
+                                 f"0..{sink - 1} (page {sink} is the sink)")
+            pool[dst] = pool[src]
+        return pool
+    return map_tree(cp, pstate, spec)
 
 
 def admit_pages(pstate: dict, src: dict, slot: int, table_row: Tensor,
-                spec) -> dict:
+                spec, scatter_row: Optional[Tensor] = None) -> dict:
     """Admit a batch-1 contiguous state ``src`` into slot ``slot`` of a
     paged state, in place: per-slot leaves via ``write_slot``, paged leaves
     by scattering src row 0 into the pages of ``table_row`` (nb,), whose
-    -1 entries are dropped. ``block_table`` itself is left to the caller."""
+    -1 entries are dropped. ``scatter_row`` (default ``table_row``) picks
+    which pages receive the view: a prefix-cache hit masks its shared pages
+    to -1, so admission never writes a page another owner maps.
+    ``block_table`` itself is left to the caller."""
     write_slot(pstate, src, slot, spec)
+    row = table_row if scatter_row is None else scatter_row
 
     def admit(_, pool, s, tag):
         if tag != NOT_PAGED:
-            scatter_pages(pool, s[:1], table_row[None])
-    _map(admit, pstate, src, spec)
+            scatter_pages(pool, s[:1], row[None])
+    map_tree(admit, pstate, src, spec)
     return pstate
+
+
+def view_width_axis(ndim: int, tag: int) -> int:
+    """The W (position within the slot) axis of a contiguous view leaf of
+    ``ndim`` dims: page ``i`` of a row spans ``[i * page, (i + 1) * page)``
+    along it. The port's views are batch-first, so it is axis 1 for K/V
+    (B, W, KV, hd) and positions (B, W) alike."""
+    if tag == NOT_PAGED or ndim < 2:
+        raise ValueError(f"a leaf of tag {tag}, {ndim} dims, has no W axis")
+    return 1
+
+
+def extract_slot(pstate: dict, slot: int, table_row: Tensor, spec) -> dict:
+    """Inverse of ``admit_pages``: batch row ``slot`` of a paged state as a
+    batch-1 contiguous state. Per-slot leaves slice their row; paged leaves
+    gather the pages of ``table_row`` (nb,) end to end (a -1 entry reads
+    empty positions); global counters and ring flags pass through. The
+    result aliases nothing: swap-out copies it to the host, and
+    ``admit_pages`` with the same (or freshly allocated) pages restores it
+    bitwise."""
+    def ex(_, leaf, tag):
+        if tag != NOT_PAGED:
+            return gather_pages(leaf, table_row[None], tag)
+        if isinstance(leaf, Tensor) and leaf.dim() > 0:
+            return leaf[slot:slot + 1].clone()
+        return leaf
+    return map_tree(ex, pstate, spec)

@@ -31,8 +31,20 @@ behind a per-slot ``block_table``, pages handed out by a
 ``cache_ops.BlockAllocator``). Unlike the JAX engine, whose paged step
 gathers each slot's pages into a contiguous view and scatters it back, the
 paged step reads and writes the pools through the table: phase 1 of every
-decode attention runs the paged decode kernel. Sharding, the prefix cache
-and swap-to-host are not ported yet.
+decode attention runs the paged decode kernel.
+
+Two policies ride on the paged layout. The prefix cache
+(``EngineConfig.prefix_cache``, ``serving/prefix_cache.py``) keeps the
+pages of committed streams indexed by token-prefix chain; an admission
+whose prompt walks a cached chain maps those pages into its table row
+(refcount-shared), copies a partially matching page on write, and prefills
+only the uncached suffix, in decode-mode chunks over a batch-1 view
+gathered from the row's pages: token for token a cold prefill's output.
+Swap-to-host (``EngineConfig.swap = "host"``) parks a preempted slot's
+exclusively owned pages and per-slot rows in pinned host memory
+(``cache_ops.HostPagePool``) and restores them bitwise; pages shared with
+the prefix cache stay resident under the handle's reference. Sharding is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ from repro_torch.core import drafter as D
 from repro_torch.core import spec_decode as SD
 from repro_torch.models.registry import get_model
 from repro_torch.serving import cache_ops
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import (SamplingParams,
                                           batch_sampling_state,
                                           blank_sampling_state, draft_keys,
@@ -100,6 +113,14 @@ class EngineConfig:
         drafter distribution (keys ``sampling.draft_keys``) and verify
         against it as the proposal q; off, drafts are the drafter argmax
         and q its one-hot. Greedy rows take the argmax either way.
+      prefix_cache: index the pages of committed streams by token-prefix
+        chain and admit a prompt that walks a cached chain by mapping those
+        pages (paged only); token for token a cold prefill's output.
+      swap: "none", or "host": a preempted slot's exclusively owned pages
+        and per-slot rows move to pinned host memory and come back bitwise
+        (paged only).
+      host_pool_bytes: the host snapshot budget of ``swap="host"``; 0 is
+        unbounded. A snapshot that does not fit falls back to recompute.
       greedy: deprecated alias (one ``DeprecationWarning``): True is
         ``SamplingParams.greedy()``, False a temperature-1.0 default.
     """
@@ -115,6 +136,9 @@ class EngineConfig:
     bucket_prefill: bool = True
     sampling: Optional[SamplingParams] = None
     draft_sampling: bool = False
+    prefix_cache: bool = False
+    swap: str = "none"
+    host_pool_bytes: int = 0
     greedy: Optional[bool] = None
 
     def __post_init__(self):
@@ -137,6 +161,12 @@ class EngineConfig:
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
         if self.kv_growth not in ("incremental", "upfront"):
             raise ValueError(f"unknown kv_growth {self.kv_growth!r}")
+        if self.swap not in ("none", "host"):
+            raise ValueError(f"unknown swap {self.swap!r}")
+        if self.kv_layout != "paged" and (self.prefix_cache
+                                          or self.swap != "none"):
+            raise ValueError("prefix_cache and swap='host' need "
+                             "kv_layout='paged' (pages are the unit of both)")
 
 
 def make_decode_state(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
@@ -195,6 +225,30 @@ def _scatter_drop(buf: Tensor, idx: Tensor, val: Tensor) -> Tensor:
     return ext[:, :W]
 
 
+@dataclass
+class _SwapHandle:
+    """One swapped-out request's host snapshot (a ``HostPagePool`` entry).
+
+    ``snap`` holds ``cache_ops.extract_slot`` of the slot over its
+    exclusively owned pages only (paged leaves hold those pages end to end;
+    per-slot rows in full), packed into one byte buffer, pinned host memory
+    on the card; ``layout`` is the state's tree with each packed leaf's
+    (dtype, shape, offset), None for global counters. ``page_row`` is the
+    slot's page list at eviction; the pages not in ``host_idx`` stayed
+    resident, and the handle keeps the slot's reference on them until
+    swap-in maps them again or ``drop_swap`` releases them. ``ready`` marks
+    the end of the copy that wrote ``snap`` (None on the CPU, where it is
+    synchronous)."""
+    snap: Tensor
+    layout: dict
+    page_row: List[int]
+    host_idx: List[int]
+    last: int
+    sampled: bool
+    nbytes: int
+    ready: Optional[Any]
+
+
 class Engine:
     """Speculative-decoding engine over ``batch`` slots.
 
@@ -235,6 +289,23 @@ class Engine:
             # which leaves become pools: read off a storage-free template
             self.pspec = cache_ops.paged_spec(self._state_template(
                 1, device="meta"))
+        self.prefix_cache = (PrefixCache(ecfg.page_size) if ecfg.prefix_cache
+                             else None)
+        self.swap_enabled = ecfg.swap == "host"
+        self.host_pool = (cache_ops.HostPagePool(ecfg.host_pool_bytes)
+                          if self.swap_enabled else None)
+        # read right after the call that sets them: the bytes the last
+        # swap_out_slot / swap_in_slot moved, the positions the last
+        # admission served from cached pages
+        self.swap_last_bytes = 0
+        self.last_hit_tokens = 0
+        self._swap_sizes = None
+        # the last serving session's final state: cached page content lives
+        # in its pools, so the next session starts from it
+        self._serve_state: Optional[dict] = None
+        # host mirror of the lowest position each slot's steps write: set at
+        # admission, and a slot's positions only grow
+        self._slot_floor = [0] * batch
 
     def _state_template(self, batch: int, *, device, **kw) -> dict:
         return make_decode_state(self.model, self.tcfg, self.dcfg, self.ecfg,
@@ -386,17 +457,29 @@ class Engine:
                               - (1 if resume else 0))
 
     def can_admit(self, prompt_len: int, max_new: Optional[int] = None,
-                  full: bool = False, resume: bool = False) -> bool:
+                  full: bool = False, tokens=None,
+                  resume: bool = False) -> bool:
         """Whether the pool can take one more request of this shape now
         (always, contiguous). ``full`` gates on the whole-lifetime need, as
         the scheduler does for a preempted request's resume, so the same
         pressure cannot evict it again at once; ``resume`` mirrors
-        ``prefill_into_slot(resume=)``."""
+        ``prefill_into_slot(resume=)``. With a prefix cache, cache-only
+        pages count as reclaimable, and the prompt ``tokens`` (when given)
+        price the need after the hit: pages it maps from the cache come off
+        no free list, and cannot be evicted to fund the rest."""
         if not self.paged:
             return True
         need = (self.pages_needed(prompt_len, max_new) if full
                 else self.initial_pages(prompt_len, max_new, resume=resume))
-        return need <= self.allocator.n_free
+        avail = self.allocator.n_free
+        if self.prefix_cache is not None:
+            pinned = []
+            if tokens is not None:
+                shared, cow = self.prefix_cache.probe(tokens)
+                need -= len(shared)
+                pinned = shared + ([cow] if cow is not None else [])
+            avail += self.prefix_cache.evictable(self.allocator, pinned)
+        return need <= avail
 
     def slot_capacity(self, slot: int) -> int:
         """Cache positions the slot's page allocation covers."""
@@ -407,6 +490,21 @@ class Engine:
     @staticmethod
     def _core(state: dict) -> dict:
         return {k: v for k, v in state.items() if k != "block_table"}
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """``allocator.alloc``; when the pool is short and a prefix cache
+        holds pages no slot maps, evict those least recently used and
+        retry once."""
+        got = self.allocator.alloc(n)
+        if got is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(n - self.allocator.n_free, self.allocator)
+            got = self.allocator.alloc(n)
+        return got
+
+    def _table_row(self, pages: List[int]) -> Tensor:
+        row = torch.full((self.pages_per_slot,), -1, dtype=torch.int32)
+        row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        return row.to(self.device)
 
     def ensure_capacity(self, state: dict, slot: int, length: int):
         """Grow ``slot``'s pages to cover ``length`` positions, claiming
@@ -421,7 +519,7 @@ class Engine:
         have = len(self._slot_pages[slot])
         if need <= have:
             return state, True
-        got = self.allocator.alloc(need - have)
+        got = self._alloc_pages(need - have)
         if got is None:
             return state, False
         self._slot_pages[slot].extend(got)
@@ -442,6 +540,12 @@ class Engine:
         (callers gate on ``can_admit``) and the prefilled caches are
         scattered into them.
 
+        With a prefix cache the prompt is first matched against it: cached
+        pages are mapped into the slot's row, a partially matching page is
+        copied on write, and only the uncached suffix is prefilled
+        (``_hit_admission``); ``last_hit_tokens`` says how many positions
+        came from the cache (0 when cold).
+
         A fresh admission (``resume=False``) commits the first generated
         token and returns ``(state, first_token, last_position)``, leaving
         its logprob in ``last_logprob``. A preempted request resumes by
@@ -459,6 +563,7 @@ class Engine:
             prompt, res_tok = prompt[:, :-1], prompt[0, -1]
         sp = sampling or self.ecfg.sampling
         self._slot_sampled[slot] = not sp.is_greedy
+        self.last_hit_tokens = 0
         with torch.no_grad():
             if not self.paged:
                 src = self._admission_prefill(prompt, sp)
@@ -469,40 +574,401 @@ class Engine:
                                        "free_slot it before re-admission")
                 n = self.initial_pages(prompt.shape[1] + (1 if resume else 0),
                                        max_new, resume=resume)
-                pages = self.allocator.alloc(n)
-                if pages is None:
-                    raise RuntimeError(
-                        f"page pool exhausted ({n} needed, "
-                        f"{self.allocator.n_free} free); gate on can_admit")
-                self._slot_pages[slot] = pages
-                row = torch.full((self.pages_per_slot,), -1,
-                                 dtype=torch.int32, device=self.device)
-                row[:n] = torch.tensor(pages, dtype=torch.int32)
-                src = self._admission_prefill(prompt, sp)
-                cache_ops.admit_pages(self._core(state),
-                                      _resume_fixup(src, res_tok), slot, row,
-                                      self.pspec)
-                state["block_table"][slot] = row
+                ptoks = prompt[0].cpu().numpy()
+                shared, cow = [], None
+                if self.prefix_cache is not None:
+                    shared, cow = self.prefix_cache.match(ptoks)
+                if shared or cow is not None:
+                    src = self._hit_admission(state, prompt, slot, n, shared,
+                                              cow, sp, res_tok)
+                else:
+                    pages = self._alloc_pages(n)
+                    if pages is None:
+                        raise RuntimeError(
+                            f"page pool exhausted ({n} needed, "
+                            f"{self.allocator.n_free} free); gate on "
+                            "can_admit")
+                    self._slot_pages[slot] = pages
+                    row = self._table_row(pages)
+                    src = self._admission_prefill(prompt, sp)
+                    cache_ops.admit_pages(self._core(state),
+                                          _resume_fixup(src, res_tok), slot,
+                                          row, self.pspec)
+                    state["block_table"][slot] = row
+                    if self.prefix_cache is not None:
+                        self.prefix_cache.insert_stream(ptoks, pages,
+                                                        self.allocator)
+                        self.prefix_cache.note_admission(0, False)
         last = int(src["last"][0])
+        self._slot_floor[slot] = last - (1 if self.ecfg.drafter_mode
+                                         != "none" else 0)
         if resume:
             self.last_logprob = 0.0
             return state, None, last
         self.last_logprob = float(src["logprobs"][0, last])
         return state, int(src["tokens"][0, last]), last
 
-    def free_slot(self, state: dict, slot: int) -> dict:
+    # ------------------------------------------------------------------
+    # prefix caching (serving/prefix_cache.py; EngineConfig.prefix_cache)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def prefill_buckets(length: int) -> List[int]:
+        """The most-significant-bit-first power-of-two decomposition of a
+        length: the chunk sizes of a hit's suffix prefill."""
+        return [1 << b for b in range(length.bit_length() - 1, -1, -1)
+                if length >> b & 1]
+
+    def _hit_admission(self, state: dict, prompt: Tensor, slot: int, n: int,
+                       shared: List[int], cow: Optional[int],
+                       sp: SamplingParams, res_tok) -> dict:
+        """Admission of a prompt that matched cached pages: map the shared
+        pages into the slot's row (the cache and the slot co-own them),
+        copy the partially matching page on write, and prefill only the
+        uncached suffix in decode-mode chunks. The matched pages and the
+        copy's source are pinned before the fresh allocation, so the
+        eviction it may trigger cannot reclaim them. Returns the batch-1
+        state it admitted."""
+        ps = self.ecfg.page_size
+        self.allocator.incref(shared + ([cow] if cow is not None else []))
+        fresh = self._alloc_pages(n - len(shared))
+        if fresh is None:
+            self.allocator.free(shared + ([cow] if cow is not None else []))
+            raise RuntimeError(
+                f"page pool exhausted ({n - len(shared)} needed, "
+                f"{self.allocator.n_free} free); gate on can_admit")
+        start = len(shared) * ps
+        if cow is not None:
+            # fresh[0] becomes the slot's copy: all of it is valid but the
+            # final drafter entry, so the suffix restarts one position early
+            cache_ops.copy_page(self._core(state), cow, fresh[0], self.pspec)
+            self.allocator.free([cow])
+            start += ps - 1
+        pages = shared + fresh
+        self._slot_pages[slot] = pages
+        row = self._table_row(pages)
+        scatter = row.clone()
+        scatter[:len(shared)] = -1      # never write a page others map
+        P = prompt.shape[1]
+        src = self._hit_seed(state, row, prompt, start, sp)
+        pos, first = start, True
+        for c in self.prefill_buckets(P - start):
+            self._chunk(src, prompt[:, pos:pos + c], pos, sp.is_greedy,
+                        hit=first)
+            pos, first = pos + c, False
+        cache_ops.admit_pages(self._core(state), _resume_fixup(src, res_tok),
+                              slot, row, self.pspec, scatter_row=scatter)
+        state["block_table"][slot] = row
+        # index the verifiable prompt prefix, a diverged copy included (its
+        # full key now carries this prompt's lookahead)
+        ptoks = prompt[0].cpu().numpy()
+        self.prefix_cache.insert_stream(ptoks, pages, self.allocator)
+        self.last_hit_tokens = start
+        self.prefix_cache.note_admission(start, cow is not None)
+        return src
+
+    def _hit_seed(self, state: dict, row: Tensor, prompt: Tensor, start: int,
+                  sp: SamplingParams) -> dict:
+        """The batch-1 contiguous state a hit's suffix chunks run on: the
+        slot's row of pages gathered into the view, every position >=
+        ``start`` emptied (fresh pages may hold a previous owner's
+        positions, and a copied page's last drafter entry belongs to
+        another lookahead token). Positions below ``start`` are cached
+        content, valid by the full-key scheme (``prefix_cache.py``)."""
+        src = self._state_template(
+            1, device=self.device,
+            sampling=batch_sampling_state(sp, 1, device=self.device))
+        beyond = torch.arange(self.ecfg.max_len, device=self.device) >= start
+
+        def seed(_, blank, pool, tag):
+            if tag == cache_ops.NOT_PAGED:
+                return blank
+            view = cache_ops.gather_pages(pool, row[None], tag)
+            if tag == cache_ops.PAGED_POS:
+                view.masked_fill_(beyond[None], -1)
+            return view
+
+        for key in ("tcache", "dcache"):
+            if key in src:
+                src[key] = cache_ops.map_tree(seed, src[key], state[key],
+                                              self.pspec[key])
+        src["tokens"][0, :prompt.shape[1]] = prompt[0]
+        src["last"].fill_(start)
+        return src
+
+    def _chunk(self, src: dict, chunk: Tensor, start: int, greedy: bool,
+               hit: bool = False) -> None:
+        """Prefill ``chunk`` (1, c) at positions ``start..start+c-1`` of the
+        batch-1 state ``src``, in place, through a decode-mode forward
+        against its cache, committing the token after the chunk as an
+        admission does. The drafter pairs (taps[p], token[p+1]): a chunk
+        supplies tokens start..start+c-1, so its pairs take the previous
+        chunk's last tap and this chunk's first c-1. The first chunk of a
+        hit (``hit``) skips the pair at start-1: the cached page already
+        holds it (the lookahead is part of its key), and its tap was never
+        recomputed here."""
+        c = chunk.shape[1]
+        positions = (start + torch.arange(c, dtype=torch.int32,
+                                          device=self.device))[None]
+        out = self.model.forward(self.tparams, chunk, mode="decode",
+                                 positions=positions, cache=src["tcache"],
+                                 collect_taps=True, head_last_only=True)
+        fused = start + c
+        head = out.logits[:, -1]
+        samp = src["sampling"]
+        if greedy:
+            first = head.argmax(-1).to(torch.int32)
+        else:
+            first = SD.sample_token(step_keys(samp, fused), head,
+                                    samp["temperature"], samp["top_k"],
+                                    samp["top_p"])
+        src["tokens"][:, start:fused] = chunk
+        src["tokens"][:, fused] = first
+        src["logprobs"][:, start:fused] = 0       # prompt positions read 0
+        src["logprobs"][:, fused] = _token_logprob(head, first)
+        src["last"].fill_(fused)
+        src["tcache"] = out.cache
+        if self.ecfg.drafter_mode != "none":
+            if hit and c > 1:
+                D.extend(self.dcfg, self.tcfg, self.dparams, src["dcache"],
+                         chunk[:, 1:], out.taps[:, :-1], positions[:, :-1])
+            elif not hit:
+                taps = torch.cat([src["taps_last"][:, None],
+                                  out.taps[:, :-1]], dim=1)
+                D.extend(self.dcfg, self.tcfg, self.dparams, src["dcache"],
+                         chunk, taps, positions - 1)
+        src["taps_last"] = out.taps[:, -1].contiguous()
+
+    def serve_state(self) -> dict:
+        """The state a serving session starts from: blank, or with a prefix
+        cache the previous session's final state, whose pools hold the
+        cached pages' content (every slot of it freed)."""
+        if self.prefix_cache is None or self._serve_state is None:
+            return self.blank_state()
+        return self._serve_state
+
+    def retain_state(self, state: dict) -> None:
+        """Keep a session's final state for the next one (with a prefix
+        cache; otherwise nothing is kept)."""
+        if self.prefix_cache is not None:
+            self._serve_state = state
+
+    def free_slot(self, state: dict, slot: int,
+                  final_tokens=None) -> dict:
         """Blank slot ``slot`` in place and refreeze it (new_count =
-        max_new_tokens) until its next admission; paged, its pages return
-        to the pool and its table row becomes -1."""
-        fills = {"new_count": self.ecfg.max_new_tokens}
+        max_new_tokens) until its next admission; paged, its page
+        references are dropped (a page shared with the prefix cache or
+        another slot survives) and its table row becomes -1.
+        ``final_tokens``, with a prefix cache: the request's committed
+        stream (prompt + emitted tokens), whose verifiable full pages are
+        indexed before the release, so a later request sharing the prefix,
+        or this one's resume, admits against them."""
         self._slot_sampled[slot] = False
         if not self.paged:
-            return cache_ops.reset_slot(state, slot, fills=fills)
-        self.allocator.free(self._slot_pages[slot])
+            return cache_ops.reset_slot(
+                state, slot, fills={"new_count": self.ecfg.max_new_tokens})
+        pages = self._slot_pages[slot]
+        if final_tokens is not None and pages and self.prefix_cache is not None:
+            self.prefix_cache.insert_stream(
+                np.asarray(final_tokens, np.int32).reshape(-1), pages,
+                self.allocator)
+        self.allocator.free(pages)
+        return self._release_slot(state, slot)
+
+    def _release_slot(self, state: dict, slot: int) -> dict:
+        """Reset a paged slot's rows and table row; its page references are
+        the caller's to drop. No page is blanked: a freed page may still be
+        mapped by the cache or another slot (growth blanks pages when it
+        claims them)."""
         self._slot_pages[slot] = []
-        cache_ops.reset_slot(self._core(state), slot, self.pspec, fills)
+        self._slot_sampled[slot] = False
+        cache_ops.reset_slot(self._core(state), slot, self.pspec,
+                             {"new_count": self.ecfg.max_new_tokens})
         state["block_table"][slot] = -1
         return state
+
+    def _check_shared_pages(self) -> None:
+        """The paged step invalidates, in every page a row names, positions
+        above that row's bound (``layers.paged_invalidate``, a scatter with
+        duplicate indices when rows share pages), then writes from the
+        row's first position on. Both are safe only while every shared page
+        (refcount > 1) lies below each sharer's first write, which the
+        full-key scheme implies. Checked on the host mirror; raises on a
+        violation."""
+        ps = self.ecfg.page_size
+        for s, pages in enumerate(self._slot_pages):
+            for i in range(self._slot_floor[s] // ps, len(pages)):
+                if self.allocator.refcount(pages[i]) > 1:
+                    raise AssertionError(
+                        f"slot {s} writes from position {self._slot_floor[s]}"
+                        f" into its page {i} (pool page {pages[i]}), which "
+                        f"{self.allocator.refcount(pages[i])} owners share")
+
+    # ------------------------------------------------------------------
+    # swap-to-host preemption (EngineConfig.swap = "host")
+    # ------------------------------------------------------------------
+    def _swap_layout(self):
+        """``(row_bytes, page_bytes)``: host bytes of one slot's per-slot
+        rows, and of one page's payload over every paged leaf."""
+        if self._swap_sizes is None:
+            sizes = [0, 0]
+            ps = self.ecfg.page_size
+
+            def add(_, leaf, tag):
+                if not (isinstance(leaf, Tensor) and leaf.dim() > 0):
+                    return
+                n = leaf.numel() * leaf.element_size()
+                if tag == cache_ops.NOT_PAGED:
+                    sizes[0] += n
+                else:
+                    w = leaf.shape[cache_ops.view_width_axis(leaf.dim(), tag)]
+                    sizes[1] += n // w * ps
+            cache_ops.map_tree(add, self._state_template(1, device="meta"),
+                               self.pspec)
+            self._swap_sizes = tuple(sizes)
+        return self._swap_sizes
+
+    def swap_bytes_estimate(self, slot: int) -> int:
+        """Host bytes swapping ``slot`` out would store now: its per-slot
+        rows plus one page payload per page it alone owns (refcount 1;
+        shared pages stay resident)."""
+        row_b, page_b = self._swap_layout()
+        return row_b + page_b * sum(1 for p in self._slot_pages[slot]
+                                    if self.allocator.refcount(p) == 1)
+
+    def swap_out_slot(self, state: dict, slot: int, rid):
+        """Preempt ``slot`` by copying its state to the host pool under
+        ``rid``. Returns ``(state, ok)``: on ``ok`` the slot is freed (its
+        own pages recycled, shared ones left resident under the handle's
+        reference) and ``swap_last_bytes`` holds the bytes parked; ``ok``
+        False means the host pool cannot take the snapshot and nothing
+        changed (the caller recomputes instead). Called at a sync boundary,
+        where the slot's state is a step boundary: restored bitwise it
+        continues the stream token for token. The committed counters are
+        zeroed in the snapshot, the scheduler's resume convention."""
+        if not self.swap_enabled:
+            return state, False
+        pages = self._slot_pages[slot]
+        host_idx = [i for i, p in enumerate(pages)
+                    if self.allocator.refcount(p) == 1]
+        nbytes = self.swap_bytes_estimate(slot)
+        if not self.host_pool.can_store(nbytes):
+            return state, False
+        last = int(state["last"][slot])
+        host_pages = torch.tensor([pages[i] for i in host_idx],
+                                  dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            src = cache_ops.extract_slot(self._core(state), slot, host_pages,
+                                         self.pspec)
+            src["new_count"].zero_()
+            src["slot_iters"].zero_()
+        flat, layout = _pack(src)
+        snap, ready = flat, None
+        if self.device.type == "cuda":
+            # one copy into pinned memory, on the stream; ``ready`` marks its
+            # end, and whoever reads or releases the buffer on the host
+            # (swap_in_slot, drop_swap) synchronizes on it first
+            snap = torch.empty(flat.numel(), dtype=torch.uint8,
+                               pin_memory=True)
+            snap.copy_(flat, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        nbytes = flat.numel()           # the estimate, now stored
+        h = _SwapHandle(snap=snap, layout=layout, page_row=list(pages),
+                        host_idx=host_idx, last=last,
+                        sampled=self._slot_sampled[slot], nbytes=nbytes,
+                        ready=ready)
+        if not self.host_pool.put(rid, h, nbytes):
+            return state, False
+        self.allocator.free([pages[i] for i in host_idx])
+        self.swap_last_bytes = nbytes
+        return self._release_slot(state, slot), True
+
+    def has_swap(self, rid) -> bool:
+        """Whether a host snapshot is parked under ``rid``."""
+        return self.swap_enabled and rid in self.host_pool
+
+    def can_swap_in(self, rid, prompt_len: Optional[int] = None,
+                    max_new: Optional[int] = None,
+                    full: bool = False) -> bool:
+        """Admission gate of a swapped resume, priced at its device-page
+        need: fresh pages for the host spans (resident pages are on the
+        device), plus with ``full`` the growth of its remaining lifetime
+        beyond what the restore maps (``can_admit(full=True)``'s rule)."""
+        h = self.host_pool.get(rid) if self.swap_enabled else None
+        if h is None:
+            return False
+        need = len(h.host_idx)
+        if full and prompt_len is not None:
+            need += max(0, self.pages_needed(prompt_len, max_new)
+                        - len(h.page_row))
+        avail = self.allocator.n_free
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.evictable(self.allocator, h.page_row)
+        return need <= avail
+
+    def swap_in_slot(self, state: dict, slot: int, rid):
+        """Resume a swapped-out request into (empty) ``slot``: fresh pages
+        for the host spans, the snapshot written back into them and into
+        the slot's rows, the resident pages mapped again. Returns ``(state,
+        last)``; the slot then holds bitwise the state it had at eviction.
+        Callers gate on ``can_swap_in``."""
+        h = self.host_pool.get(rid) if self.swap_enabled else None
+        if h is None:
+            raise KeyError(f"no swap handle for request {rid!r}")
+        if self._slot_pages[slot]:
+            raise RuntimeError(f"slot {slot} still holds pages; "
+                               "free_slot it before swap-in")
+        fresh = self._alloc_pages(len(h.host_idx))
+        if fresh is None:
+            raise RuntimeError(
+                f"page pool exhausted ({len(h.host_idx)} needed, "
+                f"{self.allocator.n_free} free); gate on can_swap_in")
+        pages = list(h.page_row)
+        for i, p in zip(h.host_idx, fresh):
+            pages[i] = p
+        if h.ready is not None:
+            h.ready.synchronize()
+        src = _unpack(h.snap.to(self.device, non_blocking=True), h.layout)
+        with torch.no_grad():
+            cache_ops.admit_pages(
+                self._core(state), src, slot,
+                torch.tensor(fresh, dtype=torch.int32, device=self.device),
+                self.pspec)
+        state["block_table"][slot] = self._table_row(pages)
+        # the copies out of the handle's pinned buffers must be complete
+        # before the pages are handed back and the buffers released
+        self._sync()
+        self._slot_pages[slot] = pages
+        self._slot_sampled[slot] = h.sampled
+        self._slot_floor[slot] = h.last - (1 if self.ecfg.drafter_mode
+                                           != "none" else 0)
+        self.host_pool.pop(rid)
+        self.swap_last_bytes = h.nbytes
+        return state, h.last
+
+    def drop_swap(self, rid) -> bool:
+        """Release ``rid``'s host snapshot without resuming it: its bytes
+        leave the host pool and the handle's references on its resident
+        pages are dropped (the request then resumes by recompute). False
+        when nothing was parked."""
+        if not self.has_swap(rid):
+            return False
+        h = self.host_pool.pop(rid)
+        if h.ready is not None:
+            h.ready.synchronize()       # the buffers' copies end first
+        on_host = set(h.host_idx)
+        resident = [p for i, p in enumerate(h.page_row) if i not in on_host]
+        if resident:
+            self.allocator.free(resident)
+        return True
+
+    def reset_stats(self) -> None:
+        """Restart the allocator's and the host pool's ``peak_used``
+        high-water marks at current usage."""
+        if self.paged:
+            self.allocator.reset_stats()
+        if self.host_pool is not None:
+            self.host_pool.reset_stats()
 
     # ------------------------------------------------------------------
     # one speculative iteration
@@ -524,6 +990,8 @@ class Engine:
         if self.paged and "block_table" not in state:
             raise ValueError("a paged Engine steps a paged state "
                              "(blank_state + prefill_into_slot)")
+        if self.prefix_cache is not None:
+            self._check_shared_pages()
 
         def dev(x, dtype):
             return None if x is None else torch.as_tensor(
@@ -596,6 +1064,36 @@ def _resume_fixup(src: dict, res_tok: Optional[Tensor]) -> dict:
         src["tokens"][0, src["last"][0]] = res_tok
         src["new_count"].zero_()
     return src
+
+
+def _pack(tree: dict):
+    """The tensor leaves of ``tree`` (0-dim counters and flags left out)
+    laid end to end in one byte buffer, widest element type first so every
+    leaf's offset is aligned for its type. Returns ``(buffer, layout)``,
+    ``layout`` shaped like ``tree`` with (dtype, shape, offset) per packed
+    leaf and None elsewhere."""
+    leaves = []
+    cache_ops.map_tree(lambda p, t: leaves.append((p, t))
+                       if isinstance(t, Tensor) and t.dim() > 0 else None,
+                       tree)
+    leaves.sort(key=lambda pt: -pt[1].element_size())
+    where, off = {}, 0
+    for path, t in leaves:
+        where[path] = (t.dtype, tuple(t.shape), off)
+        off += t.numel() * t.element_size()
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for _, t in leaves])
+    return flat, cache_ops.map_tree(lambda p, _: where.get(p), tree)
+
+
+def _unpack(flat: Tensor, layout: dict) -> dict:
+    """The tree ``_pack`` packed, its leaves views of ``flat``."""
+    def leaf(_, spec):
+        if spec is None:
+            return None
+        dtype, shape, off = spec
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        return flat[off:off + n].view(dtype).view(shape)
+    return cache_ops.map_tree(leaf, layout)
 
 
 def _to(tree, device):

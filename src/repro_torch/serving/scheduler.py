@@ -1,11 +1,12 @@
 """Continuous-batching scheduler over the engine's slots (PyTorch).
 
 Counterpart of the JAX package's ``serving/scheduler.py`` (``Request`` and
-``Scheduler.serve``, the virtual-clock loop), without what the port does
-not carry yet: the prefix cache, swap-to-host, adaptive K, the wall-clock
-streaming front end and ``LLMEngine``. Each request carries its own
-decoding policy (``serving/sampling.SamplingParams``), so one batch mixes
-greedy and sampled requests.
+``Scheduler.serve``, the virtual-clock loop, with the prefix cache's
+admission, swap-to-host preemption and the adaptive-K controller), without
+what the port does not carry yet: the wall-clock streaming front end and
+``LLMEngine``. Each request carries its own decoding policy
+(``serving/sampling.SamplingParams``), so one batch mixes greedy and
+sampled requests.
 
 Request lifecycle::
 
@@ -36,7 +37,13 @@ for token: a greedy stream is a function of its prefix, and a sampled one
 resumes with ``prefill_into_slot(resume=True)`` at the step boundary it
 had, re-deriving the same per-position keys. A resume gates on its whole
 remaining need, so the pressure that evicted it cannot evict it again at
-once. With ``preempt=False`` slots stall instead.
+once. With ``preempt=False`` slots stall instead. With
+``EngineConfig(swap="host")`` an eviction parks the victim's pages and rows
+in the engine's host pool instead, and the resume is a bitwise restore
+(``Engine.swap_in_slot``); the scheduler falls back to recompute when the
+host pool is full or the bytes-moved cost model says recompute is cheaper.
+With a prefix cache a freed slot's committed stream is indexed, and an
+admission gates on its need after the hit.
 
 Termination is host-driven: after every ``sync_every`` iterations one
 readback brings the per-slot counters and committed tokens to the host;
@@ -58,6 +65,8 @@ import torch
 
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.speculation import (SpeculationConfig,
+                                             SpeculationController)
 
 QUEUED = "queued"
 PREFILLING = "prefilling"
@@ -92,7 +101,10 @@ class Request:
     vt_admit: Optional[float] = None   # virtual clock at first admission
     vt_finish: float = 0.0
     n_preempt: int = 0
+    n_swap: int = 0                # preemptions that swapped to the host
     iters: int = 0                 # decode iterations this request was live
+    cached_tokens: int = 0         # prompt positions served from the prefix
+    #                                cache over all its admissions
     # internal bookkeeping
     _prev_new: int = 0             # device-side new_count at the last sync
     _prev_last: int = 0            # device-side last position at the last sync
@@ -127,18 +139,51 @@ class Scheduler:
     the same for any value. ``iter_cost`` / ``prefill_cost``: virtual-clock
     cost of one iteration / one admission prefill. ``preempt``: evict the
     lowest-priority running slot when the pool runs out (default), else
-    stall slots."""
+    stall slots.
+
+    ``swap`` (default: the engine's ``EngineConfig.swap``): evict to the
+    host pool when ``2 * bytes * swap_cost_per_byte <= prefill_cost +
+    prefill_cost_per_token * prefix_tokens`` and the pool can hold the
+    snapshot, else recompute; swap-out and swap-in advance the clock by
+    ``swap_cost_per_byte`` times the bytes moved, an admission prefill by
+    ``prefill_cost + prefill_cost_per_token * prompt``. Both costs default
+    to 0.
+
+    ``adaptive_k``: True (default knobs) or a ``SpeculationConfig`` turns
+    on the per-request ``SpeculationController``: each request's
+    acceptance EMA, keyed by rid and kept across preemption, sets its
+    ``k_row`` at admission and at every harvest, and incremental growth
+    reserves the row's ``k_row + 1`` stride instead of ``K + 1``. Greedy
+    streams are unchanged; a sampled one stays a function of its own
+    stream. None / False keeps the fixed K."""
 
     def __init__(self, engine: Engine, eos_id: Optional[int] = None,
                  sync_every: int = 1,
                  iter_cost: float = 1.0, prefill_cost: float = 1.0,
-                 preempt: Optional[bool] = None):
+                 preempt: Optional[bool] = None, adaptive_k: Any = None,
+                 swap: Optional[bool] = None,
+                 swap_cost_per_byte: float = 0.0,
+                 prefill_cost_per_token: float = 0.0):
         self.engine = engine
         self.eos_id = eos_id
         self.sync_every = max(int(sync_every), 1)
         self.iter_cost = float(iter_cost)
         self.prefill_cost = float(prefill_cost)
         self.preempt = True if preempt is None else bool(preempt)
+        self.swap = engine.swap_enabled if swap is None else bool(swap)
+        if self.swap and not engine.swap_enabled:
+            raise ValueError(
+                "Scheduler(swap=True) needs EngineConfig(swap='host')")
+        self.swap_cost_per_byte = float(swap_cost_per_byte)
+        self.prefill_cost_per_token = float(prefill_cost_per_token)
+        if adaptive_k is None or adaptive_k is False:
+            self.spec: Optional[SpeculationController] = None
+        elif isinstance(adaptive_k, SpeculationController):
+            self.spec = adaptive_k
+        else:
+            self.spec = SpeculationController(
+                engine.ecfg.K, adaptive_k
+                if isinstance(adaptive_k, SpeculationConfig) else None)
 
     def _prio(self, r: Request) -> Tuple[float, int]:
         return (r.arrival_time, r._seq)
@@ -151,7 +196,8 @@ class Scheduler:
     def _start_serve(self) -> None:
         eng = self.engine
         B = eng.batch
-        self._state = eng.blank_state()
+        # a prefix-cache engine starts from the last session's pools
+        self._state = eng.serve_state()
         self._active = np.zeros((B,), bool)
         self._max_new = np.zeros((B,), np.int32)
         self._k_row = np.full((B,), eng.ecfg.K, np.int32)
@@ -162,6 +208,11 @@ class Scheduler:
         self._clock = 0.0
         self._n_iters = 0
         self._n_preempt = 0
+        self._n_swap = 0             # swap-to-host evictions
+        self._n_recompute = 0        # recompute-prefill evictions
+        self._n_swap_drop = 0        # handles dropped for pressure relief
+        self._recomputed_tokens = 0  # prefix tokens re-fed by resumes,
+        #                              net of prefix-cache hits
         self._next_seq = 0
         self._t_start = time.perf_counter()
 
@@ -215,14 +266,36 @@ class Scheduler:
         self._active[s] = False
         self._slot_req[s] = None
         self._finished.append(req)
+        if self.spec is not None:
+            self.spec.finish(req.rid)
         self._event("finish", req.rid)
-        self._state = self.engine.free_slot(self._state, s)
+        self._state = self.engine.free_slot(
+            self._state, s, final_tokens=self._committed_stream(req))
+
+    def _swap_beats_recompute(self, req: Request, s: int) -> bool:
+        """Swap when moving the snapshot's bytes both ways costs no more
+        than re-feeding the committed prefix, and the host pool can hold
+        it. With the default zero byte cost, swap wins while it fits."""
+        eng = self.engine
+        if not self.swap:
+            return False
+        est = eng.swap_bytes_estimate(s)
+        if not eng.host_pool.can_store(est):
+            return False            # host pool full: recompute instead
+        prefix = req.prompt.size + len(req.out_tokens)
+        return (2.0 * est * self.swap_cost_per_byte
+                <= self.prefill_cost + self.prefill_cost_per_token * prefix)
 
     def _preempt_slot(self, s: int) -> None:
-        """Evict slot s: its pages return to the pool, the request is
-        re-queued at its original priority with its tokens kept, to resume
-        by recompute-prefill."""
+        """Evict slot s, re-queueing the request at its original priority:
+        to the host pool (resume: a bitwise restore) when swap is on and
+        worth it, else by freeing its pages and keeping its tokens on the
+        host (resume: recompute-prefill). Both are lossless."""
+        eng = self.engine
         req = self._slot_req[s]
+        swapped = False
+        if self._swap_beats_recompute(req, s):
+            self._state, swapped = eng.swap_out_slot(self._state, s, req.rid)
         req.status = QUEUED
         req.slot = None
         req.n_preempt += 1
@@ -230,9 +303,34 @@ class Scheduler:
         self._n_preempt += 1
         self._active[s] = False
         self._slot_req[s] = None
-        self._state = self.engine.free_slot(self._state, s)
-        self._event("preempt", req.rid)
+        if swapped:
+            req.n_swap += 1
+            self._n_swap += 1
+            self._clock += self.swap_cost_per_byte * eng.swap_last_bytes
+            self._event("swap_out", req.rid)
+        else:
+            self._n_recompute += 1
+            self._state = eng.free_slot(
+                self._state, s, final_tokens=self._committed_stream(req))
+            self._event("preempt", req.rid)
         bisect.insort(self._waiting, req, key=self._prio)
+
+    def _drop_one_swap(self, exclude: Optional[Request] = None) -> bool:
+        """Pressure relief of last resort: a swap handle pins its resident
+        (cache-shared) pages, which a recompute eviction would have left
+        evictable, so a pool wedged behind swapped prefixes drops the
+        lowest-priority handle (that request resumes by recompute) instead
+        of deadlocking. False when nothing is droppable."""
+        eng = self.engine
+        cands = [r for r in self._waiting
+                 if r is not exclude and eng.has_swap(r.rid)]
+        if not cands:
+            return False
+        victim = max(cands, key=self._prio)
+        eng.drop_swap(victim.rid)
+        self._n_swap_drop += 1
+        self._event("swap_drop", victim.rid)
+        return True
 
     def _lowest_prio_active(self) -> Optional[int]:
         live = [s for s in range(self.engine.batch) if self._active[s]]
@@ -246,13 +344,27 @@ class Scheduler:
         a commit (``prefill_into_slot(resume=True)``)."""
         return bool(req.out_tokens) and not req.sampling.is_greedy
 
+    def _admission_stream(self, req: Request) -> np.ndarray:
+        """The tokens an admission prefills: the prompt, or on a resume the
+        committed stream (less its last token for a sampled resume)."""
+        if not req.out_tokens:
+            return req.prompt
+        stream = self._committed_stream(req)
+        return stream[:-1] if self._resumes_sampled(req) else stream
+
     def _head_admissible(self, req: Request) -> bool:
         # a resumed request gates on its whole remaining need; ``resume``
-        # mirrors the admission's flag so the gate prices its exact claim
-        return self.engine.can_admit(
-            req.prompt.size + len(req.out_tokens),
-            req.max_new_tokens - len(req.out_tokens), full=req.n_preempt > 0,
-            resume=self._resumes_sampled(req))
+        # mirrors the admission's flag so the gate prices its exact claim,
+        # and the prefilled tokens price the need after a prefix-cache hit
+        eng = self.engine
+        plen = req.prompt.size + len(req.out_tokens)
+        rem = req.max_new_tokens - len(req.out_tokens)
+        if eng.has_swap(req.rid):
+            # a swapped resume needs device pages for its host spans only
+            return eng.can_swap_in(req.rid, plen, rem, full=req.n_preempt > 0)
+        return eng.can_admit(plen, rem, full=req.n_preempt > 0,
+                             tokens=self._admission_stream(req),
+                             resume=self._resumes_sampled(req))
 
     def _clip_and_check_done(self, req: Request) -> bool:
         """Trim at the first stop token (``eos_id`` or the request's
@@ -274,12 +386,35 @@ class Scheduler:
         req._scanned = len(out)
         return done
 
+    def _swap_admit(self, req: Request, s: int) -> None:
+        """Resume a swapped-out request: its snapshot is written back into
+        slot s, bitwise its eviction-time step boundary (no prefill); the
+        committed counters restart at 0 against the remaining budget, as
+        in ``_admit``."""
+        eng = self.engine
+        req.status = PREFILLING
+        req.slot = s
+        self._state, last = eng.swap_in_slot(self._state, s, req.rid)
+        self._clock += self.swap_cost_per_byte * eng.swap_last_bytes
+        self._event("swap_in", req.rid)
+        req._prev_new, req._prev_last = 0, last
+        req.status = DECODING
+        self._slot_req[s] = req
+        self._active[s] = True
+        self._max_new[s] = req.max_new_tokens - len(req.out_tokens)
+        if self.spec is not None:
+            self._k_row[s] = self.spec.k_for(req.rid)
+
     def _admit(self, req: Request, s: int) -> None:
         """Prefill ``req`` into slot s: its prompt, or on a resume the prompt
         and the tokens it generated before it was evicted (a sampled resume
         commits nothing new; the next step restarts its verification at the
-        same committed prefix and key as the uninterrupted run)."""
+        same committed prefix and key as the uninterrupted run). A swapped
+        request is restored instead."""
         eng = self.engine
+        if eng.has_swap(req.rid):
+            self._swap_admit(req, s)
+            return
         prompt = (self._committed_stream(req) if req.out_tokens
                   else req.prompt)
         resume = self._resumes_sampled(req)
@@ -295,7 +430,13 @@ class Scheduler:
             resume=resume)
         if first_admission:
             req.t_admit = time.perf_counter()
-        self._clock += self.prefill_cost
+        req.cached_tokens += eng.last_hit_tokens
+        if req.n_preempt:
+            # prefix positions this resume forwarded again (net of hits)
+            self._recomputed_tokens += max(
+                int(prompt.size) - eng.last_hit_tokens, 0)
+        self._clock += (self.prefill_cost
+                        + self.prefill_cost_per_token * int(prompt.size))
         if first is None:                  # no-commit resume (sampled)
             req._prev_new, req._prev_last = 0, last
         else:
@@ -308,6 +449,9 @@ class Scheduler:
         self._slot_req[s] = req
         self._active[s] = True
         self._max_new[s] = remaining
+        if self.spec is not None:
+            # rid-keyed: a resume continues from the state the stream had
+            self._k_row[s] = self.spec.k_for(req.rid)
         if self._clip_and_check_done(req):      # EOS at the first token
             self._finish_slot(s)
 
@@ -329,6 +473,12 @@ class Scheduler:
                                          <= self._prio(head)):
                             break
                         self._preempt_slot(v)
+                # swap handles pin resident pages a recompute eviction
+                # would release: drop lower-priority ones until the head
+                # fits (dropping its own never helps)
+                while (not self._head_admissible(head)
+                       and self._drop_one_swap(exclude=head)):
+                    pass
                 if not self._head_admissible(head):
                     break                # the head waits for frees (FIFO)
             self._admit(self._waiting.pop(0), free[0])
@@ -349,9 +499,14 @@ class Scheduler:
                 cap = req.prompt.size + req.max_new_tokens + eng.ecfg.K + 1
                 # a step at position c writes KV c..c+stride-1 and moves c by
                 # at most stride, so sync_every steps need exactly
-                # last + sync_every * stride positions
-                target = min(req._prev_last + self.sync_every
-                             * eng.commit_stride, cap)
+                # last + sync_every * stride positions; under adaptive K the
+                # row's stride is k_row + 1 (a write past the row's pages
+                # goes to the sink, like an invalidated entry)
+                if self.spec is not None and eng.ecfg.drafter_mode != "none":
+                    stride = int(self._k_row[s]) + 1
+                else:
+                    stride = eng.commit_stride
+                target = min(req._prev_last + self.sync_every * stride, cap)
                 self._state, ok = eng.ensure_capacity(self._state, int(s),
                                                       target)
                 while not ok and self.preempt:
@@ -359,6 +514,10 @@ class Scheduler:
                     self._preempt_slot(v)
                     if v == s:
                         break
+                    self._state, ok = eng.ensure_capacity(self._state,
+                                                          int(s), target)
+                while not ok and self._active[s] and self._drop_one_swap():
+                    # growth wedged behind handle-pinned pages
                     self._state, ok = eng.ensure_capacity(self._state,
                                                           int(s), target)
                 if not ok and self._active[s]:
@@ -397,6 +556,7 @@ class Scheduler:
             req = self._slot_req[s]
             if req is None or not self._active[s]:
                 continue
+            prev_iters, prev_comm = req.iters, req._committed
             req.iters = req._iters_base + int(slot_iters[s])
             if new_count[s] > req._prev_new:
                 lo, hi = req._prev_last + 1, int(last[s]) + 1
@@ -406,6 +566,12 @@ class Scheduler:
                 req._committed += int(new_count[s]) - req._prev_new
                 req._prev_new = int(new_count[s])
                 req._prev_last = int(last[s])
+            if self.spec is not None and req.iters > prev_iters:
+                # this request's committed tokens over its iterations since
+                # the last sync; frozen rows carry no signal
+                self.spec.observe(req.rid, req._committed - prev_comm,
+                                  req.iters - prev_iters)
+                self._k_row[s] = self.spec.k_for(req.rid)
             if self._clip_and_check_done(req):
                 self._finish_slot(s)
 
@@ -443,6 +609,7 @@ class Scheduler:
                     raise RuntimeError("scheduler exceeded max_iters")
                 self._harvest()
         wall = time.perf_counter() - self._t_start
+        self.engine.retain_state(self._state)   # keep cached pages warm
         return self._report(wall)
 
     def _report(self, wall: float) -> Dict[str, Any]:
@@ -457,16 +624,22 @@ class Scheduler:
             "acceptance_length": r.acceptance_length,
             "arrival_time": r.arrival_time,
             "n_preempt": r.n_preempt,
+            "n_swap": r.n_swap,
+            "cached_tokens": r.cached_tokens,
+            "aborted": False,       # no abort surface without streaming
             "wait_s": r.t_admit - r.t_submit,
             "latency_s": r.t_finish - r.t_submit,
             "wait_vt": r.vt_admit - r.arrival_time,
             "latency_vt": r.vt_finish - r.arrival_time,
+            **({"k_final": self.spec.request_report(r.rid)["k_final"]}
+               if self.spec is not None else {}),
         } for r in sorted(self._finished, key=lambda r: r.rid)]
         total = sum(r["n_new"] for r in results)
         lat_vt = [r["latency_vt"] for r in results] or [0.0]
         wait_vt = [r["wait_vt"] for r in results] or [0.0]
         dec_tok = sum(r._committed - r._prefills for r in self._finished)
         dec_it = sum(r.iters for r in self._finished)
+        hp = self.engine.host_pool            # None unless swap="host"
         return {
             "results": results,
             "n_requests": len(results),
@@ -479,11 +652,30 @@ class Scheduler:
             # decode-committed tokens over decode iterations: a 1-iteration
             # straggler does not weigh as much as a long stream
             "weighted_acceptance_length": dec_tok / max(dec_it, 1),
+            **({"speculation": self.spec.report()}
+               if self.spec is not None else {}),
+            "mean_latency_s": float(np.mean(
+                [r["latency_s"] for r in results])) if results else 0.0,
             "makespan_vt": self._clock,
             "otps_vt": total / max(self._clock, 1e-9),
             "preemptions": self._n_preempt,
+            # every eviction is one of swap or recompute; swap_drops counts
+            # handles later demoted to recompute
+            "preempt_swap": self._n_swap,
+            "preempt_recompute": self._n_recompute,
+            "swap_drops": self._n_swap_drop,
+            "recomputed_prefill_tokens": self._recomputed_tokens,
+            "host_pool": {
+                "capacity_bytes": hp.capacity if hp is not None else 0,
+                "used_bytes": hp.used_bytes if hp is not None else 0,
+                "peak_bytes": hp.peak_used if hp is not None else 0,
+            },
             "peak_pages": (self.engine.allocator.peak_used
                            if self.engine.paged else 0),
+            "aborted": 0,
+            "cache_hit_tokens": sum(r["cached_tokens"] for r in results),
+            "cache_hit_requests": sum(1 for r in results
+                                      if r["cached_tokens"] > 0),
             "p50_latency_vt": float(np.percentile(lat_vt, 50)),
             "p99_latency_vt": float(np.percentile(lat_vt, 99)),
             "p50_wait_vt": float(np.percentile(wait_vt, 50)),

@@ -1,7 +1,10 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 on the card, the engine's greedy losslessness through the kernels, paged
 scheduler serving through the paged decode kernel, greedy and sampled,
-the threefry PRNG's words on the card against the CPU's, the chi-square
+the prefix cache, swap to pinned host memory and adaptive K (the decode
+kernel at a hit's chunk shapes, the paged kernel over shared pages, a
+bitwise swap round trip), the threefry PRNG's words on the card against
+the CPU's, the chi-square
 losslessness of rejection verification on the card, the flash training
 attention's gradients, and reduced training steps through the MTP kernel.
 
@@ -64,6 +67,11 @@ def _tol(dtype):
     (1, 638, 12, 12, 128, 638, 638, 0),    # phase 2, exact length
     (1, 200, 12, 2, 128, 1024, 600, 0),    # row tiles x splits, live keys
     (1, 200, 12, 2, 128, 1024, 600, 150),  # ... and a window
+    # a prefix-cache hit's suffix chunks against the cached system prompt
+    (1, 256, 12, 2, 128, 1024, 320, 0),    # target hit chunk, phase 1
+    (1, 256, 12, 2, 128, 256, 256, 0),     # ... phase 2
+    (1, 255, 12, 12, 128, 1024, 320, 0),   # drafter hit extend, phase 1
+    (1, 512, 12, 2, 128, 1024, 64, 0),     # the widest chunk, phase 1
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
                                      window):
@@ -227,6 +235,28 @@ def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
                  dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_over_shared_pages_matches_plain(card, dtype):
+    """Rows whose tables name the same first pages (a shared prefix, as the
+    prefix cache maps them): each row reads them as its own."""
+    q, k, v, pos, table, qpos = _paged_inputs(card, dtype, 8, 6, 12, 2, 128,
+                                              513, 16, 64, seed=5)
+    length = 20 * 16 + 64
+    pages = torch.randperm(512, generator=torch.Generator().manual_seed(1))
+    shared, own = pages[:20], pages[20:].view(-1)
+    table = torch.full_like(table, -1)
+    pos = torch.full_like(pos, -1)
+    for b in range(8):
+        row = torch.cat([shared, own[4 * b:4 * b + 4]]).to(card)
+        table[b, :24] = row
+        pos[row] = torch.arange(24 * 16, dtype=torch.int32,
+                                device=card).view(24, 16)
+    qpos = (length + torch.arange(6, dtype=torch.int32, device=card))[
+        None].repeat(8, 1).contiguous()
+    pos = torch.where(pos < length, pos, -1).to(torch.int32).contiguous()
+    _paged_check((q, k, v, pos, table.contiguous(), qpos), dtype)
+
+
 def test_paged_holes_inside_live_tiles_are_never_read(card):
     """-1 and out-of-pool page ids inside a row's live range read as empty
     pages (the plain version's view), never as another row's page; and a
@@ -309,6 +339,65 @@ def test_paged_scheduler_matches_contiguous_engine(card):
         (eng.tcfg.n_layers + 2 * eng.dcfg.n_layers) * rep["iterations"])
     for r, w in zip(rep["results"], want):
         np.testing.assert_array_equal(r["tokens"], w)
+
+
+def test_policies_on_card_equal_a_cold_engine(card):
+    """Reduced width on the card: the prefix cache, swap to pinned host
+    memory and adaptive K give a cache-off, recompute, fixed-K engine's
+    tokens on shared-prefix traffic that swaps and hits; both pools drain."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine, shared_prefix_requests
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Scheduler
+    off = build_engine(reduced=True, mode="parallel", K=3, max_new=16,
+                       max_len=96, batch=3, seed=0, device=card,
+                       kv_layout="paged", page_size=8, pool_pages=14)
+    on = Engine(off.tcfg, off.dcfg, off.tparams, off.dparams,
+                dataclasses.replace(off.ecfg, prefix_cache=True, swap="host"),
+                3, device=card)
+
+    def reqs():
+        return shared_prefix_requests(off.tcfg.vocab_size, 8, 24, 2, (4, 16),
+                                      (8, 16), 1.0, seed=0, repeats=2)
+    want = Scheduler(off).serve(reqs())
+    got = Scheduler(on, adaptive_k=True).serve(reqs())
+    assert got["preempt_swap"] > 0 and got["cache_hit_requests"] >= 6
+    for g, w in zip(got["results"], want["results"]):
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+    assert len(on.host_pool) == 0 and on.host_pool.used_bytes == 0
+    on.prefix_cache.flush(on.allocator)
+    assert on.allocator.n_used == 0
+
+
+def test_swap_round_trip_on_card_is_bitwise(card):
+    """A slot copied to pinned host memory (non-blocking) and back restores
+    its rows and pages bit for bit."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving import cache_ops
+    eng = build_engine(reduced=True, mode="parallel", K=3, max_new=16,
+                       max_len=64, batch=2, seed=0, device=card,
+                       kv_layout="paged", page_size=8, pool_pages=10,
+                       swap="host")
+    state = eng.blank_state()
+    state, _, _ = eng.prefill_into_slot(state, np.arange(1, 20), 1,
+                                        max_new=16)
+    state = eng.step(state)
+
+    def view():
+        pages = torch.tensor(eng._slot_pages[1], dtype=torch.int32,
+                             device=card)
+        return cache_ops.extract_slot(eng._core(state), 1, pages, eng.pspec)
+    before = view()
+    state, ok = eng.swap_out_slot(state, 1, rid="r")
+    assert ok and eng.host_pool.get("r").snap.is_pinned()
+    state, _ = eng.swap_in_slot(state, 1, "r")
+    after = view()
+    for key in ("tcache", "dcache"):
+        for a, b in zip(after[key]["blocks"], before[key]["blocks"]):
+            for leaf in ("k", "v", "positions"):
+                assert torch.equal(a[leaf], b[leaf]), (key, leaf)
+    for key in ("tokens", "logprobs", "last", "taps_last"):
+        assert torch.equal(after[key], before[key]), key
 
 
 def test_engine_lossless_through_kernels(card):

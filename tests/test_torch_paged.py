@@ -368,6 +368,89 @@ def test_recycled_page_reads_empty(engines):
 
 
 # ---------------------------------------------------------------------------
+# rows sharing pages (the prefix cache)
+# ---------------------------------------------------------------------------
+
+def test_paged_invalidate_leaves_shared_pages_untouched():
+    """Two rows name the same first pages, at different bounds: the
+    scatter of per-row bounds into a per-page limit has duplicate indices,
+    and whichever row's bound lands, the shared pages hold only positions
+    below both bounds, so none of their entries is invalidated. Each row's
+    own pages are invalidated past its own bound."""
+    from repro_torch.models import layers as L
+    NP, page = 9, 4
+    pos = torch.full((NP + 1, page), -1, dtype=torch.int32)
+    shared = [0, 1, 2]
+    for i, pg in enumerate(shared):
+        pos[pg] = torch.arange(i * page, (i + 1) * page)
+    own = {0: [3, 4], 1: [5, 6, 7]}
+    for row, pages in own.items():
+        for i, pg in enumerate(pages):
+            base = (len(shared) + i) * page
+            pos[pg] = torch.arange(base, base + page)
+    table = torch.full((2, 6), -1, dtype=torch.int32)
+    for row, pages in own.items():
+        table[row, :len(shared) + len(pages)] = torch.tensor(shared + pages)
+    bound = torch.tensor([13, 22], dtype=torch.int32)   # pos0 - 1 per row
+    before = pos.clone()
+    L.paged_invalidate(pos, table, bound)
+    assert torch.equal(pos[shared], before[shared])
+    for row, pages in own.items():
+        got = pos[pages]
+        want = before[pages].masked_fill(before[pages] > bound[row], -1)
+        assert torch.equal(got, want), row
+    assert torch.equal(pos[NP - 1:], before[NP - 1:])   # named by no row
+
+
+def test_step_leaves_a_sharers_pages_byte_stable(engines):
+    """Two slots admitted on one prompt share its cached pages; a step in
+    which only one of them is live writes none of the shared pages: every
+    K/V byte and position of them stays equal, and the other slot's next
+    step reads them unchanged."""
+    _, te, _ = engines
+    eng = Engine(te.tcfg, te.dcfg, te.tparams, te.dparams,
+                 dataclasses.replace(te.ecfg, pool_pages=POOL,
+                                     prefix_cache=True), 2, device="cpu")
+    prompt = np.random.default_rng(8).integers(1, 200, 21).astype(np.int32)
+    state = eng.blank_state()
+    state, _, _ = eng.prefill_into_slot(state, prompt, 0, max_new=8)
+    state, _, _ = eng.prefill_into_slot(state, prompt, 1, max_new=8)
+    shared = [p for p in eng._slot_pages[1] if eng.allocator.refcount(p) > 1]
+    assert shared == eng._slot_pages[0][:len(shared)] and len(shared) == 2
+    snap = {name: [(c["k"][shared].clone(), c["v"][shared].clone(),
+                    c["positions"][shared].clone())
+                   for c in state[name]["blocks"]]
+            for name in ("tcache", "dcache")}
+    for live in ([True, False], [False, True], [True, True]):
+        state = eng.step(state, active=live, max_new=[8, 8])
+        for name, layers in snap.items():
+            for c, (k, v, pos) in zip(state[name]["blocks"], layers):
+                assert torch.equal(c["positions"][shared], pos), name
+                assert torch.equal(c["k"][shared], k), name
+                assert torch.equal(c["v"][shared], v), name
+    eng.free_slot(state, 0)
+    eng.free_slot(state, 1)
+
+
+def test_engine_refuses_a_write_into_a_shared_page(engines):
+    """The host-side check of the invariant above: a slot whose first
+    write position lies inside a page others map makes the step raise."""
+    _, te, _ = engines
+    eng = Engine(te.tcfg, te.dcfg, te.tparams, te.dparams,
+                 dataclasses.replace(te.ecfg, pool_pages=POOL,
+                                     prefix_cache=True), 2, device="cpu")
+    prompt = np.arange(1, 22, dtype=np.int32)
+    state = eng.blank_state()
+    state, _, _ = eng.prefill_into_slot(state, prompt, 0, max_new=8)
+    state, _, _ = eng.prefill_into_slot(state, prompt, 1, max_new=8)
+    assert eng._slot_floor[1] >= 2 * PAGE
+    eng.step(state, max_new=[8, 8])              # the invariant holds
+    eng._slot_floor[1] = PAGE + 3                # as if it wrote into page 1
+    with pytest.raises(AssertionError, match="share"):
+        eng.step(state, max_new=[8, 8])
+
+
+# ---------------------------------------------------------------------------
 # the block allocator
 # ---------------------------------------------------------------------------
 

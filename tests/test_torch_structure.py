@@ -120,9 +120,78 @@ def test_serve_rehearses_mixed_sampling_on_cpu():
         serve.main(["--reduced", "--device", "cpu", "--mixed-sampling"])
 
 
+def test_serve_rehearses_cache_swap_and_adaptive_k_on_cpu():
+    """The serving policies' flags: shared-prefix traffic in two groups hits
+    the prefix cache, the small pool preempts to the host, and the
+    controller reports; every request reaches its budget."""
+    r = serve.main(["--reduced", "--device", "cpu", "--batch", "3",
+                    "--requests", "8", "--mean-gap", "1", "--prompt-len",
+                    "16", "--max-new", "10", "--max-len", "96",
+                    "--kv-layout", "paged", "--page-size", "8",
+                    "--pool-pages", "14", "--runs", "1", "--shared-prefix",
+                    "24", "--prefix-groups", "2", "--prefix-cache", "--swap",
+                    "host", "--adaptive-k"])
+    assert r["new_tokens"] == 80 and r["cache_hit_requests"] >= 6
+    assert r["preempt_swap"] > 0 and r["host_pool_peak_bytes"] > 0
+    assert r["speculation"]["requests"] == 8
+    with pytest.raises(SystemExit):
+        serve.main(["--reduced", "--device", "cpu", "--prefix-groups", "0"])
+
+
+def test_shared_prefix_requests_layout():
+    reqs = serve.shared_prefix_requests(64, 6, 20, 3, (4, 9), (5, 7), 1.0,
+                                        seed=0, repeats=2)
+    assert len(reqs) == 8
+    for i, r in enumerate(reqs[:6]):
+        assert np.array_equal(r.prompt[:20], reqs[i % 3].prompt[:20])
+        assert 24 <= r.prompt.size <= 29 and 5 <= r.max_new_tokens <= 7
+    assert not np.array_equal(reqs[0].prompt[:20], reqs[1].prompt[:20])
+    for r, twin in zip(reqs[6:], reqs[4:6]):        # the last two, again
+        assert np.array_equal(r.prompt, twin.prompt)
+        assert r.max_new_tokens == twin.max_new_tokens
+    times = [r.arrival_time for r in reqs]
+    assert times == sorted(times) and max(r.prompt.max() for r in reqs) < 63
+
+
 def test_random_prompts_avoid_mask_token():
     p = serve.random_prompts(16, 4, 64, seed=0)
     assert p.dtype == np.int32 and p.max() < 15
+
+
+def test_serving_policy_modules_load_without_jax():
+    """The prefix cache, the speculation controller and the scheduler that
+    drives them (and all they import) load with ``jax`` and ``repro`` made
+    unimportable."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = "
+            "None; import repro_torch.serving.prefix_cache, "
+            "repro_torch.serving.speculation, repro_torch.serving.scheduler")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": str(ROOT / "src")}, cwd=ROOT)
+    for rel in ("prefix_cache.py", "speculation.py"):
+        assert ROOT / "src" / "repro_torch" / "serving" / rel in PORT_FILES
+
+
+def test_chip_smoke_kernels_line_lists_every_kernel():
+    """``chip_smoke.py``'s kernels line (built in ``run_phases``) names all
+    four kernels with their sources and the TPU kernels they replace."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "run_phases")
+    consts = {c.value for c in ast.walk(fn)
+              if isinstance(c, ast.Constant) and isinstance(c.value, str)}
+    for name, tpu in (("decode_attention", "decode_attention.py:73"),
+                      ("paged_decode_attention", "decode_attention.py:165"),
+                      ("flash_attention", "flash_attention.py:79"),
+                      ("mtp_attention", "mtp_attention.py:77")):
+        assert name in consts, name
+        assert f"src/repro/kernels/{tpu}" in consts, tpu
+    assert "src/repro_torch/kernels/csrc/mtp_attention.cu" in consts
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in consts, key
 
 
 def test_prng_and_policy_modules_load_without_jax():
@@ -149,6 +218,8 @@ _SAMPLING_PATHS = {
     "serving/engine.py": None,
     "serving/scheduler.py": None,
     "serving/cache_ops.py": None,
+    "serving/prefix_cache.py": None,
+    "serving/speculation.py": None,
     "core/spec_decode.py": None,
     "core/drafter.py": ("_hidden_inputs", "mtp_forward", "extend", "_draw",
                         "draft_block_inputs", "draft_parallel", "draft_ar"),
