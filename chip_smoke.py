@@ -4,8 +4,10 @@ kernels from the sources in this checkout, holds each against its plain
 PyTorch version, serves the full-width qwen2-1.5b with the 4-layer
 parallel drafter through the kernels (whole batch, and continuous batching
 over the paged KV layout), checks greedy losslessness, serves sampled
-requests (seeded rejection verification) and checks their streams, and
-trains the full-width drafter (whole-sequence and Algorithm-1 segmented)
+requests (seeded rejection verification) and checks their streams,
+streams requests through the wall-clock front end (AsyncEngine, the NDJSON
+server) and runs LLMEngine and the round-based baseline, and trains the
+full-width drafter (whole-sequence and Algorithm-1 segmented)
 through the MTP kernel.
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
@@ -123,6 +125,28 @@ Phases, in order; any failure exits non-zero:
    between the two (a greedy one may part only at a top-2 gap < 1e-3 of
    the off run, a sampled one after a margin < 1e-4), and the sampled one
    equal to itself served alone;
+3e / 4d. the serving front end: phase 3b's engine geometry (bfloat16,
+   swap to a 1 GiB pinned host pool) under AsyncEngine, the first 16 of
+   phase 3b's requests (odd ones sampled, seed = index) submitted at wall-clock
+   Exp(0.075 s) gaps, seed 0, twice: as they come, then with every fourth
+   request aborted after its first chunk; each pass reports wall OTPS
+   beside phase 3b's, TTFT p50/p99 (submit() to the first streamed token),
+   the per-request mean inter-token gap p50/p99, health()'s p50/p99 wait,
+   the peak queue depth and the abort turnaround (abort() to the next
+   admission, when a request waited), and checks the launch formula of
+   phase 3b, the streamed tokens against the report's, survivors at their
+   budgets, aborted requests stopped after their first chunk, a monotone
+   event trace, and the allocator and host pool empty after close(); then
+   LLMEngine.generate of requests 0-7 with their budgets in a mixed list
+   of SamplingParams (prompt order, budgets), and serve_round_based of
+   phase 3b's prompts cut to their shortest length, 256 tokens, and
+   budgets on a contiguous twin (OTPS and rounds beside phase 3b's, 28
+   flash launches a round); then float32 (phase 4's prompts, greedy and
+   again sampled, a 30-page pool that preempts): the streamed run with one
+   mid-stream abort against virtual_twin_report on the same engine under
+   the near-tie rules, and the NDJSON server on 127.0.0.1 (the demo
+   client, generate / abort / health, a dropped connection aborting its
+   requests, the pool empty after);
 5. training at full width: qwen2-1.5b bfloat16 target (seeded weights), the
    4-layer full-width drafter in float32, markov_corpus, batch 1, through
    Trainer.train_batch: (a) 3 whole-sequence steps at n 2048 (M 8522) and
@@ -139,6 +163,7 @@ line the result.
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
 import math
@@ -1849,6 +1874,403 @@ def policy_losslessness(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e / 4d: the serving front end (AsyncEngine, LLMEngine, the
+# round-based baseline, the NDJSON server)
+# ---------------------------------------------------------------------------
+
+# phase 3e's wall-clock arrivals: Exp gaps of this mean in seconds, seed 0
+# (about one phase-3b iteration on the card)
+STREAM_MEAN_GAP_S = 0.075
+# the second streamed pass aborts every fourth request after its first chunk
+ABORT_EVERY = 4
+# the streamed passes serve the first 16 of phase 3b's 24 requests, so the
+# phase adds ~110 s, not ~135 s, to the run
+STREAM_REQUESTS = 16
+# a round stacks equal-length prompts: phase 3b's prompts, cut to the
+# shortest of their lengths, for the round-based baseline
+ROUND_PROMPT_LEN = 256
+# phase 4d's one mid-stream abort
+STREAM_ABORTED = 5
+
+
+def sched3b_traffic(vocab):
+    """Phase 3b's 24 prompts (256-640 tokens) and budgets (64-192), seed 0;
+    its virtual arrivals are drawn and dropped to keep the stream."""
+    rng = np.random.default_rng(0)
+    N = 24
+    lens = rng.integers(256, 641, N)
+    budgets = rng.integers(64, 193, N)
+    rng.exponential(1.0, N)
+    prompts = [rng.integers(0, vocab - 1, n).astype(np.int32) for n in lens]
+    return prompts, [int(b) for b in budgets]
+
+
+def pct(xs, p):
+    return float(np.percentile(xs, p)) if len(xs) else None
+
+
+async def stream_pass(eng, prompts, budgets, policies, arrive, abort_every=0):
+    """One AsyncEngine session: request i submitted ``arrive[i]`` seconds
+    after the session opens; with ``abort_every``, request i with i %
+    abort_every == abort_every - 1 aborted after its first chunk. Returns
+    the per-request records, the last health() before close, the peak
+    queue depth a monitor saw, and the report."""
+    from repro_torch.serving.streaming import AsyncEngine
+    aeng = AsyncEngine(eng)
+    await aeng.start()
+    t0 = time.perf_counter()
+    peak_queue, stop = [0], asyncio.Event()
+
+    async def monitor():
+        while not stop.is_set():
+            peak_queue[0] = max(peak_queue[0], aeng.health()["queue_depth"])
+            await asyncio.sleep(0.002)
+
+    async def one(i):
+        await asyncio.sleep(max(0.0, arrive[i] - (time.perf_counter() - t0)))
+        t_sub = time.perf_counter()
+        h = await aeng.submit(prompts[i], policies[i],
+                              max_new_tokens=budgets[i])
+        rec = {"i": i, "rid": h.rid, "t_submit": t_sub, "times": [],
+               "tokens": [], "t_abort": None, "queue_at_abort": None}
+        async for tok, _ in h:
+            rec["times"].append(time.perf_counter())
+            rec["tokens"].append(tok)
+            if (abort_every and i % abort_every == abort_every - 1
+                    and rec["t_abort"] is None):
+                rec["queue_at_abort"] = aeng.health()["queue_depth"]
+                rec["t_abort"] = time.perf_counter()
+                if not h.abort():
+                    fail(f"request {i}: abort() after its first chunk "
+                         f"returned False")
+        rec["aborted"] = h.aborted
+        return rec
+
+    mon = asyncio.get_running_loop().create_task(monitor())
+    recs = await asyncio.gather(*(one(i) for i in range(len(prompts))))
+    health = aeng.health()
+    stop.set()
+    await mon
+    rep = await aeng.close()
+    rep["_t_start"] = aeng.scheduler._t_start
+    return recs, health, peak_queue[0], rep
+
+
+def stream_metrics(recs, rep):
+    """TTFT (submit() to the first streamed token), each request's mean
+    inter-token gap ((last - first) / (n - 1)), and each abort's
+    turnaround (abort() to the next admission event, when a request was
+    waiting), in ms."""
+    ttft = [(r["times"][0] - r["t_submit"]) * 1e3 for r in recs if r["times"]]
+    gaps = [(r["times"][-1] - r["times"][0]) / (len(r["times"]) - 1) * 1e3
+            for r in recs if len(r["times"]) > 1 and not r["aborted"]]
+    admits = sorted(t + rep["_t_start"] for t, kind, _ in rep["events"]
+                    if kind in ("admit", "swap_in"))
+    turn = []
+    for r in recs:
+        if r["t_abort"] is not None and r["queue_at_abort"]:
+            later = [t for t in admits if t >= r["t_abort"]]
+            if later:
+                turn.append((later[0] - r["t_abort"]) * 1e3)
+    return {"ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
+            "inter_token_ms_p50": pct(gaps, 50),
+            "inter_token_ms_p99": pct(gaps, 99),
+            "abort_turnaround_ms_p50": pct(turn, 50),
+            "abort_turnaround_ms_max": max(turn) if turn else None,
+            "aborts_with_a_waiter": len(turn)}
+
+
+def streaming_path(ops, dev, sched3b):
+    """Phase 3e: the front end at full width, bfloat16, under wall-clock
+    arrivals: two AsyncEngine passes (the second with aborts),
+    LLMEngine.generate and the round-based baseline."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import (LLMEngine, Request, Scheduler,
+                                               serve_round_based)
+    B, K, POOL = 8, 5, 256
+    log(f"phase 3e: AsyncEngine, full-width qwen2-1.5b bfloat16, parallel K "
+        f"{K}, batch {B}, paged: page 16, pool {POOL} pages, swap to a "
+        f"{HOST_POOL_BYTES} B host pool; the first {STREAM_REQUESTS} of phase "
+        f"3b's requests, odd ones sampled ({SAMPLED}, seed = index), "
+        f"submitted at wall-clock Exp gaps of mean {STREAM_MEAN_GAP_S} s, "
+        f"seed 0")
+    eng = build_engine(mode="parallel", K=K, max_new=192, max_len=1024,
+                       batch=B, seed=0, device=dev, kv_layout="paged",
+                       page_size=16, pool_pages=POOL, swap="host",
+                       host_pool_bytes=HOST_POOL_BYTES)
+    cfg, V, n_d = eng.tcfg, eng.tcfg.vocab_size, eng.dcfg.n_layers
+    prompts, budgets = sched3b_traffic(V)
+    N = STREAM_REQUESTS
+    policies = [None if i % 2 == 0 else SamplingParams(seed=i, **SAMPLED)
+                for i in range(N)]
+    arrive = np.cumsum(np.random.default_rng(0).exponential(
+        STREAM_MEAN_GAP_S, N))
+    # cold run: 8 requests, 8-token budgets, one sampled
+    Scheduler(eng).serve([Request(p, max_new_tokens=8, sampling=sp)
+                          for p, sp in zip(prompts[:8], policies[:8])])
+    torch.cuda.synchronize()
+    out = {}
+    for name, every in (("stream", 0), ("stream_aborts", ABORT_EVERY)):
+        eng.reset_stats()
+        ops.reset_launches()
+        recs, health, peak_q, rep = asyncio.run(asyncio.wait_for(
+            stream_pass(eng, prompts[:N], budgets[:N], policies, arrive,
+                        every), 300))
+        counts = dict(ops.launches)
+        it = rep["iterations"]
+        kinds = [e[1] for e in rep["events"]]
+        admissions = kinds.count("admit")
+        m = stream_metrics(recs, rep)
+        row = {"otps": rep["otps"], "wall_s": rep["wall_s"],
+               "iterations": it, "ms_per_iteration": rep["wall_s"] / it * 1e3,
+               "total_new_tokens": rep["total_new_tokens"],
+               "preemptions": rep["preemptions"],
+               "preempt_swap": rep["preempt_swap"],
+               "aborted": rep["aborted"], "admissions": admissions,
+               "health_p50_wait_s": health["p50_wait_s"],
+               "health_p99_wait_s": health["p99_wait_s"],
+               "peak_queue_depth": peak_q, "peak_pages": rep["peak_pages"],
+               "launches": counts, **m}
+        out[name] = row
+        log(f"  {name}: wall otps {row['otps']:.1f} tok/s over "
+            f"{row['wall_s']:.3f} s ({row['ms_per_iteration']:.2f} "
+            f"ms/iteration over {it}; phase 3b virtual arrivals: "
+            f"{sched3b['otps']:.1f} tok/s, {sched3b['ms_per_iteration']:.2f} "
+            f"ms/iteration), TTFT p50/p99 {m['ttft_ms_p50']:.1f}/"
+            f"{m['ttft_ms_p99']:.1f} ms, inter-token gap p50/p99 "
+            f"{m['inter_token_ms_p50']:.2f}/{m['inter_token_ms_p99']:.2f} ms, "
+            f"health wait p50/p99 {health['p50_wait_s'] * 1e3:.1f}/"
+            f"{health['p99_wait_s'] * 1e3:.1f} ms, peak queue depth "
+            f"{peak_q}, preemptions {rep['preemptions']} (swap "
+            f"{rep['preempt_swap']}), aborted {rep['aborted']}, abort "
+            f"turnaround p50/max {m['abort_turnaround_ms_p50']}/"
+            f"{m['abort_turnaround_ms_max']} ms over "
+            f"{m['aborts_with_a_waiter']} aborts with a waiter")
+        log(f"  launches: {counts}")
+        want = sched_launches_want(cfg, n_d, it, admissions)
+        if counts != want:
+            fail(f"phase 3e {name}: launch counts {counts} != expected {want}"
+                 f" ({it} iterations, {admissions} admissions)")
+        times = [t for t, _, _ in rep["events"]]
+        if times != sorted(times):
+            fail(f"phase 3e {name}: the event trace is not monotone")
+        for r, res in zip(recs, sorted(rep["results"],
+                                       key=lambda x: x["rid"])):
+            b = budgets[r["i"]]
+            if res["rid"] != r["rid"] or res["tokens"].tolist() != r["tokens"]:
+                fail(f"phase 3e {name}: request {r['i']} streamed tokens "
+                     f"other than its report's")
+            if r["aborted"]:
+                # stopped at once: nothing after the chunk that carried
+                # the first token
+                if not 0 < len(r["tokens"]) < b or res["n_new"] != len(
+                        r["tokens"]):
+                    fail(f"phase 3e {name}: aborted request {r['i']} has "
+                         f"{len(r['tokens'])} tokens (budget {b})")
+            elif len(r["tokens"]) != b or min(r["tokens"]) < 0 \
+                    or max(r["tokens"]) >= V:
+                fail(f"phase 3e {name}: request {r['i']} streamed "
+                     f"{len(r['tokens'])} tokens, budget {b}")
+        want_aborts = N // ABORT_EVERY if every else 0
+        if rep["aborted"] != want_aborts:
+            fail(f"phase 3e {name}: {rep['aborted']} aborted, want "
+                 f"{want_aborts}")
+        if (eng.allocator.n_used or any(eng._slot_pages)
+                or len(eng.host_pool) or eng.host_pool.used_bytes):
+            fail(f"phase 3e {name}: the allocator ({eng.allocator.n_used} "
+                 f"pages) or the host pool ({eng.host_pool.used_bytes} B) is "
+                 f"not empty after close")
+
+    log(f"  LLMEngine.generate of requests 0-7, their budgets, odd ones "
+        f"sampled")
+    sps = [SamplingParams(seed=i, max_new_tokens=budgets[i],
+                          **(SAMPLED if i % 2 else {}))
+           for i in range(8)]
+    llm = LLMEngine(eng)
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts[:8], sps)
+    gen_s = time.perf_counter() - t0
+    rids = [o["rid"] for o in outs]
+    if rids != sorted(rids) or [o["n_new"] for o in outs] != budgets[:8]:
+        fail(f"LLMEngine.generate: rids {rids}, n_new "
+             f"{[o['n_new'] for o in outs]} for budgets {budgets[:8]}")
+    out["llm_engine"] = {"wall_s": gen_s,
+                         "otps": llm.last_report["otps"],
+                         "iterations": llm.last_report["iterations"]}
+    log(f"    prompt order and budgets kept; {gen_s:.3f} s, otps "
+        f"{llm.last_report['otps']:.1f} tok/s")
+
+    cut = [p[:ROUND_PROMPT_LEN] for p in prompts]
+    rb_eng = Engine(cfg, eng.dcfg, eng.tparams, eng.dparams,
+                    dataclasses.replace(eng.ecfg, kv_layout="contiguous",
+                                        swap="none", host_pool_bytes=0),
+                    B, device=dev)
+    del eng, llm
+    torch.cuda.empty_cache()
+    log(f"  serve_round_based: phase 3b's 24 prompts cut to "
+        f"{ROUND_PROMPT_LEN} tokens, their budgets, contiguous, batch {B}")
+    ops.reset_launches()
+    rb = serve_round_based(rb_eng, cut, budgets)
+    counts = dict(ops.launches)
+    if (counts["flash_attention"] != rb["rounds"] * cfg.n_layers
+            or counts["paged_decode_attention"]):
+        fail(f"round-based launches {counts}: want {cfg.n_layers} flash a "
+             f"round over {rb['rounds']} rounds, no paged")
+    if rb["total_new_tokens"] != sum(budgets) or rb["rounds"] != 3:
+        fail(f"round-based: {rb['total_new_tokens']} tokens in "
+             f"{rb['rounds']} rounds, want {sum(budgets)} in 3")
+    out["round_based"] = dict(rb, launches=counts)
+    log(f"    otps {rb['otps']:.1f} tok/s, {rb['rounds']} rounds, "
+        f"{rb['wall_s']:.3f} s, AL {rb['mean_acceptance_length']:.4f} "
+        f"(continuous, phase 3b: {sched3b['otps']:.1f} tok/s; streamed: "
+        f"{out['stream']['otps']:.1f} tok/s); launches {counts}")
+    del rb_eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def streaming_losslessness(dev, greedy_ref):
+    """Phase 4d: float32 full width on phase 4's prompts: the streamed path
+    with one mid-stream abort against the virtual twin on the same engine,
+    under the near-tie rules; then the NDJSON server on 127.0.0.1."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.launch.serve_stream import (_demo_client,
+                                                 start_stream_server)
+    from repro_torch.serving.margins import MarginLog
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.streaming import AsyncEngine, virtual_twin_report
+    B, NEW, K, MAX_LEN, POOL = 4, 32, 5, 256, 30
+    prompts = greedy_ref["prompts"]
+    log(f"phase 4d: AsyncEngine against virtual_twin_report, float32 full "
+        f"width, paged (pool {POOL} pages of 16), batch {B}, phase 4's "
+        f"{len(prompts)} prompts greedy and again sampled ({SAMPLED}, seed "
+        f"20 + i), {NEW} new tokens; request {STREAM_ABORTED} aborted after "
+        f"its first chunk")
+    eng = build_engine(mode="parallel", dtype="float32", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev,
+                       kv_layout="paged", page_size=16, pool_pages=POOL)
+    n = len(prompts)
+    work = [(p, None, NEW) for p in prompts] + [
+        (p, SamplingParams(seed=20 + i, **SAMPLED), NEW)
+        for i, p in enumerate(prompts)]
+    reqs = [Request(p, sampling=sp, max_new_tokens=b, rid=i)
+            for i, (p, sp, b) in enumerate(work)]
+
+    async def streamed():
+        aeng = AsyncEngine(eng)
+        handles = [await aeng.submit(p, sp, max_new_tokens=b)
+                   for p, sp, b in work]
+
+        async def drain(i, h):
+            toks = []
+            async for tok, _ in h:
+                toks.append(tok)
+                if i == STREAM_ABORTED and not h.done:
+                    h.abort()
+            return toks, h.aborted
+        got = await asyncio.gather(*(drain(i, h)
+                                     for i, h in enumerate(handles)))
+        return got, await aeng.close()
+
+    with MarginLog() as margins:
+        twin = virtual_twin_report(eng, work)
+        got, rep = asyncio.run(asyncio.wait_for(streamed(), 300))
+    if eng.allocator.n_used or not rep["aborted"] == 1:
+        fail(f"phase 4d: {eng.allocator.n_used} pages left, "
+             f"{rep['aborted']} aborted")
+    parted = 0
+    for i, ((toks, aborted), want) in enumerate(zip(got, twin["results"])):
+        want = want["tokens"]
+        if aborted != (i == STREAM_ABORTED):
+            fail(f"phase 4d: request {i} aborted {aborted}")
+        if aborted:
+            if not 0 < len(toks) < NEW:
+                fail(f"phase 4d: the aborted stream has {len(toks)} tokens")
+            want = want[:len(toks)]
+        parted += streams_agree("streamed vs twin", eng, margins, reqs[i],
+                                np.asarray(toks, np.int32), want) is not None
+    log(f"  streams equal to the twin ({twin['iterations']} iterations, "
+        f"preemptions {twin['preemptions']} twin / {rep['preemptions']} "
+        f"streamed); the aborted one a prefix of its twin; {parted} parted "
+        f"at a near-tie")
+
+    async def socket_checks():
+        aeng = AsyncEngine(eng)
+        server = await start_stream_server(aeng, "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        await _demo_client("127.0.0.1", port, 2, 8, 128, 0.8, 1)
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+
+        def send(obj):
+            writer.write((json.dumps(obj) + "\n").encode())
+        g = {"op": "generate", "prompt": prompts[0].tolist(),
+             "max_new_tokens": NEW}
+        send(dict(g, id="g"))
+        send(dict(g, id="s", prompt=prompts[1].tolist(), seed=21, **SAMPLED))
+        send(dict(g, id="a", prompt=prompts[2].tolist()))
+        send({"op": "abort", "id": "a"})
+        send({"op": "health"})
+        await writer.drain()
+        toks, done, health = {}, {}, None
+        while len(done) < 3 or health is None:
+            msg = json.loads(await reader.readline())
+            if msg.get("event") == "tokens":
+                toks.setdefault(msg["id"], []).extend(msg["tokens"])
+            elif msg.get("event") == "done":
+                done[msg["id"]] = msg
+            elif msg.get("event") == "health":
+                health = msg
+            elif msg.get("event") == "error":
+                fail(f"NDJSON error event {msg}")
+        writer.close()
+        # a dropped connection: more requests than slots, closed after the
+        # first tokens event, so some are still queued when it drops
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        for i in range(2 * B):
+            send(dict(g, id=f"d{i}", prompt=prompts[i % n].tolist()))
+        await writer.drain()
+        await reader.readline()
+        writer.close()
+        for _ in range(3000):
+            if aeng.health()["inflight"] == 0:
+                break
+            await asyncio.sleep(0.01)
+        server.close()
+        await server.wait_closed()
+        return toks, done, health, await aeng.close()
+
+    with MarginLog() as margins:
+        toks, done, health, rep = asyncio.run(asyncio.wait_for(
+            socket_checks(), 300))
+    if not (done["a"]["aborted"] and not done["g"]["aborted"]
+            and done["g"]["n_new"] == NEW and done["s"]["n_new"] == NEW):
+        fail(f"NDJSON done events {done}")
+    for cid, i in (("g", 0), ("s", n + 1)):
+        parted += streams_agree(f"NDJSON {cid} vs twin", eng, margins,
+                                reqs[i], np.asarray(toks[cid], np.int32),
+                                twin["results"][i]["tokens"]) is not None
+    if not rep["aborted"] >= 2 or eng.allocator.n_used:
+        fail(f"NDJSON: {rep['aborted']} aborted (the abort op and the "
+             f"dropped connection), {eng.allocator.n_used} pages left")
+    log(f"  NDJSON on 127.0.0.1: the demo client, generate / abort / health "
+        f"round trip (streams equal to the twin, health "
+        f"{ {k: health[k] for k in ('slots', 'pool_pages', 'inflight')} }), "
+        f"a dropped connection aborted its requests ({rep['aborted']} "
+        f"aborted in the session), the pool empty")
+    out = {"iterations": twin["iterations"], "parted_at_near_tie": parted,
+           "twin_preemptions": twin["preemptions"],
+           "streamed_preemptions": rep["preemptions"],
+           "socket_aborted": rep["aborted"]}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
 
@@ -2076,6 +2498,8 @@ def run_phases(ops, dev) -> list:
     sampled = sampled_path(ops, dev, path, sched, greedy_ref)
     policies = policy_path(ops, dev, sched)
     policies["losslessness"] = policy_losslessness(dev)
+    front = streaming_path(ops, dev, sched)
+    front["losslessness"] = streaming_losslessness(dev, greedy_ref)
     train = training_path(ops, dev)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -2121,6 +2545,7 @@ def run_phases(ops, dev) -> list:
     log(f"scheduler serving: {json.dumps(sched)}")
     log(f"sampled serving: {json.dumps(sampled)}")
     log(f"policies: {json.dumps(policies)}")
+    log(f"front end: {json.dumps(front)}")
     log("decode_attention timing: " + json.dumps(
         {key[1]: v for key, v in measured.items()
          if key[0] == "decode_attention"}))

@@ -17,6 +17,10 @@ request's draft length from its own acceptance (all three paged only).
 ``--shared-prefix N --prefix-groups G`` makes shared-prefix traffic:
 request i opens with the N-token system prompt of group i mod G, followed
 by its own suffix of ``--prompt-len / 16`` to ``--prompt-len`` tokens.
+``--round-based`` also serves the same prompts and budgets with the
+round-based baseline (``serve_round_based``: whole rounds of ``--batch``
+prompts, on a contiguous engine sharing the weights, under the engine's
+default policy) and reports its OTPS, rounds and AL beside the scheduler's.
 
 The target is full-width qwen2-1.5b in bfloat16 with a 4-layer parallel
 drafter, both with random weights drawn from ``--seed``; prompts are random
@@ -36,10 +40,13 @@ repeated and the last (warm) run is reported.
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 \
         --mean-gap 1 --pool-pages 256 --shared-prefix 320 --prefix-groups 3 \
         --prompt-len 256 --prefix-cache --swap host --adaptive-k
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 \
+        --mean-gap 1 --round-based       # continuous against round-based
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
@@ -50,7 +57,8 @@ from repro_torch.core import drafter as D
 from repro_torch.models.registry import get_model
 from repro_torch.serving.engine import Engine, EngineConfig, resolve_device
 from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.scheduler import (Request, Scheduler,
+                                           serve_round_based)
 
 
 def build_engine(*, reduced=False, dtype=None, mode="parallel", K=5,
@@ -203,11 +211,17 @@ def main(argv=None):
                          "requests (0: independent random prompts)")
     ap.add_argument("--prefix-groups", type=int, default=1,
                     help="groups of --shared-prefix traffic")
+    ap.add_argument("--round-based", action="store_true",
+                    help="also serve the same prompts and budgets with the "
+                         "round-based baseline")
     args = ap.parse_args(argv)
     if args.mixed_sampling and args.temperature <= 0:
         ap.error("--mixed-sampling needs --temperature > 0")
     if args.prefix_groups < 1:
         ap.error("--prefix-groups must be at least 1")
+    if args.round_based and args.shared_prefix > 0:
+        ap.error("--round-based stacks equal-length prompts: not with "
+                 "--shared-prefix")
 
     dev = resolve_device(args.device)
     layout = args.kv_layout or ("paged" if dev.type == "cuda"
@@ -265,6 +279,24 @@ def main(argv=None):
         "p99_latency_vt": r["p99_latency_vt"],
         "makespan_vt": r["makespan_vt"], "wall_s": r["wall_s"],
     }
+    if args.round_based:
+        # one contiguous state a round: a paged engine's weights are shared
+        # by a contiguous twin
+        rb_eng = eng if not eng.paged else Engine(
+            eng.tcfg, eng.dcfg, eng.tparams, eng.dparams,
+            dataclasses.replace(eng.ecfg, kv_layout="contiguous",
+                                prefix_cache=False, swap="none"),
+            eng.batch, device=dev)
+        reqs = requests()
+        for _ in range(args.runs):
+            rb = serve_round_based(rb_eng, [q.prompt for q in reqs],
+                                   [q.max_new_tokens for q in reqs])
+        report["round_based"] = {
+            "otps": rb["otps"], "rounds": rb["rounds"],
+            "acceptance_length": rb["mean_acceptance_length"],
+            "new_tokens": rb["total_new_tokens"], "wall_s": rb["wall_s"]}
+        report["continuous_over_round_based"] = (
+            r["otps"] / max(rb["otps"], 1e-9))
     print(json.dumps(report))
     return report
 

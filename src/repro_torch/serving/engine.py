@@ -761,17 +761,33 @@ class Engine:
         ``final_tokens``, with a prefix cache: the request's committed
         stream (prompt + emitted tokens), whose verifiable full pages are
         indexed before the release, so a later request sharing the prefix,
-        or this one's resume, admits against them."""
+        or this one's resume, admits against them. It is ``free_pages``
+        (host state) then ``release_slot`` (the state's rows)."""
+        self.free_pages(slot, final_tokens)
+        return self.release_slot(state, slot)
+
+    def free_pages(self, slot: int, final_tokens=None) -> None:
+        """The host half of ``free_slot``: index ``final_tokens``' full
+        pages (with a prefix cache) and drop the slot's page references.
+        The slot's rows keep naming those pages until ``release_slot``,
+        which must come before the next step or admission."""
         self._slot_sampled[slot] = False
         if not self.paged:
-            return cache_ops.reset_slot(
-                state, slot, fills={"new_count": self.ecfg.max_new_tokens})
+            return
         pages = self._slot_pages[slot]
         if final_tokens is not None and pages and self.prefix_cache is not None:
             self.prefix_cache.insert_stream(
                 np.asarray(final_tokens, np.int32).reshape(-1), pages,
                 self.allocator)
         self.allocator.free(pages)
+        self._slot_pages[slot] = []
+
+    def release_slot(self, state: dict, slot: int) -> dict:
+        """The state half of ``free_slot``: blank the slot's rows, in place,
+        and refreeze it; paged, its table row becomes -1."""
+        if not self.paged:
+            return cache_ops.reset_slot(
+                state, slot, fills={"new_count": self.ecfg.max_new_tokens})
         return self._release_slot(state, slot)
 
     def _release_slot(self, state: dict, slot: int) -> dict:

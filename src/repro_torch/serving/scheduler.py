@@ -1,10 +1,9 @@
 """Continuous-batching scheduler over the engine's slots (PyTorch).
 
-Counterpart of the JAX package's ``serving/scheduler.py`` (``Request`` and
-``Scheduler.serve``, the virtual-clock loop, with the prefix cache's
-admission, swap-to-host preemption and the adaptive-K controller), without
-what the port does not carry yet: the wall-clock streaming front end and
-``LLMEngine``. Each request carries its own decoding policy
+Counterpart of the JAX package's ``serving/scheduler.py``: ``Request``, the
+``Scheduler`` with the prefix cache's admission, swap-to-host preemption and
+the adaptive-K controller, the ``LLMEngine`` front end and the round-based
+baseline ``serve_round_based``. Each request carries its own decoding policy
 (``serving/sampling.SamplingParams``), so one batch mixes greedy and
 sampled requests.
 
@@ -14,6 +13,15 @@ Request lifecycle::
        ^                                        |
        +------ preempted (pages freed, tokens kept host-side) <---+
 
+    (any state before FINISHED) --abort--> ABORTED   [streaming driver:
+    pages freed at once, the output so far kept host-side]
+
+The loop core (admit -> grow -> dispatch -> harvest) is a set of Scheduler
+methods shared by two drivers: the virtual-clock ``serve()`` below and the
+wall-clock ``serving/streaming.AsyncEngine``, which streams each request's
+final tokens as its syncs commit. They differ only in who advances the
+clock (``_advance``) and who reads the emit buffer (``_flush``).
+
 The engine's decode state is a fixed batch of B slots, every iteration
 steps all B under a per-slot active mask. A finished request frees its slot
 at once and the next eligible request is prefilled straight into the live
@@ -21,8 +29,8 @@ batch (``Engine.prefill_into_slot``). Rows are independent through
 attention, caches and verification, so admitting into slot i never changes
 what slot j emits.
 
-The clock is virtual: every dispatched iteration advances it by
-``iter_cost``, every admission prefill by ``prefill_cost``, and with
+Under ``serve()`` the clock is virtual: every dispatched iteration advances
+it by ``iter_cost``, every admission prefill by ``prefill_cost``, and with
 nothing live it jumps to the next arrival. No request is admitted before
 its arrival; admission is FIFO by (arrival_time, submission order) with
 head-of-line blocking. The clock is derived from step counts, so traces
@@ -72,6 +80,7 @@ QUEUED = "queued"
 PREFILLING = "prefilling"
 DECODING = "decoding"
 FINISHED = "finished"
+ABORTED = "aborted"
 
 _rid_counter = itertools.count()
 
@@ -83,7 +92,8 @@ class Request:
     ``sampling`` is its decoding policy (None: the engine's
     ``ecfg.sampling``). The budget is ``max_new_tokens``, else
     ``sampling.max_new_tokens``, else the engine's default.
-    ``arrival_time`` is in virtual time units."""
+    ``arrival_time`` is in virtual time units (wall seconds since the
+    session opened, under the streaming driver)."""
     prompt: Any
     max_new_tokens: Optional[int] = None
     arrival_time: float = 0.0
@@ -113,6 +123,7 @@ class Request:
     _prefills: int = 0             # prefill-committed tokens (1 + resumes)
     _seq: int = 0                  # submission index (FIFO tie-break)
     _scanned: int = 0              # out_tokens prefix already stop-scanned
+    _emitted: int = 0              # out_tokens prefix already streamed out
     _stop_set: frozenset = frozenset()   # eos + stop ids, set at submission
 
     def __post_init__(self):
@@ -133,8 +144,10 @@ class Scheduler:
     """Continuous-batching loop over an Engine's B slots.
 
     ``eos_id``: the token that ends every request, beside each request's
-    own stop tokens (its output is trimmed after the first); a finished
-    slot is freed at once (paged: its pages return to the pool).
+    own stop tokens (its output is trimmed after the first).
+    ``free_on_finish``: blank a finished slot's rows at once (a paged
+    engine always frees, its pages return to the pool; an admission
+    overwrites a slot either way).
     ``sync_every``: iterations dispatched between host syncs; outputs are
     the same for any value. ``iter_cost`` / ``prefill_cost``: virtual-clock
     cost of one iteration / one admission prefill. ``preempt``: evict the
@@ -158,7 +171,7 @@ class Scheduler:
     stream. None / False keeps the fixed K."""
 
     def __init__(self, engine: Engine, eos_id: Optional[int] = None,
-                 sync_every: int = 1,
+                 free_on_finish: bool = True, sync_every: int = 1,
                  iter_cost: float = 1.0, prefill_cost: float = 1.0,
                  preempt: Optional[bool] = None, adaptive_k: Any = None,
                  swap: Optional[bool] = None,
@@ -166,6 +179,7 @@ class Scheduler:
                  prefill_cost_per_token: float = 0.0):
         self.engine = engine
         self.eos_id = eos_id
+        self.free_on_finish = free_on_finish
         self.sync_every = max(int(sync_every), 1)
         self.iter_cost = float(iter_cost)
         self.prefill_cost = float(prefill_cost)
@@ -184,7 +198,14 @@ class Scheduler:
             self.spec = SpeculationController(
                 engine.ecfg.K, adaptive_k
                 if isinstance(adaptive_k, SpeculationConfig) else None)
+        # one session at a time, opened by _begin_session: serve()'s, or a
+        # streaming.AsyncEngine's
+        self._wall_t0: Optional[float] = None
 
+    # ------------------------------------------------------------------
+    # the loop core both drivers call; session state lives on the instance
+    # from _begin_session to _end_session
+    # ------------------------------------------------------------------
     def _prio(self, r: Request) -> Tuple[float, int]:
         return (r.arrival_time, r._seq)
 
@@ -193,7 +214,7 @@ class Scheduler:
         return np.concatenate([req.prompt,
                                np.asarray(req.out_tokens, np.int32)])
 
-    def _start_serve(self) -> None:
+    def _begin_session(self) -> None:
         eng = self.engine
         B = eng.batch
         # a prefix-cache engine starts from the last session's pools
@@ -203,8 +224,10 @@ class Scheduler:
         self._k_row = np.full((B,), eng.ecfg.K, np.int32)
         self._slot_req: List[Optional[Request]] = [None] * B
         self._waiting: List[Request] = []     # arrived, sorted by _prio
-        self._finished: List[Request] = []
+        self._finished: List[Request] = []    # finished and aborted
         self._events: List[Tuple[float, str, int]] = []
+        self._emit: List[Tuple[Request, List[int], List[float]]] = []
+        self._unreleased: List[int] = []      # aborted slots, rows not reset
         self._clock = 0.0
         self._n_iters = 0
         self._n_preempt = 0
@@ -214,7 +237,17 @@ class Scheduler:
         self._recomputed_tokens = 0  # prefix tokens re-fed by resumes,
         #                              net of prefix-cache hits
         self._next_seq = 0
+        self._wall_t0 = None         # None: the virtual clock
         self._t_start = time.perf_counter()
+
+    def _advance(self, cost: float) -> None:
+        """Move the session clock past one piece of work: the virtual clock
+        adds its cost, the wall clock reads the time since the session
+        opened."""
+        if self._wall_t0 is None:
+            self._clock += cost
+        else:
+            self._clock = time.perf_counter() - self._wall_t0
 
     def _event(self, kind: str, rid: int, t: Optional[float] = None) -> None:
         """Append to the event trace, kept sorted by time: an arrival the
@@ -226,7 +259,7 @@ class Scheduler:
         else:
             self._events.append(ev)
 
-    def _prepare(self, r: Request, t_submit: float) -> None:
+    def _prepare(self, r: Request, t_submit: Optional[float] = None) -> None:
         """Validate and default-fill one request; raises before any state is
         touched."""
         eng = self.engine
@@ -250,7 +283,7 @@ class Scheduler:
             if n > eng.pool_pages:
                 raise ValueError(f"request {r.rid}: needs {n} KV pages but "
                                  f"the pool only has {eng.pool_pages}")
-        r.t_submit = t_submit
+        r.t_submit = time.perf_counter() if t_submit is None else t_submit
         r._seq = self._next_seq
         self._next_seq += 1
         stops = set(r.sampling.stop_token_ids)
@@ -258,9 +291,20 @@ class Scheduler:
             stops.add(self.eos_id)
         r._stop_set = frozenset(stops)
 
+    def _flush(self, req: Request) -> None:
+        """Queue the request's newly final tokens (those the stop / budget
+        scan passed, which no later sync trims) for the streaming driver;
+        ``serve()`` discards the buffer every pass."""
+        if len(req.out_tokens) > req._emitted:
+            self._emit.append((req, req.out_tokens[req._emitted:],
+                               req.out_logprobs[req._emitted:]))
+            req._emitted = len(req.out_tokens)
+
     def _finish_slot(self, s: int) -> None:
         req = self._slot_req[s]
         req.status = FINISHED
+        # both callers come after a blocking readback of the request's
+        # committed tokens, so the stamp marks work the device finished
         req.t_finish = time.perf_counter()
         req.vt_finish = self._clock
         self._active[s] = False
@@ -269,8 +313,46 @@ class Scheduler:
         if self.spec is not None:
             self.spec.finish(req.rid)
         self._event("finish", req.rid)
-        self._state = self.engine.free_slot(
-            self._state, s, final_tokens=self._committed_stream(req))
+        if self.free_on_finish or self.engine.paged:
+            self._state = self.engine.free_slot(
+                self._state, s, final_tokens=self._committed_stream(req))
+
+    def _abort(self, req: Request) -> bool:
+        """Cancel a request now: a queued one leaves the wait queue, a
+        running one's pages return to the pool at once (its slot's device
+        rows are reset before the next admission or step,
+        ``_release_aborted``), a swapped-out one's host snapshot is
+        dropped. Tokens harvested so far stay. False when the request had
+        already ended. Only the streaming driver cancels."""
+        if req.status in (FINISHED, ABORTED):
+            return False
+        if req.slot is not None:
+            s = req.slot
+            self._active[s] = False
+            self._slot_req[s] = None
+            self.engine.free_pages(s, final_tokens=self._committed_stream(req))
+            self._unreleased.append(s)
+        elif req in self._waiting:
+            self._waiting.remove(req)
+        # a swapped-out request holds host bytes and resident page
+        # references while it waits
+        self.engine.drop_swap(req.rid)
+        req.status = ABORTED
+        req.slot = None
+        req.t_finish = time.perf_counter()
+        req.vt_finish = self._clock
+        self._finished.append(req)
+        if self.spec is not None:
+            self.spec.finish(req.rid)
+        self._event("abort", req.rid)
+        return True
+
+    def _release_aborted(self) -> None:
+        """Reset the device rows of slots freed by ``_abort``: the dispatch
+        pass runs it, so a client's abort touches host state only."""
+        while self._unreleased:
+            self._state = self.engine.release_slot(self._state,
+                                                   self._unreleased.pop())
 
     def _swap_beats_recompute(self, req: Request, s: int) -> bool:
         """Swap when moving the snapshot's bytes both ways costs no more
@@ -306,7 +388,7 @@ class Scheduler:
         if swapped:
             req.n_swap += 1
             self._n_swap += 1
-            self._clock += self.swap_cost_per_byte * eng.swap_last_bytes
+            self._advance(self.swap_cost_per_byte * eng.swap_last_bytes)
             self._event("swap_out", req.rid)
         else:
             self._n_recompute += 1
@@ -395,7 +477,7 @@ class Scheduler:
         req.status = PREFILLING
         req.slot = s
         self._state, last = eng.swap_in_slot(self._state, s, req.rid)
-        self._clock += self.swap_cost_per_byte * eng.swap_last_bytes
+        self._advance(self.swap_cost_per_byte * eng.swap_last_bytes)
         self._event("swap_in", req.rid)
         req._prev_new, req._prev_last = 0, last
         req.status = DECODING
@@ -429,14 +511,16 @@ class Scheduler:
             self._state, prompt, s, max_new=remaining, sampling=req.sampling,
             resume=resume)
         if first_admission:
+            # after the prefill's readback of its last position, so the
+            # stamp marks a committed admission, not a queued launch
             req.t_admit = time.perf_counter()
         req.cached_tokens += eng.last_hit_tokens
         if req.n_preempt:
             # prefix positions this resume forwarded again (net of hits)
             self._recomputed_tokens += max(
                 int(prompt.size) - eng.last_hit_tokens, 0)
-        self._clock += (self.prefill_cost
-                        + self.prefill_cost_per_token * int(prompt.size))
+        self._advance(self.prefill_cost
+                      + self.prefill_cost_per_token * int(prompt.size))
         if first is None:                  # no-commit resume (sampled)
             req._prev_new, req._prev_last = 0, last
         else:
@@ -452,12 +536,15 @@ class Scheduler:
         if self.spec is not None:
             # rid-keyed: a resume continues from the state the stream had
             self._k_row[s] = self.spec.k_for(req.rid)
-        if self._clip_and_check_done(req):      # EOS at the first token
+        done = self._clip_and_check_done(req)
+        self._flush(req)
+        if done:                             # EOS at the first token
             self._finish_slot(s)
 
     def _admit_waiting(self) -> None:
         """Admit eligible requests into free slots, FIFO with head-of-line
         blocking; a head that outranks a runner preempts it for room."""
+        self._release_aborted()
         B = self.engine.batch
         while self._waiting:
             free = [s for s in range(B) if not self._active[s]
@@ -537,11 +624,13 @@ class Scheduler:
         for _ in range(self.sync_every):
             self._state = self.engine.step(self._state, act, max_new, k_row)
             self._n_iters += 1
-            self._clock += self.iter_cost
+            self._advance(self.iter_cost)
 
     def _harvest(self) -> None:
-        """One readback of the per-slot counters, tokens and logprobs; trim
-        each stream and retire the finished slots."""
+        """One readback of the per-slot counters, tokens and logprobs (it
+        blocks on every dispatched step, so later wall stamps mark committed
+        work); trim each stream, flush its final tokens to the emit buffer
+        and retire the finished slots."""
         st = self._state
         B = self.engine.batch
         packed = torch.cat([
@@ -572,16 +661,25 @@ class Scheduler:
                 self.spec.observe(req.rid, req._committed - prev_comm,
                                   req.iters - prev_iters)
                 self._k_row[s] = self.spec.k_for(req.rid)
-            if self._clip_and_check_done(req):
+            done = self._clip_and_check_done(req)
+            self._flush(req)
+            if done:
                 self._finish_slot(s)
+
+    def _end_session(self, wall: float) -> Dict[str, Any]:
+        self._release_aborted()
+        self.engine.retain_state(self._state)   # keep cached pages warm
+        return self._report(wall)
 
     def serve(self, requests: Sequence,
               max_iters: int = 100_000) -> Dict[str, Any]:
         """Run every request to completion; returns aggregate and
         per-request metrics (wall clock and virtual time). Entries may be
-        Requests or raw prompts (the engine's budget, arrival 0)."""
+        Requests or raw prompts (the engine's budget, arrival 0). The
+        virtual-clock driver of the loop core; ``streaming.AsyncEngine``
+        is its wall-clock twin, with the same streams."""
         reqs = [r if isinstance(r, Request) else Request(r) for r in requests]
-        self._start_serve()
+        self._begin_session()
         for r in reqs:
             self._prepare(r, self._t_start)
         pending = deque(sorted(reqs, key=self._prio))   # not yet arrived
@@ -608,13 +706,16 @@ class Scheduler:
                 if self._n_iters > max_iters:
                     raise RuntimeError("scheduler exceeded max_iters")
                 self._harvest()
-        wall = time.perf_counter() - self._t_start
-        self.engine.retain_state(self._state)   # keep cached pages warm
-        return self._report(wall)
+                self._emit.clear()           # nobody streams here
+            return self._end_session(time.perf_counter() - self._t_start)
 
     def _report(self, wall: float) -> Dict[str, Any]:
         """``*_s``: host wall stamps, taken after a blocking readback (so
-        they mark committed work); ``*_vt``: the virtual clock."""
+        they mark committed work); ``*_vt``: the session clock, virtual
+        under ``serve()``, wall seconds under the streaming driver.
+        Aborted requests are in ``results`` with ``aborted`` true and their
+        partial output; latency and AL aggregates cover the completed ones,
+        token totals both."""
         results = [{
             "rid": r.rid,
             "tokens": np.asarray(r.out_tokens, np.int32),
@@ -626,19 +727,22 @@ class Scheduler:
             "n_preempt": r.n_preempt,
             "n_swap": r.n_swap,
             "cached_tokens": r.cached_tokens,
-            "aborted": False,       # no abort surface without streaming
+            "aborted": r.status == ABORTED,
             "wait_s": r.t_admit - r.t_submit,
             "latency_s": r.t_finish - r.t_submit,
-            "wait_vt": r.vt_admit - r.arrival_time,
+            "wait_vt": (r.vt_admit - r.arrival_time
+                        if r.vt_admit is not None else float("nan")),
             "latency_vt": r.vt_finish - r.arrival_time,
             **({"k_final": self.spec.request_report(r.rid)["k_final"]}
                if self.spec is not None else {}),
         } for r in sorted(self._finished, key=lambda r: r.rid)]
         total = sum(r["n_new"] for r in results)
-        lat_vt = [r["latency_vt"] for r in results] or [0.0]
-        wait_vt = [r["wait_vt"] for r in results] or [0.0]
-        dec_tok = sum(r._committed - r._prefills for r in self._finished)
-        dec_it = sum(r.iters for r in self._finished)
+        done = [r for r in results if not r["aborted"]]
+        lat_vt = [r["latency_vt"] for r in done] or [0.0]
+        wait_vt = [r["wait_vt"] for r in done] or [0.0]
+        done_reqs = [r for r in self._finished if r.status == FINISHED]
+        dec_tok = sum(r._committed - r._prefills for r in done_reqs)
+        dec_it = sum(r.iters for r in done_reqs)
         hp = self.engine.host_pool            # None unless swap="host"
         return {
             "results": results,
@@ -648,14 +752,14 @@ class Scheduler:
             "wall_s": wall,
             "otps": total / max(wall, 1e-9),
             "mean_acceptance_length": float(np.mean(
-                [r["acceptance_length"] for r in results])) if results else 0.0,
+                [r["acceptance_length"] for r in done])) if done else 0.0,
             # decode-committed tokens over decode iterations: a 1-iteration
             # straggler does not weigh as much as a long stream
             "weighted_acceptance_length": dec_tok / max(dec_it, 1),
             **({"speculation": self.spec.report()}
                if self.spec is not None else {}),
             "mean_latency_s": float(np.mean(
-                [r["latency_s"] for r in results])) if results else 0.0,
+                [r["latency_s"] for r in done])) if done else 0.0,
             "makespan_vt": self._clock,
             "otps_vt": total / max(self._clock, 1e-9),
             "preemptions": self._n_preempt,
@@ -672,7 +776,7 @@ class Scheduler:
             },
             "peak_pages": (self.engine.allocator.peak_used
                            if self.engine.paged else 0),
-            "aborted": 0,
+            "aborted": len(results) - len(done),
             "cache_hit_tokens": sum(r["cached_tokens"] for r in results),
             "cache_hit_requests": sum(1 for r in results
                                       if r["cached_tokens"] > 0),
@@ -682,3 +786,93 @@ class Scheduler:
             "p99_wait_vt": float(np.percentile(wait_vt, 99)),
             "events": self._events,
         }
+
+
+class LLMEngine:
+    """Offline batch generation over Engine + Scheduler, one
+    :class:`SamplingParams` per prompt (vLLM's ``LLM.generate``).
+
+        llm = LLMEngine(engine, eos_id=2)
+        outs = llm.generate(prompts, SamplingParams(temperature=0.8, seed=7))
+        outs[0]["tokens"]            # int32 generated ids, stop-trimmed
+
+    ``generate`` takes one policy for every prompt or a list with one per
+    prompt (None: the engine's default), so one batch mixes greedy and
+    sampled requests. Results come in prompt order; the scheduler's whole
+    report of the last call is ``last_report``."""
+
+    def __init__(self, engine: Engine, eos_id: Optional[int] = None,
+                 **scheduler_kwargs):
+        self.engine = engine
+        self.scheduler = Scheduler(engine, eos_id=eos_id, **scheduler_kwargs)
+        self.last_report: Optional[Dict[str, Any]] = None
+
+    def generate(self, prompts: Sequence,
+                 sampling_params=None) -> List[Dict[str, Any]]:
+        """One result dict per prompt (``tokens``, ``n_new``,
+        ``acceptance_length``, ...), in prompt order."""
+        n = len(prompts)
+        if sampling_params is None or isinstance(sampling_params,
+                                                 SamplingParams):
+            sampling_params = [sampling_params] * n
+        if len(sampling_params) != n:
+            raise ValueError(
+                f"{len(sampling_params)} sampling_params for {n} prompts")
+        reqs = [Request(p, sampling=sp)
+                for p, sp in zip(prompts, sampling_params)]
+        order = {r.rid: i for i, r in enumerate(reqs)}
+        self.last_report = self.scheduler.serve(reqs)
+        return sorted(self.last_report["results"],
+                      key=lambda res: order[res["rid"]])
+
+
+def serve_round_based(engine: Engine, prompts: Sequence,
+                      budgets: Optional[Sequence[int]] = None,
+                      batch: Optional[int] = None) -> Dict[str, Any]:
+    """The baseline continuous batching is measured against: fixed batches
+    of ``batch`` (the engine's) equal-length prompts, the queue refilled
+    only between whole rounds, so a finished row idles until the round's
+    longest one ends. Each row freezes on the device at its own budget
+    (``budgets``, default the engine's). A short last round is padded with
+    copies of its last prompt at budget 0. A contiguous engine: the round
+    is one ``Engine.prefill`` and ``Engine.step`` calls, polled every 4
+    steps."""
+    batch = batch or engine.batch
+    default = engine.ecfg.max_new_tokens
+    queue = [np.asarray(p, np.int32) for p in prompts]
+    buds = list(budgets) if budgets is not None else [default] * len(queue)
+    toks, rounds, al_num, al_den = 0, 0, 0, 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        while queue:
+            cur, queue = queue[:batch], queue[batch:]
+            bud, buds = buds[:len(cur)], buds[len(cur):]
+            n_real = len(cur)
+            while len(cur) < batch:              # pad the last round
+                cur.append(cur[-1])
+                bud.append(0)                    # padded rows stay frozen
+            state = engine.prefill(np.stack(cur))
+            max_new = torch.as_tensor(np.maximum(bud, 1), dtype=torch.int32,
+                                      device=engine.device)
+            it = 0
+            while True:
+                state = engine.step(state, max_new=max_new)
+                it += 1
+                if it % 4 == 0 or it < 2:
+                    nc = state["new_count"].cpu().numpy()
+                    if (nc >= np.asarray(bud))[:n_real].all():
+                        break
+            # nc holds the readback that ended the loop
+            nc = nc[:n_real]
+            toks += int(np.minimum(nc, bud[:n_real]).sum())  # trim overshoot
+            al_num += int(state["committed"])
+            al_den += max(int(state["row_iters"]), 1)
+            rounds += 1
+    wall = time.perf_counter() - t0
+    return {
+        "otps": toks / max(wall, 1e-9),
+        "total_new_tokens": toks,
+        "wall_s": wall,
+        "mean_acceptance_length": al_num / max(al_den, 1),
+        "rounds": rounds,
+    }

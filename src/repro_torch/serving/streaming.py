@@ -1,0 +1,374 @@
+"""Wall-clock streaming front end over the scheduler's loop core (PyTorch).
+
+Counterpart of the JAX package's ``serving/streaming.py``. The scheduler's
+core (``_admit_waiting`` -> ``_grow`` -> ``_dispatch`` -> ``_harvest``) has
+two drivers: the deterministic virtual-clock ``Scheduler.serve`` and this
+module's :class:`AsyncEngine`, which paces the same core by real time on an
+asyncio loop and streams each request's ``(token, logprob)`` pairs out as
+its syncs commit. A request's stream is a function of its own prompt and
+policy (rows are independent, sampled keys are ``fold_in(seed,
+position)``), so a streamed run yields exactly what the virtual twin
+(:func:`virtual_twin_report`) yields for the same workload, whatever the
+arrival timing, batch composition, preemptions or aborts of other requests.
+
+Semantics:
+
+- a stream yields only final tokens: the emit buffer is filled after the
+  incremental stop / budget trim, so no yielded token is ever retracted;
+- ``abort()`` (or closing a ``generate()`` iterator early) cancels a
+  request at once: a queued one leaves the wait queue, a running one's
+  pages return to the pool (its slot's rows are reset by the dispatch task
+  before its next admission), a swapped-out one's host bytes are freed;
+- backpressure: at most ``max_pending`` requests are in flight (queued and
+  running); ``submit()`` awaits a free ticket, and a rejected submit
+  returns it;
+- ``health()`` reports queue depth, running slots, pool occupancy and wait
+  percentiles.
+
+Everything runs on one event loop. Only the dispatch task launches work on
+the device, one blocking sync at a time; ``submit``, ``abort`` and
+``health`` touch host state between its syncs. ``launch/serve_stream.py``
+puts an NDJSON socket server in front of this class.
+"""
+from __future__ import annotations
+
+import asyncio
+import bisect
+import time
+from typing import Any, AsyncIterator, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.serving.engine import Engine
+from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.scheduler import ABORTED, FINISHED, Request, Scheduler
+
+
+class StreamHandle:
+    """One streamed request: an async iterator of ``(token, logprob)``
+    pairs, and ``abort()``. Made by :meth:`AsyncEngine.submit`."""
+
+    def __init__(self, engine: "AsyncEngine", request: Request,
+                 queue: "asyncio.Queue"):
+        self._engine = engine
+        self.request = request
+        self._queue = queue
+        self._exhausted = False
+
+    @property
+    def rid(self) -> int:
+        return self.request.rid
+
+    @property
+    def done(self) -> bool:
+        """Finished or aborted: no more tokens will come."""
+        return self.request.status in (FINISHED, ABORTED)
+
+    @property
+    def aborted(self) -> bool:
+        return self.request.status == ABORTED
+
+    def abort(self) -> bool:
+        """Cancel this request (idempotent); see ``AsyncEngine.abort``."""
+        return self._engine.abort(self)
+
+    def __aiter__(self) -> "StreamHandle":
+        return self
+
+    async def __anext__(self) -> Tuple[int, float]:
+        if self._exhausted:
+            raise StopAsyncIteration
+        item = await self._queue.get()
+        if item is None:                      # finished or aborted
+            self._exhausted = True
+            raise StopAsyncIteration
+        if isinstance(item, BaseException):   # the dispatch loop failed
+            self._exhausted = True
+            raise item
+        return item
+
+
+class AsyncEngine:
+    """Wall-clock asyncio serving over one :class:`Engine`.
+
+    It owns a ``Scheduler`` session driven by a dispatch task on the
+    running loop. ``eos_id`` / ``sync_every`` / ``preempt`` /
+    ``free_on_finish`` / ``adaptive_k`` go to the scheduler;
+    ``max_pending`` bounds the requests in flight (default
+    ``4 * engine.batch``). The engine is the session's alone while it is
+    open.
+
+        aeng = AsyncEngine(engine, eos_id=2)
+        async for tok, lp in aeng.generate(prompt, SamplingParams(
+                temperature=0.8, seed=7)):
+            ...                      # as each sync commits
+        aeng.health()["queue_depth"]
+        report = await aeng.close()  # the scheduler's report
+    """
+
+    def __init__(self, engine: Engine, eos_id: Optional[int] = None,
+                 sync_every: int = 1, preempt: Optional[bool] = None,
+                 free_on_finish: bool = True,
+                 max_pending: Optional[int] = None,
+                 adaptive_k: Any = None):
+        self.engine = engine
+        self.scheduler = Scheduler(engine, eos_id=eos_id,
+                                   free_on_finish=free_on_finish,
+                                   sync_every=sync_every, preempt=preempt,
+                                   adaptive_k=adaptive_k)
+        self.max_pending = (int(max_pending) if max_pending
+                            else 4 * engine.batch)
+        if self.max_pending < 1:
+            raise ValueError("max_pending must be >= 1")
+        self._queues: Dict[int, asyncio.Queue] = {}
+        self._done: set = set()          # rids whose end was delivered
+        self._inflight = 0
+        self._n_fin = 0                  # _finished entries delivered
+        self._task: Optional[asyncio.Task] = None
+        self._sem: Optional[asyncio.Semaphore] = None
+        self._wake: Optional[asyncio.Event] = None
+        self._closing = False
+        self._error: Optional[BaseException] = None
+        self._report: Optional[Dict[str, Any]] = None
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    async def start(self) -> None:
+        """Open the session and start the dispatch task (idempotent;
+        ``submit`` calls it)."""
+        if self._task is not None:
+            return
+        sched = self.scheduler
+        sched._begin_session()
+        # wall-clock mode: _advance reads elapsed real time, so the
+        # session's *_vt columns and event stamps are wall seconds
+        sched._wall_t0 = sched._t_start
+        self._sem = asyncio.Semaphore(self.max_pending)
+        self._wake = asyncio.Event()
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def close(self, drain: bool = True) -> Dict[str, Any]:
+        """End the session and return the scheduler's report: after every
+        request in flight finishes (``drain``), or aborting them."""
+        if self._task is None:
+            await self.start()           # an empty session
+        if not drain:
+            for req in list(self.scheduler._waiting):
+                self.abort(req)
+            for req in list(self.scheduler._slot_req):
+                if req is not None:
+                    self.abort(req)
+        self._closing = True
+        self._wake.set()
+        await self._task
+        if self._report is None:
+            sched = self.scheduler
+            self._report = sched._end_session(
+                time.perf_counter() - sched._t_start)
+        if self._error is not None:
+            raise self._error
+        return self._report
+
+    # ------------------------------------------------------------------
+    # client API
+    # ------------------------------------------------------------------
+    async def submit(self, prompt, sampling_params: Optional[SamplingParams]
+                     = None, max_new_tokens: Optional[int] = None
+                     ) -> StreamHandle:
+        """Await a backpressure ticket, queue the request and return its
+        :class:`StreamHandle`. A request that could never be served
+        (budget past ``max_len`` or the pool) raises ValueError and gives
+        its ticket back."""
+        await self.start()
+        if self._error is not None:
+            raise self._error
+        if self._closing:
+            raise RuntimeError("AsyncEngine is closing")
+        await self._sem.acquire()
+        sched = self.scheduler
+        try:
+            if self._error is not None:
+                raise self._error
+            sched._advance(0.0)          # read the wall clock
+            req = Request(prompt, max_new_tokens=max_new_tokens,
+                          arrival_time=sched._clock, sampling=sampling_params)
+            sched._prepare(req)
+        except BaseException:
+            self._sem.release()
+            raise
+        self._inflight += 1
+        q: asyncio.Queue = asyncio.Queue()
+        self._queues[req.rid] = q
+        bisect.insort(sched._waiting, req, key=sched._prio)
+        sched._event("arrive", req.rid)
+        self._wake.set()
+        return StreamHandle(self, req, q)
+
+    async def generate(self, prompt,
+                       sampling_params: Optional[SamplingParams] = None,
+                       max_new_tokens: Optional[int] = None
+                       ) -> AsyncIterator[Tuple[int, float]]:
+        """Stream one completion, ``(token, logprob)`` as each sync commits.
+        Closing the iterator early aborts the request."""
+        handle = await self.submit(prompt, sampling_params, max_new_tokens)
+        try:
+            async for tok, lp in handle:
+                yield tok, lp
+        finally:
+            if not handle.done:
+                self.abort(handle)
+
+    def abort(self, handle) -> bool:
+        """Cancel a request (a StreamHandle or a Request) now; its pages
+        return to the pool and the slot is admissible on the next pass.
+        Tokens already streamed stay valid. False when it had already
+        finished."""
+        req = handle.request if isinstance(handle, StreamHandle) else handle
+        sched = self.scheduler
+        if self._task is None:
+            return False
+        sched._advance(0.0)
+        if not sched._abort(req):
+            return False
+        self._deliver()                  # the end sentinel, the ticket
+        self._wake.set()
+        return True
+
+    def health(self) -> Dict[str, Any]:
+        """A monitoring snapshot of the live session (host state only)."""
+        sched, eng = self.scheduler, self.engine
+        if self._task is None:
+            raise RuntimeError("AsyncEngine not started")
+        completed = [r for r in sched._finished if r.status == FINISHED]
+        # wall stamps only: t_admit 0.0 marks a request that ended without
+        # an admission
+        waits = sorted(r.t_admit - r.t_submit for r in completed
+                       if r.t_admit > 0.0)
+
+        def pct(p: float) -> float:
+            if not waits:
+                return 0.0
+            return waits[min(int(p / 100 * len(waits)), len(waits) - 1)]
+
+        pool_total = eng.pool_pages if eng.paged else 0
+        pool_free = eng.allocator.n_free if eng.paged else 0
+        hp = eng.host_pool               # None unless swap="host"
+        return {
+            "queue_depth": len(sched._waiting),
+            "running": int(sched._active.sum()),
+            "slots": eng.batch,
+            "inflight": self._inflight,
+            "max_pending": self.max_pending,
+            "pool_pages": pool_total,
+            "pool_free": pool_free,
+            "pool_occupancy": (1.0 - pool_free / pool_total
+                               if pool_total else 0.0),
+            # `is not None`: an empty HostPagePool is falsy
+            "swapped": len(hp) if hp is not None else 0,
+            "host_pool_bytes": hp.capacity if hp is not None else 0,
+            "host_pool_used_bytes": hp.used_bytes if hp is not None else 0,
+            "host_pool_peak_bytes": hp.peak_used if hp is not None else 0,
+            "host_pool_occupancy": (hp.used_bytes / hp.capacity
+                                    if hp is not None and hp.capacity
+                                    else 0.0),
+            "finished": len(completed),
+            "aborted": len(sched._finished) - len(completed),
+            "preemptions": sched._n_preempt,
+            "p50_wait_s": pct(50),
+            "p99_wait_s": pct(99),
+            "uptime_s": time.perf_counter() - sched._t_start,
+        }
+
+    # ------------------------------------------------------------------
+    # the dispatch task
+    # ------------------------------------------------------------------
+    def _deliver(self) -> None:
+        """Move the core's emit buffer into the request queues; send the
+        end sentinel and give the ticket back for each request that newly
+        finished or was aborted."""
+        sched = self.scheduler
+        for req, toks, lps in sched._emit:
+            q = self._queues.get(req.rid)
+            if q is not None:
+                for pair in zip(toks, lps):
+                    q.put_nowait(pair)
+        sched._emit.clear()
+        while self._n_fin < len(sched._finished):
+            req = sched._finished[self._n_fin]
+            self._n_fin += 1
+            if req.rid in self._done:
+                continue
+            self._done.add(req.rid)
+            q = self._queues.pop(req.rid, None)
+            if q is not None:
+                q.put_nowait(None)
+            self._inflight -= 1
+            self._sem.release()
+
+    def _fail(self, err: BaseException) -> None:
+        """The dispatch task failed: the error reaches every open stream
+        and later submits, and backpressure waiters are released."""
+        self._error = err
+        for rid, q in list(self._queues.items()):
+            if rid not in self._done:
+                self._done.add(rid)
+                q.put_nowait(err)
+                self._inflight -= 1
+                self._sem.release()
+        self._queues.clear()
+
+    async def _run(self) -> None:
+        """The wall-clock driver: admit, grow, dispatch and harvest in one
+        blocking pass, then yield to the clients; wait on the wake event
+        when there is nothing to do."""
+        sched = self.scheduler
+        try:
+            while True:
+                sched._advance(0.0)
+                if not sched._waiting and not sched._active.any():
+                    if self._closing:
+                        break
+                    self._wake.clear()
+                    await self._wake.wait()
+                    continue
+                with torch.no_grad():
+                    sched._admit_waiting()
+                    self._deliver()      # finishes at the first token
+                    if not sched._active.any():
+                        if sched._waiting:
+                            raise RuntimeError(
+                                "no active slot and the head request cannot "
+                                "be admitted: page pool leak?")
+                        continue
+                    run = sched._grow()
+                    sched._dispatch(run)
+                    sched._harvest()     # blocks on the readback
+                self._deliver()
+                # the clients' turn: submit and abort change core state
+                # only here, between syncs
+                await asyncio.sleep(0)
+        except BaseException as e:       # noqa: BLE001 (reaches the clients)
+            self._fail(e)
+            if not isinstance(e, Exception):
+                raise                    # cancellation, interrupt, exit
+        finally:
+            sched._advance(0.0)
+            with torch.no_grad():
+                self._report = sched._end_session(
+                    time.perf_counter() - sched._t_start)
+
+
+def virtual_twin_report(engine: Engine, workload, eos_id: Optional[int]
+                        = None, **scheduler_kwargs) -> Dict[str, Any]:
+    """Serve ``workload``, a list of ``(prompt, SamplingParams or None,
+    max_new_tokens or None)``, through the virtual-clock driver and return
+    its report, results in workload order: what a streamed run of the
+    same workload must yield."""
+    reqs = [Request(np.asarray(p, np.int32), sampling=sp,
+                    max_new_tokens=mnt) for p, sp, mnt in workload]
+    rep = Scheduler(engine, eos_id=eos_id, **scheduler_kwargs).serve(reqs)
+    order = {r.rid: i for i, r in enumerate(reqs)}
+    rep["results"] = sorted(rep["results"], key=lambda r: order[r["rid"]])
+    return rep

@@ -23,6 +23,7 @@ from repro_torch.configs import DrafterConfig, get_config
 from repro_torch.core import spec_decode as SD
 from repro_torch.serving import cache_ops
 from repro_torch.serving.engine import Engine, EngineConfig
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 MODES = ("parallel", "ar", "none")
 B, P, K, MAX_NEW, MAX_LEN = 3, 10, 3, 14, 48

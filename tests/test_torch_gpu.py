@@ -3,7 +3,9 @@ on the card, the engine's greedy losslessness through the kernels, paged
 scheduler serving through the paged decode kernel, greedy and sampled,
 the prefix cache, swap to pinned host memory and adaptive K (the decode
 kernel at a hit's chunk shapes, the paged kernel over shared pages, a
-bitwise swap round trip), the threefry PRNG's words on the card against
+bitwise swap round trip), the streaming front end (streamed equals its
+virtual twin, an abort frees pages and pinned bytes) and the round-based
+baseline's flash launches, the threefry PRNG's words on the card against
 the CPU's, the chi-square
 losslessness of rejection verification on the card, the flash training
 attention's gradients, and reduced training steps through the MTP kernel.
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 pytestmark = pytest.mark.gpu
 
@@ -643,3 +646,92 @@ def test_trainer_steps_through_kernels(card):
                                 "paged_decode_attention": 0,
                                 "flash_attention": tcfg.n_layers,
                                 "mtp_attention": dcfg.n_layers * segments}
+
+
+def _stream(aeng, workload, abort_at=None):
+    """Stream ``workload`` ((prompt, policy, budget) each) through an
+    AsyncEngine; request ``abort_at`` is aborted after its first chunk.
+    Returns the token lists and the report."""
+    import asyncio
+
+    async def go():
+        handles = [await aeng.submit(p, sp, max_new_tokens=b)
+                   for p, sp, b in workload]
+
+        async def drain(i, h):
+            toks = []
+            async for tok, _ in h:
+                toks.append(tok)
+                if i == abort_at and not h.done:
+                    h.abort()
+            return toks
+        got = await asyncio.gather(*(drain(i, h)
+                                     for i, h in enumerate(handles)))
+        return got, await aeng.close()
+    return asyncio.run(asyncio.wait_for(go(), 120))
+
+
+def _stream_workload(vocab, n=6):
+    from repro_torch.serving.sampling import SamplingParams
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, vocab - 1, int(rng.integers(8, 30))).astype(
+        np.int32), None if i % 2 == 0
+        else SamplingParams(temperature=0.8, top_k=50, seed=30 + i),
+        int(rng.integers(6, 15))) for i in range(n)]
+
+
+def test_streamed_equals_virtual_twin_on_card(card):
+    """Reduced width on the card: AsyncEngine over a pool that preempts
+    streams the virtual twin's tokens exactly, through the paged kernel."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.streaming import AsyncEngine, virtual_twin_report
+    eng = build_engine(reduced=True, mode="parallel", K=3, max_new=16,
+                       max_len=64, batch=3, seed=0, device=card,
+                       kv_layout="paged", page_size=8, pool_pages=9)
+    work = _stream_workload(eng.tcfg.vocab_size)
+    twin = virtual_twin_report(eng, work)
+    ops.reset_launches()
+    got, rep = _stream(AsyncEngine(eng), work)
+    assert twin["preemptions"] > 0 and rep["aborted"] == 0
+    assert ops.launches["paged_decode_attention"] == (
+        (eng.tcfg.n_layers + 2 * eng.dcfg.n_layers) * rep["iterations"])
+    for g, w in zip(got, twin["results"]):
+        assert g == w["tokens"].tolist()
+    assert eng.allocator.n_used == 0
+
+
+@pytest.mark.parametrize("swap", ["none", "host"])
+def test_abort_frees_pages_on_card(card, swap):
+    """An aborted stream gives its pages back (and, swapped out, its pinned
+    host bytes); the others equal the twin; both pools drain."""
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.streaming import AsyncEngine, virtual_twin_report
+    eng = build_engine(reduced=True, mode="parallel", K=3, max_new=16,
+                       max_len=64, batch=3, seed=0, device=card,
+                       kv_layout="paged", page_size=8, pool_pages=9,
+                       swap=swap)
+    work = _stream_workload(eng.tcfg.vocab_size)
+    twin = virtual_twin_report(eng, work)
+    got, rep = _stream(AsyncEngine(eng), work, abort_at=1)
+    assert rep["aborted"] == 1 and rep["results"][1]["aborted"]
+    assert 0 < len(got[1]) < work[1][2]
+    assert got[1] == twin["results"][1]["tokens"].tolist()[:len(got[1])]
+    for i, (g, w) in enumerate(zip(got, twin["results"])):
+        if i != 1:
+            assert g == w["tokens"].tolist()
+    assert eng.allocator.n_used == 0 and not any(eng._slot_pages)
+    if swap == "host":
+        assert len(eng.host_pool) == 0 and eng.host_pool.used_bytes == 0
+
+
+def test_round_based_launches_flash_once_per_layer_per_round(card):
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.scheduler import serve_round_based
+    eng = build_engine(reduced=True, mode="parallel", K=3, max_new=12,
+                       max_len=64, batch=2, seed=0, device=card)
+    prompts = random_prompts(eng.tcfg.vocab_size, 5, 16, seed=2)
+    ops.reset_launches()
+    rep = serve_round_based(eng, prompts, [4, 9, 3, 12, 6])
+    assert rep["rounds"] == 3 and rep["total_new_tokens"] == 34
+    assert ops.launches["flash_attention"] == 3 * eng.tcfg.n_layers
+    assert ops.launches["paged_decode_attention"] == 0

@@ -16,6 +16,7 @@ from repro.kernels import ref as jref
 from repro.models import layers as JL
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 3e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -9,6 +9,7 @@ import torch
 
 from repro.models import layers as JL
 from repro_torch.models import layers as L
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 TOL = 3e-5
 

@@ -20,6 +20,7 @@ from repro_torch.configs import DrafterConfig, get_config
 from repro_torch.core import drafter as D
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_model
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 TOL = 3e-5
 B, P, MAX_LEN, K = 2, 12, 40, 4

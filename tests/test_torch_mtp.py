@@ -29,6 +29,7 @@ from repro_torch.core import cod, masks, partition
 from repro_torch.core.flash_train import MTPFlashAttention, mtp_flash_attention
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import blocked_attention, merge_attention
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 3e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

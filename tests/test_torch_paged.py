@@ -37,6 +37,7 @@ from repro_torch.configs import DrafterConfig, get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.serving import cache_ops
 from repro_torch.serving.engine import Engine, EngineConfig, speculative_step
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 3e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

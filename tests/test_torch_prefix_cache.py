@@ -29,6 +29,7 @@ from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
 from torch_serving_setup import (PS, assert_same_serve, jax_engine,
                                  port_engine, shared_preamble)
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from repro_torch import prng
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 # taken from JAX 0.9.0 in this repository's test environment
 KNOWN = {

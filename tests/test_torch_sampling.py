@@ -36,6 +36,7 @@ from repro_torch.serving import cache_ops
 from repro_torch.serving import sampling as S
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.margins import MarginLog
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 NEAR_TIE = 1e-4
 B, P, K, MAX_NEW, MAX_LEN = 3, 10, 3, 14, 48

@@ -46,6 +46,7 @@ from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.margins import MarginLog
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 B, K, MAX_LEN, PAGE, POOL, N_REQ = 3, 3, 128, 8, 10, 8
 NEAR_TIE = 1e-4

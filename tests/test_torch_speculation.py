@@ -31,6 +31,7 @@ from repro_torch.serving.speculation import (SpeculationConfig,
 from repro_torch.tree import leaves_with_paths
 from torch_serving_setup import (MAX_LEN, assert_same_serve, jax_engine,
                                  models, port_engine)
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 K = 3
 CONFIGS = [{}, dict(k_min=2, ema_decay=0.5, headroom=0),

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from repro_torch.configs import DrafterConfig, get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, serve_stream
 from repro_torch.serving.engine import Engine, EngineConfig
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -81,6 +82,59 @@ def test_serve_without_device_raises_without_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--batch", "1", "--prompt-len", "4",
                     "--max-new", "2", "--max-len", "16"])
+
+
+def test_serve_stream_without_device_raises_without_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_stream.main(["--reduced", "--batch", "1", "--max-len", "16",
+                           "--max-new", "2", "--port", "0"])
+
+
+def test_serve_stream_rehearses_on_cpu():
+    """The streaming server at the reduced width on the CPU, on a free
+    port: the demo client, run where torch cannot be imported, streams one
+    request to its budget; SIGINT ends the server."""
+    import signal
+    import subprocess
+    import sys
+    env = {"PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"}
+    server = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_stream", "--reduced",
+         "--device", "cpu", "--port", "0", "--batch", "2", "--max-len", "64",
+         "--max-new", "8", "--page-size", "8"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=ROOT)
+    try:
+        line = server.stdout.readline()
+        port = re.search(r"server on [\d.]+:(\d+) ", line)
+        assert port, line
+        code = ("import sys; sys.modules['torch'] = None; "
+                "from repro_torch.launch import serve_stream; "
+                "serve_stream.main(['--client', '--port', '"
+                + port.group(1) + "', '--requests', '1', '--max-new', '6'])")
+        out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "r0: 6 tokens" in out.stdout and "health:" in out.stdout
+    finally:
+        server.send_signal(signal.SIGINT)
+        assert server.wait(timeout=60) == 0
+
+
+def test_serve_rehearses_round_based_on_cpu():
+    """``--round-based``: the same prompts and budgets through the
+    round-based baseline on a contiguous twin of the paged engine."""
+    r = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                    "--requests", "3", "--prompt-len", "6", "--max-new", "4",
+                    "--max-len", "32", "--kv-layout", "paged", "--page-size",
+                    "8", "--runs", "1", "--round-based"])
+    rb = r["round_based"]
+    assert rb["rounds"] == 2 and rb["new_tokens"] == r["new_tokens"] == 12
+    assert rb["acceptance_length"] >= 1.0 and rb["otps"] > 0
+    assert r["continuous_over_round_based"] > 0
+    with pytest.raises(SystemExit):
+        serve.main(["--reduced", "--device", "cpu", "--round-based",
+                    "--shared-prefix", "8"])
 
 
 def test_serve_rehearses_on_cpu_when_asked():
@@ -159,17 +213,18 @@ def test_random_prompts_avoid_mask_token():
 
 
 def test_serving_policy_modules_load_without_jax():
-    """The prefix cache, the speculation controller and the scheduler that
-    drives them (and all they import) load with ``jax`` and ``repro`` made
-    unimportable."""
+    """The prefix cache, the speculation controller, the scheduler that
+    drives them and the streaming front end over it (and all they import)
+    load with ``jax`` and ``repro`` made unimportable."""
     import subprocess
     import sys
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = "
             "None; import repro_torch.serving.prefix_cache, "
-            "repro_torch.serving.speculation, repro_torch.serving.scheduler")
+            "repro_torch.serving.speculation, repro_torch.serving.scheduler, "
+            "repro_torch.serving.streaming, repro_torch.launch.serve_stream")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(ROOT / "src")}, cwd=ROOT)
-    for rel in ("prefix_cache.py", "speculation.py"):
+    for rel in ("prefix_cache.py", "speculation.py", "streaming.py"):
         assert ROOT / "src" / "repro_torch" / "serving" / rel in PORT_FILES
 
 

@@ -24,6 +24,7 @@ from repro_torch.serving.scheduler import Request, Scheduler
 from repro_torch.tree import leaves_with_paths
 from torch_serving_setup import (assert_same_serve, ecfg, jax_engine,
                                  port_engine, preempt_workload)
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 PREEMPT_KEYS = ("preempt_swap", "preempt_recompute", "swap_drops",
                 "recomputed_prefill_tokens")

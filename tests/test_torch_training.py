@@ -42,6 +42,7 @@ from repro_torch.optim import (GradAccumulator, adamw_init, adamw_update,
                                apply_updates, linear_warmup_schedule)
 from repro_torch.training import TrainConfig, Trainer
 from repro_torch.tree import leaves_with_paths, tree_map
+import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 TOL = 3e-5
 GTOL = dict(atol=2e-5, rtol=2e-4)
