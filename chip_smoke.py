@@ -6,9 +6,11 @@ parallel drafter through the kernels (whole batch, and continuous batching
 over the paged KV layout), checks greedy losslessness, serves sampled
 requests (seeded rejection verification) and checks their streams,
 streams requests through the wall-clock front end (AsyncEngine, the NDJSON
-server) and runs LLMEngine and the round-based baseline, and trains the
+server) and runs LLMEngine and the round-based baseline, trains the
 full-width drafter (whole-sequence and Algorithm-1 segmented)
-through the MTP kernel.
+through the MTP kernel, and serves the rest of the dense family: gemma2-27b
+at full width (GeGLU, softcaps, alternating local/global attention over
+ring caches, post-norms, embedding scale) and minitron-4b.
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -56,10 +58,23 @@ Phases, in order; any failure exits non-zero:
    page 16, 64 table entries a row, pages drawn at random from the pool, so
    tables are fragmented), with every row's first 20 table entries naming
    the same pages (phase 3d's shared prefix), and at the JAX kernel sweep's
-   shapes; no single PyTorch call computes it, so its yardstick is a gather of the pages and
-   SDPA on the view, two calls. Then the gradients of the flash training
+   shapes; its library call is torch's compiled flex_attention over the
+   pools, the table folded into a block mask of page-sized key blocks. Then the gradients of the flash training
    attention (kernel forward, recompute-by-block backward) against autograd
-   through the plain version at M 1998, float32;
+   through the plain version at M 1998, float32. gemma2-27b's attention
+   too (query scale 144^-0.5, tanh softcap 50 on every score, 32 query
+   heads over 16 KV heads): decode at verify phase 1 and 2, a local layer's
+   ring of 4096 + 6 slots after position 4700 (wrapped, the window's edge
+   inside a split chunk) and scores 8x larger; paged at verify phase 1;
+   flash at the prefill (B 8 x 512) and past the window (B 1 x 4608, window
+   4096); its drafter's draft and extend phase 1 (36/36 heads) uncapped, as
+   the path runs them; in both dtypes; timed in bfloat16 beside their
+   bounds. The library call of a capped case is torch's compiled
+   flex_attention too (the cap as a score_mod, the positions and window as
+   a block mask built outside the timed call), held against the plain
+   version first and timed after the last phase (its compilation leaves a
+   thread that slows the next host-bound phase); of an uncapped decode or
+   flash case, SDPA;
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
    512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache,
    after a cold run of 8 steps; the warm run is reported (OTPS, prefill seconds, decode seconds
@@ -156,7 +171,30 @@ Phases, in order; any failure exits non-zero:
    counts (mtp_attention = drafter layers x forward passes, flash = 28 per
    target forward); then segmented grads against whole-sequence grads at
    n 1024, the loss over 4 steps on one repeated batch, a checkpoint round
-   trip, and the training launcher (python -m repro_torch.launch.train).
+   trip, and the training launcher (python -m repro_torch.launch.train);
+6. gemma2-27b at full width in bfloat16 (46 layers, d 4608, 32/16 heads, d_ff
+   36864, vocab 256000; the 4-layer drafter), every earlier phase's models
+   freed first and the memory reckoned from the configs in the log: Engine.run
+   of batch 8, 512-token prompts, 128 new tokens, K 5, max_len 1024 (the
+   4096 window exceeds it, so no layer is a ring) after a cold run (OTPS,
+   ms/step, prefill s, AL, peak memory; 46 flash launches and 8 decode at the
+   prefill, then 108 decode a step), and Scheduler.serve of phase 3b's first
+   12 requests on a paged twin sharing the weights (page 16, a 224-page pool
+   that preempts; every request to its budget, 54 paged launches an
+   iteration, the pool empty after);
+6b. gemma2-27b in float32 at full width cut to 4 layers (two (local, global)
+   super-blocks), max_len 8192, batch 2, 4500-token prompts: the local
+   layers' rings (4096 + 6 slots) wrap in prefill and decode; logits through
+   the kernels against the plain attention, greedy parallel, ar and oracle
+   drafts (AL > 2) against none under phase 4's near-tie rule, and
+   Scheduler.serve of a 4200- and a 4800-token prompt (admitted in
+   power-of-two chunks) paged (per-slot rings beside the pools) against
+   contiguous, launch counts of both stated; then the same model in
+   bfloat16, the dtype gemma2 serves in past its window: parallel against
+   none and the paged serve against the contiguous one under the bfloat16
+   near-tie rule (BF16_NEAR_TIE), launch counts stated;
+6c. minitron-4b in float32 at full width (32 layers, ReLU², an untied head):
+   4 prompts of 256, 32 new tokens, greedy parallel against none.
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -165,6 +203,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -198,6 +237,9 @@ KERNEL_TOL = {"bfloat16": (1e-4, 2 ** -6), "float32": (1e-4, 0.0)}
 Q_SCALE = 2.0
 # phase 2's paged case with every row's first 20 table entries the same
 PAGED_SHARED = "target verify phase 1, 20 shared pages"
+# gemma2-27b's attention (arXiv:2408.00118): query scale 144^-0.5, tanh
+# softcap 50 on every score, local layers' window 4096
+GEMMA2_SCALE, GEMMA2_CAP, GEMMA2_WINDOW = 144 ** -0.5, 50.0, 4096
 # Oracle drafts must lift the acceptance length above this (a fifth of the
 # drafts are spoiled, so about 3.7 is expected at K 5).
 ORACLE_MIN_AL = 2.0
@@ -206,6 +248,11 @@ ORACLE_MIN_AL = 2.0
 # decode (1 query) run GEMMs of other shapes, whose sums reorder and move
 # logits by about 1e-5 at full width.
 NEAR_TIE = 1e-3
+# The same rule for two bfloat16 runs (phase 6b's bfloat16 pass): bfloat16
+# keeps 8 significant bits, so a logit in [16, 32) (gemma2's final cap of 30
+# keeps the top ones there) is held to 0.125, and sums in another order
+# move the hidden state by about that share; two such steps.
+BF16_NEAR_TIE = 0.25
 # Full-width float32 logits through the kernels against the same forward
 # with the plain attention: the two differ only in the order of float32
 # sums inside attention, carried through 28 layers.
@@ -303,13 +350,15 @@ def decode_case(dev, dtype, B, T, H, KV, hd, S, valid):
     return q, k, v, kpos.contiguous(), qpos.contiguous()
 
 
-def decode_work(q, k, kpos, qpos):
+def decode_work(q, k, kpos, qpos, window=0):
     """Bytes and FLOPs a decode call needs for this data: q, out and the
     (m, l) stats once, positions once, K/V of the keys some query of the row
     can see, and 4·hd FLOPs per visible (query head, key) pair."""
     B, T, H, hd = q.shape
     KV, es = k.shape[2], q.element_size()
     vis = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
+    if window > 0:
+        vis &= qpos[:, :, None] - kpos[:, None, :] < window
     live_keys = int(vis.any(1).sum())
     nbytes = (2 * B * T * H * hd * es + 2 * B * T * H * 4
               + 4 * (kpos.numel() + qpos.numel()) + 2 * live_keys * KV * hd * es)
@@ -317,20 +366,22 @@ def decode_work(q, k, kpos, qpos):
     return nbytes, flops
 
 
-def flash_work(q, k):
+def flash_work(q, k, window=0):
     """Bytes and FLOPs of a causal flash call: q, k, v and out once, 4·hd
-    FLOPs per visible (query head, key) pair."""
+    FLOPs per visible (query head, key) pair (within the window, if any)."""
     B, Sq, H, hd = q.shape
     Skv, KV, es = k.shape[1], k.shape[2], q.element_size()
     nbytes = 2 * B * Sq * H * hd * es + 2 * B * Skv * KV * hd * es
-    pairs = sum(min(t + 1, Skv) for t in range(Sq))
+    pairs = sum(min(t + 1, Skv, window or Skv) for t in range(Sq))
     return nbytes, 4 * hd * H * B * pairs
 
 
-def sdpa_decode(q, k, v, kpos, qpos):
+def sdpa_decode(q, k, v, kpos, qpos, window=0):
     """One PyTorch call for the decode function: SDPA with a boolean mask,
     in SDPA's (B, H, L, hd) layout, prepared outside the timed call."""
     mask = ((kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None]))
+    if window > 0:
+        mask &= qpos[:, :, None] - kpos[:, None, :] < window
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             mask[:, None])
     return lambda: F.scaled_dot_product_attention(
@@ -341,6 +392,95 @@ def sdpa_flash(q, k, v):
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     return lambda: F.scaled_dot_product_attention(*args, is_causal=True,
                                                   enable_gqa=True)
+
+
+_FLEX = []
+
+
+def flex_call(q, k, v, mask_mod, kv_len, scale, softcap, kv_block=128):
+    """One call of torch's compiled flex_attention, the one PyTorch call
+    that takes a tanh softcap (a score_mod) and a position or page-table
+    predicate (a block mask): the library call of the capped and the paged
+    cases. The
+    block mask is built here, outside the timed call; q (B, T, H, hd), k
+    and v (B or 1, kv_len, KV, hd). Returns the call, whose output is in
+    (B, H, T, hd)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if not _FLEX:
+        from torch._dynamo import config as dynamo_config
+        from torch._inductor import config as inductor_config
+        inductor_config.compile_threads = 1    # no worker processes
+        dynamo_config.recompile_limit = 64     # a graph per case
+        _FLEX.append(torch.compile(flex_attention, dynamic=False))
+    B, T = q.shape[:2]
+    block = create_block_mask(mask_mod, B, None, T, kv_len, device=q.device,
+                              BLOCK_SIZE=(128, kv_block))
+    cap = (lambda s, b, h, qi, ki: softcap * torch.tanh(s / softcap)
+           ) if softcap else None
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    return lambda: _FLEX[0](*args, score_mod=cap, block_mask=block,
+                            scale=scale, enable_gqa=True)
+
+
+def flex_decode(q, k, v, kpos, qpos, scale, softcap=0.0, window=0):
+    # flex's decode kernel reads whole key blocks past the last key and
+    # leaves them to the mask, so the mask bounds its own indices
+    T, S = qpos.shape[1], kpos.shape[1]
+
+    def mask(b, h, qi, ki):
+        kp, qp = kpos[b, ki.clamp(max=S - 1)], qpos[b, qi.clamp(max=T - 1)]
+        seen = (ki < S) & (kp >= 0) & (kp <= qp)
+        return seen & (qp - kp < window) if window > 0 else seen
+    return flex_call(q, k, v, mask, k.shape[1], scale, softcap)
+
+
+def flex_paged(q, k, v, pos, table, qpos, scale, softcap=0.0):
+    """The paged function over the pools as one sequence of NP x page keys
+    (batch 1, broadcast over the rows), a key seen by row b where its page
+    is in b's table and its position is live and at most the query's: a
+    block mask of page-sized key blocks, as torch's paged flex attention
+    builds it. Flex's decode kernel, which takes such blocks, needs a
+    power-of-two ratio of query to KV heads; at another ratio (qwen2's 6)
+    its main kernel takes key blocks of 128 (8 pages, most of them other
+    rows'), which it reads whole."""
+    NP, page = pos.shape
+    (B, T), ratio = qpos.shape, q.shape[2] // k.shape[2]
+    ok = (table >= 0) & (table < NP)
+    named = torch.zeros((B, NP), dtype=torch.bool, device=q.device)
+    rows = torch.arange(B, device=q.device)[:, None].expand_as(table)
+    named[rows[ok], table[ok].long()] = True
+    flat = pos.reshape(-1)
+
+    def mask(b, h, qi, ki):      # indices bounded as in flex_decode
+        ki_ = ki.clamp(max=NP * page - 1)
+        kp = flat[ki_]
+        return ((ki < NP * page) & named[b, ki_ // page] & (kp >= 0)
+                & (kp <= qpos[b, qi.clamp(max=T - 1)]))
+    pool = lambda x: x.reshape(1, NP * page, *x.shape[2:])
+    return flex_call(q, pool(k), pool(v), mask, NP * page, scale, softcap,
+                     kv_block=page if ratio & (ratio - 1) == 0 else 128)
+
+
+def flex_flash(q, k, v, scale, softcap=0.0, window=0):
+    def mask(b, h, qi, ki):
+        seen = qi >= ki
+        return seen & (qi - ki < window) if window > 0 else seen
+    return flex_call(q, k, v, mask, k.shape[1], scale, softcap)
+
+
+def ring_case(dev, dtype, B, T, H, KV, hd, ring, last, seed=0):
+    """Inputs shaped like a decode call against a local layer's ring of
+    ``ring`` slots after positions up to ``last`` were written: slot s
+    holds the last position p <= last with p % ring == s (wrapped, not
+    monotone in the slot index); queries at the next T positions."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = qkv(g, dev, dtype, (B, T, H, hd), (B, ring, KV, hd))
+    s = torch.arange(ring, dtype=torch.int32, device=dev)
+    kpos = (last - torch.remainder(last - s, ring))[None].repeat(B, 1)
+    qpos = (last + 1 + torch.arange(T, dtype=torch.int32, device=dev)
+            )[None].repeat(B, 1)
+    return q, k, v, kpos.to(torch.int32).contiguous(), qpos.contiguous()
 
 
 def paged_case(dev, dtype, B, T, H, KV, hd, page, nb, c, seed=0):
@@ -413,19 +553,44 @@ def paged_work(q, k, pos, table, qpos):
     return nbytes, 4 * hd * H * int(vis.sum())
 
 
-def gather_sdpa(q, k, v, pos, table, qpos):
-    """The paged function in two PyTorch calls: gather each row's pages
-    into a view, then SDPA with a boolean mask on it."""
-    from repro_torch.models.layers import paged_view
-
-    def run():
-        kpos = paged_view(pos, table, empty=-1)
-        mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), paged_view(k, table).transpose(1, 2),
-            paged_view(v, table).transpose(1, 2), attn_mask=mask[:, None],
-            enable_gqa=True)
-    return run
+def gemma2_cases(dev, dtype, c):
+    """Phase 2's gemma2-27b cases: (kernel, label, inputs, keywords). The
+    target's are capped; its drafter (36/36 heads) runs uncapped at query
+    scale 128^-0.5, and its cases are so."""
+    cap = dict(scale=GEMMA2_SCALE, softcap=GEMMA2_CAP)
+    drafter = dict(scale=128 ** -0.5)
+    out = []
+    for label, (B, T, H, KV, S, valid), kw in [
+            ("gemma2 target verify phase 1", (8, 6, 32, 16, 1024, c), cap),
+            ("gemma2 target verify phase 2", (8, 6, 32, 16, 6, 6), cap),
+            ("gemma2 drafter draft phase 1", (8, 5, 36, 36, 1024, c - 1),
+             drafter),
+            ("gemma2 drafter extend phase 1", (8, 6, 36, 36, 1024, c),
+             drafter)]:
+        out.append(("decode_attention", label,
+                    decode_case(dev, dtype, B, T, H, KV, 128, S, valid), kw))
+    out.append(("decode_attention", "gemma2 local ring 4096 + 6, wrapped",
+                ring_case(dev, dtype, 8, 6, 32, 16, 128, GEMMA2_WINDOW + 6,
+                          4700), dict(cap, window=GEMMA2_WINDOW)))
+    q, k, v, kpos, qpos = decode_case(dev, dtype, 8, 6, 32, 16, 128, 1024, c)
+    big = (q.float() * 8).to(q.dtype)
+    out.append(("decode_attention", "gemma2 verify phase 1, scores x8",
+                (big, k, v, kpos, qpos), cap))
+    for i, (label, (T, H, KV, cc), kw) in enumerate([
+            ("gemma2 target verify phase 1", (6, 32, 16, c), cap),
+            ("gemma2 drafter draft phase 1", (5, 36, 36, c - 1), drafter),
+            ("gemma2 drafter extend phase 1", (6, 36, 36, c), drafter)]):
+        out.append(("paged_decode_attention", label,
+                    paged_case(dev, dtype, 8, T, H, KV, 128, 16, 64, cc,
+                               seed=30 + i), kw))
+    g = torch.Generator(device=dev).manual_seed(3)
+    for label, (B, S) in [("gemma2 target prefill", (8, 512)),
+                          ("gemma2 local prefill past the window",
+                           (1, 4608))]:
+        out.append(("flash_attention", label,
+                    qkv(g, dev, dtype, (B, S, 32, 128), (B, S, 16, 128)),
+                    dict(cap, causal=True, window=GEMMA2_WINDOW)))
+    return out
 
 
 def check_kernels(ops, dev):
@@ -436,6 +601,8 @@ def check_kernels(ops, dev):
              "flash_attention": 0.0}
     shares = {}      # (kernel, dtype) -> the worst share of the limit
     rows = {}
+    row_kw = {}      # (kernel, label) -> the call's keywords, if not plain
+    g2_worst = {}    # kernel -> gemma2's worst bfloat16 error at its shapes
 
     def compare(name, got, want, dtype, label):
         atol, rtol = KERNEL_TOL[dtype]
@@ -636,63 +803,86 @@ def check_kernels(ops, dev):
                     worst["flash_attention"] = err
                 rows[("flash_attention", label)] = (q, k, v)
 
+        # gemma2-27b: softcap 50 and query scale 144^-0.5, 32 query heads
+        # over 16 KV heads (its drafter 36/36, uncapped, as the path runs
+        # it); decode and paged at the serving path's verify, draft and
+        # extend phase-1 shapes and verify phase 2, a local layer's ring of
+        # 4096 + 6 slots after position 4700 (wrapped; the window's edge
+        # falls inside a split chunk), the cap with scores 8x larger; flash
+        # at the prefill and past the window
+        for name, label, inp, kw in gemma2_cases(dev, dtype, c):
+            fn = getattr(ops, name)
+            before = ops.launches[name]
+            if name == "flash_attention":
+                o = fn(*inp, **kw)
+                torch.cuda.synchronize()
+                err = compare(name, o, ops.flash_attention_plain(*inp, **kw),
+                              dtype, label)
+            else:
+                o, m, l = fn(*inp, return_stats=True, **kw)
+                torch.cuda.synchronize()
+                po, pm, pl = getattr(ops, f"{name}_plain")(
+                    *inp, return_stats=True, **kw)
+                err = compare(name, o, po, dtype, label)
+                check_stats(name, label, dtype, (m, l), (pm, pl))
+            if ops.launches[name] != before + 1:
+                fail(f"{name} {label}: a call moved the launch count by "
+                     f"{ops.launches[name] - before}")
+            if dtype == "bfloat16":
+                g2_worst[name] = max(g2_worst.get(name, 0.0), err)
+                rows[(name, label)], row_kw[(name, label)] = inp, kw
+
     log("phase 2: timing at the serving shapes (bfloat16; CUDA events)")
     measured = {}
+    pending = []     # the rows flex_library times after every phase
     for (name, label), inp in rows.items():
+        kw = row_kw.get((name, label), dict(scale=inp[0].shape[-1] ** -0.5))
+        window, cap = kw.get("window", 0), kw.get("softcap", 0.0)
+        # the capped and the paged cases: flex_attention, the one PyTorch
+        # call that computes them, timed after every phase (flex_library);
+        # the rest: SDPA
+        flex = cap > 0 or name == "paged_decode_attention"
         if name == "decode_attention":
             q, k, v, kpos, qpos = inp
-            nbytes, flops = decode_work(q, k, kpos, qpos)
-            hd = q.shape[-1]
+            nbytes, flops = decode_work(q, k, kpos, qpos, window)
             sets = [inp] + [tuple(x.clone() for x in inp)
                             for _ in range(n_sets(nbytes) - 1)]
             ms = time_ms(lambda *a: ops.decode_attention(
-                *a, scale=hd ** -0.5, return_stats=True), sets, 200)
+                *a, return_stats=True, **kw), sets, 200)
             plain_ms = time_ms(lambda *a: ops.decode_attention_plain(
-                *a, scale=hd ** -0.5, return_stats=True), sets[:2], 10,
-                host_us=5000)
-            lib = sdpa_decode(*inp)
-            lib_ms = time_ms(lambda: lib(), [()], 100)
+                *a, return_stats=True, **kw), sets[:2], 10, host_us=5000)
+            lib = None if flex else sdpa_decode(*inp, window=window)
         elif name == "paged_decode_attention":
             q, k, v, pos, table, qpos = inp
             nbytes, flops = paged_work(q, k, pos, table, qpos)
-            hd = q.shape[-1]
             sets = [inp] + [tuple(x.clone() for x in inp)
                             for _ in range(n_sets(nbytes) - 1)]
             ms = time_ms(lambda *a: ops.paged_decode_attention(
-                *a, scale=hd ** -0.5, return_stats=True), sets, 200)
+                *a, return_stats=True, **kw), sets, 200)
             plain_ms = time_ms(lambda *a: ops.paged_decode_attention_plain(
-                *a, scale=hd ** -0.5, return_stats=True), sets[:2], 10,
-                host_us=5000)
-            # no single PyTorch call computes it: library_ms stays null and
-            # the two-call yardstick is reported beside it
-            if label == "target verify phase 1":
-                log("  paged_decode_attention: no single PyTorch call computes"
-                    " it (library_ms null); yardstick: gather + SDPA, two "
-                    "calls")
-            two = gather_sdpa(*inp)
-            lib_ms = None
-            gather_sdpa_ms = time_ms(lambda: two(), [()], 50, host_us=1000)
+                *a, return_stats=True, **kw), sets[:2], 10, host_us=5000)
+            lib = None
         else:
             q, k, v = inp
-            nbytes, flops = flash_work(q, k)
-            hd = q.shape[-1]
+            nbytes, flops = flash_work(q, k, window)
             sets = [inp] + [tuple(x.clone() for x in inp)
                             for _ in range(n_sets(nbytes) - 1)]
-            ms = time_ms(lambda *a: ops.flash_attention(
-                *a, scale=hd ** -0.5), sets, 50)
-            plain_ms = time_ms(lambda *a: ops.flash_attention_plain(
-                *a, scale=hd ** -0.5), sets[:2], 5, host_us=5000)
-            lib = sdpa_flash(*inp)
-            lib_ms = time_ms(lambda: lib(), [()], 50)
+            ms = time_ms(lambda *a: ops.flash_attention(*a, **kw), sets, 50)
+            plain_ms = time_ms(lambda *a: ops.flash_attention_plain(*a, **kw),
+                               sets[:2], 5, host_us=5000)
+            lib = None if flex else sdpa_flash(*inp)
+        lib_ms = None if flex else time_ms(lambda: lib(), [()], 100)
         bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
         measured[(name, label)] = dict(ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, bytes=nbytes,
                                        flops=flops)
-        lib_txt = (f"sdpa {lib_ms * 1e3:8.1f} us" if lib_ms is not None else
-                   f"gather + sdpa (two calls) {gather_sdpa_ms * 1e3:8.1f} us")
-        if lib_ms is None:
-            measured[(name, label)]["gather_sdpa_ms"] = gather_sdpa_ms
+        if flex:
+            lib_txt = "flex_attention: see the end"
+            measured[(name, label)]["library"] = "flex_attention"
+            pending.append(((name, label), tuple(x.cpu() for x in inp), kw))
+        else:
+            lib_txt = f"sdpa {lib_ms * 1e3:8.1f} us"
         log(f"  {name:22s} {label:32s} {ms * 1e3:9.1f} us  plain "
             f"{plain_ms * 1e3:9.1f} us  {lib_txt}  bound "
             f"{bound_ms * 1e3:6.2f} us ({bound_by}; {nbytes / 1e6:.2f} MB, "
@@ -704,7 +894,42 @@ def check_kernels(ops, dev):
         for (name, dtype), share in sorted(shares.items())))
     log("phase 2: flash training attention gradients (float32, TF32 off)")
     check_mtp_backward(dev)
-    return worst, measured
+    return worst, measured, g2_worst, pending
+
+
+def flex_library(ops, dev, pending, measured):
+    """The library call of phase 2's capped and paged rows, torch's
+    compiled flex_attention, timed after every phase: its compilation
+    leaves a thread in the process that slowed the next serving phase's
+    host-bound step by ~11% (H100 80GB HBM3). Each is first held against
+    the plain version, to show its time is of the same function: flex
+    rounds the probabilities to bfloat16 before P.V, so the kernels' limit
+    is too tight for it; a sixteenth of the output's scale still catches
+    another mask, scale or cap (the 8x scores case)."""
+    log("library calls of the capped and paged rows: torch's compiled "
+        "flex_attention (bfloat16; CUDA events)")
+    for (name, label), inp, kw in pending:
+        inp = tuple(x.to(dev) for x in inp)
+        scale, cap = kw["scale"], kw.get("softcap", 0.0)
+        if name == "decode_attention":
+            lib = flex_decode(*inp, scale, cap, kw.get("window", 0))
+        elif name == "paged_decode_attention":
+            lib = flex_paged(*inp, scale, cap)
+        else:
+            lib = flex_flash(*inp, scale, cap, kw.get("window", 0))
+        want = getattr(ops, f"{name}_plain")(*inp, **kw).float()
+        got = lib().transpose(1, 2).float()
+        err = (got - want).abs().max().item()
+        if not err <= want.abs().max().item() / 16:
+            fail(f"flex_attention at {name} {label}: max abs err {err} off "
+                 f"the plain version (max |plain| "
+                 f"{want.abs().max().item()})")
+        m = measured[(name, label)]
+        m["library_ms"] = time_ms(lambda: lib(), [()], 100, host_us=1000)
+        m["library_max_abs_err"] = err
+        log(f"  {name:22s} {label:32s} {m['ms'] * 1e3:9.1f} us  "
+            f"flex_attention {m['library_ms'] * 1e3:9.1f} us (max abs err "
+            f"{err:.2e})")
 
 
 # ---------------------------------------------------------------------------
@@ -1092,11 +1317,13 @@ def oracle_drafts(table):
         D.draft_parallel = saved
 
 
-def kernel_logits_vs_plain(ops, eng, prompts, block, max_len):
+def kernel_logits_vs_plain(ops, eng, prompts, block, max_len,
+                           last_only=False):
     """Full-width float32 target logits through the kernels against the same
     forward with the plain attention: a prefill into a fresh cache (flash)
     and a verify block at the next positions read against it (decode, both
-    phases)."""
+    phases). ``last_only``: the prefill's logits at its last position only
+    (a long prompt's (B, P, V) logits would not fit twice)."""
     B, P = prompts.shape
     T = block.shape[1]
     positions = (P + torch.arange(T, dtype=torch.int32, device=block.device)
@@ -1108,7 +1335,8 @@ def kernel_logits_vs_plain(ops, eng, prompts, block, max_len):
             cache = eng.model.make_cache(B, max_len, dtype=torch.float32,
                                          device=block.device)
             pre = eng.model.forward(eng.tparams, prompts, mode="prefill",
-                                    cache=cache, collect_taps=False)
+                                    cache=cache, collect_taps=False,
+                                    head_last_only=last_only)
             ver = eng.model.forward(eng.tparams, block, mode="decode",
                                     positions=positions, cache=pre.cache,
                                     collect_taps=False)
@@ -2449,6 +2677,394 @@ def training_path(ops, dev):
                 launcher=rep)
 
 
+# ---------------------------------------------------------------------------
+# phases 6, 6b, 6c: the rest of the dense family (gemma2-27b, minitron-4b)
+# ---------------------------------------------------------------------------
+
+def free_card(dev, what):
+    """Drop what earlier phases left (their models are out of scope), and
+    log what is still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {what}: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+        f"allocated before loading")
+
+
+def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
+    """The bytes a run will hold, reckoned from the configs: target and
+    drafter weights, their contiguous KV caches at (B, max_len), and
+    dense_init's float32 temporaries of the largest matrix (the
+    vocab x d embedding: the draw and its scaled copy)."""
+    d, V, L, hd = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers, tcfg.head_dim
+    H, KV = tcfg.n_heads, tcfg.n_kv_heads
+    gated = tcfg.mlp_variant in ("swiglu", "geglu")
+    layer = 2 * d * H * hd + 2 * d * KV * hd + (3 if gated else 2) * d * tcfg.d_ff
+    target = (V * d * (1 if tcfg.tie_embeddings else 2) + L * layer) * dtype_bytes
+    dd, Hd, hdd = dcfg.d_model, dcfg.n_heads, dcfg.head_dim
+    drafter = (2 * V * dd + 3 * d * dd + 2 * dd * dd + dcfg.n_layers * (
+        4 * dd * Hd * hdd + 3 * dd * dcfg.d_ff)) * dtype_bytes
+    kv = (L * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * hdd) \
+        * 2 * B * max_len * dtype_bytes
+    tmp = 2 * V * d * 4
+    return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
+                kv_gb=kv / 1e9, init_temporaries_gb=tmp / 1e9,
+                total_gb=(target + drafter + kv + tmp) / 1e9)
+
+
+def near_ties(ref_eng, toks, ref, start, what, dev, tie=NEAR_TIE):
+    """Each row of ``toks`` equals ``ref`` (B, W) from ``start`` on, or
+    first parts where ``ref_eng``'s top-2 logit gap over the reference
+    context is below ``tie`` (phase 4's rule). Returns the rows that part."""
+    parted = []
+    for b in range(ref.shape[0]):
+        where = np.flatnonzero(toks[b, start:] != ref[b, start:])
+        if not len(where):
+            continue
+        pos = start + int(where[0])
+        ctx = torch.as_tensor(ref[b:b + 1, :pos], device=dev)
+        with torch.no_grad():
+            logits = ref_eng.model.forward(ref_eng.tparams, ctx,
+                                           collect_taps=False,
+                                           head_last_only=True).logits[0, -1]
+        top2 = logits.topk(2).values
+        gap = float(top2[0] - top2[1])
+        log(f"  {what}: row {b} first differs at position {pos}; the "
+            f"reference's top-2 logit gap there {gap:.3e}")
+        if gap >= tie:
+            fail(f"{what} row {b} differs at {pos} with top-2 gap {gap} >= "
+                 f"{tie}")
+        parted.append(b)
+    if not parted:
+        log(f"  {what}: every token equal")
+    return parted
+
+
+def dense_family_launches(cfg, n_d, iterations, chunk_lists, paged, n_ring):
+    """Attention launches of a Scheduler.serve: each iteration runs phase 1
+    of every target layer (the paged kernel for a pool, the decode kernel
+    for one of the ``n_ring`` rings) and phase 2 (decode), the drafter's
+    draft and extend (phase 1 paged or not, phase 2 decode); each admission
+    prefills its first chunk (flash per target layer, the drafter's extend:
+    2 decode per drafter layer) and runs each further chunk in decode mode
+    (2 per target and 2 per drafter layer). ``chunk_lists``: each
+    admission's chunk sizes."""
+    L = cfg.n_layers
+    per_it_paged = (L - n_ring + 2 * n_d) if paged else 0
+    per_it_decode = (L + 2 * n_d) + (n_ring if paged else L + 2 * n_d)
+    extra = sum(len(c) - 1 for c in chunk_lists)
+    return {"paged_decode_attention": iterations * per_it_paged,
+            "decode_attention": iterations * per_it_decode
+            + len(chunk_lists) * 2 * n_d + extra * 2 * (L + n_d),
+            "flash_attention": len(chunk_lists) * L, "mtp_attention": 0}
+
+
+def gemma2_path(ops, dev):
+    """Phase 6: full-width gemma2-27b in bfloat16 through Engine.run and a
+    paged Scheduler.serve under pool pressure (weights shared)."""
+    import dataclasses
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW, K, MAX_LEN, PAGE, POOL, N = 8, 512, 128, 5, 1024, 16, 224, 12
+    tcfg = get_config("gemma2-27b")
+    dcfg = DrafterConfig().resolve(tcfg)
+    log(f"phase 6: full-width gemma2-27b bfloat16 (46 layers, d 4608, 32/16 "
+        f"heads, d_ff 36864 GeGLU, vocab 256000, local 4096 / global, "
+        f"softcaps 50 / 30), 4-layer parallel drafter, batch {B}, prompt {P},"
+        f" max_new {NEW}, K {K}, max_len {MAX_LEN} (the window exceeds it: "
+        f"no layer is a ring)")
+    free_card(dev, "phase 6")
+    plan = memory_plan(tcfg, dcfg, B, MAX_LEN, 2)
+    log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = build_engine(arch="gemma2-27b", mode="parallel", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    torch.cuda.synchronize()
+    built_gb = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
+        f"{built_gb:.2f} GB allocated, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; drafter d "
+        f"{eng.dcfg.d_model} heads {eng.dcfg.n_heads}/{eng.dcfg.n_kv_heads} "
+        f"d_ff {eng.dcfg.d_ff}")
+    cfg, V = eng.tcfg, eng.tcfg.vocab_size
+    if eng.ring:
+        fail("gemma2 at max_len 1024 built a ring (its window is 4096)")
+    prompts = random_prompts(V, B, P, seed=0)
+    eng.run(prompts, max_iters=8)                      # cold run, 8 steps
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    r = eng.run(prompts)
+    counts = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = r["steps"]
+    log(f"  Engine.run warm: otps {r['otps']:.1f} tok/s, prefill "
+        f"{r['prefill_s']:.4f} s, decode {r['decode_s']:.4f} s over {steps} "
+        f"steps ({r['decode_s'] / steps * 1e3:.2f} ms/step), AL "
+        f"{r['acceptance_length']:.4f}, new tokens {r['new_tokens']}, peak "
+        f"memory {peak_gb:.2f} GB")
+    log(f"  launches: {counts}")
+    n_d = eng.dcfg.n_layers
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": 2 * n_d + steps * (2 * cfg.n_layers + 4 * n_d),
+            "paged_decode_attention": 0, "mtp_attention": 0}
+    if counts != want:
+        fail(f"gemma2 launch counts {counts} != expected {want}")
+    state = r["state"]
+    if not bool((state["new_count"] == NEW).all()):
+        fail(f"new_count {state['new_count'].tolist()} != {NEW}")
+    gen = torch.as_tensor(r["tokens"])[:, P:P + NEW]
+    if gen.min() < 0 or gen.max() >= V:
+        fail("gemma2 generated tokens out of range")
+    lp = state["logprobs"][:, P:P + NEW]
+    if not bool(torch.isfinite(lp).all()) or float(lp.max()) > 0:
+        fail("gemma2 logprobs are not finite log-probabilities")
+    if not (1.0 <= r["acceptance_length"] <= K + 1):
+        fail(f"gemma2 acceptance length {r['acceptance_length']}")
+    run = dict(otps=r["otps"], prefill_s=r["prefill_s"],
+               decode_s=r["decode_s"], steps=steps,
+               decode_ms_per_step=r["decode_s"] / steps * 1e3,
+               acceptance_length=r["acceptance_length"],
+               weights_gb=built_gb, peak_memory_gb=peak_gb, launches=counts,
+               memory_plan=plan)
+    del state, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 3b's first 12 requests on a paged twin sharing the weights
+    peng = Engine(cfg, eng.dcfg, eng.tparams, eng.dparams,
+                  dataclasses.replace(eng.ecfg, kv_layout="paged",
+                                      page_size=PAGE, pool_pages=POOL,
+                                      max_new_tokens=192), B, device=dev)
+    del eng
+    log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, "
+        f"incremental growth; phase 3b's first {N} requests (prompts "
+        f"256-640, budgets 64-192, Exp(1) arrival gaps)")
+    rng = np.random.default_rng(0)          # drawn as phase 3b draws them
+    lens = rng.integers(256, 641, 24)
+    budgets = rng.integers(64, 193, 24)[:N]
+    arrivals = np.cumsum(rng.exponential(1.0, 24))[:N]
+    sched_prompts = [rng.integers(0, V - 1, n).astype(np.int32)
+                     for n in lens][:N]
+    sched = Scheduler(peng, sync_every=1)
+    sched.serve([Request(p, max_new_tokens=8) for p in sched_prompts[:8]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    peng.allocator.reset_stats()
+    ops.reset_launches()
+    rep = sched.serve([Request(p, max_new_tokens=int(b), arrival_time=float(a))
+                       for p, b, a in zip(sched_prompts, budgets, arrivals)])
+    counts = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    it, pre = rep["iterations"], rep["preemptions"]
+    admissions = N + pre
+    log(f"  Scheduler.serve warm: otps {rep['otps']:.1f} tok/s, wall "
+        f"{rep['wall_s']:.3f} s ({rep['wall_s'] / it * 1e3:.2f} ms/iteration "
+        f"over {it}), otps_vt {rep['otps_vt']:.4f}, AL "
+        f"{rep['weighted_acceptance_length']:.4f}, preemptions {pre}, peak "
+        f"pages {rep['peak_pages']}/{POOL}, new tokens "
+        f"{rep['total_new_tokens']}, peak memory {peak_gb:.2f} GB")
+    log(f"  launches: {counts} ({counts['paged_decode_attention'] / it:.1f} "
+        f"paged a iteration)")
+    want = sched_launches_want(cfg, n_d, it, admissions)
+    if counts != want:
+        fail(f"gemma2 scheduler launch counts {counts} != expected {want}")
+    res = rep["results"]
+    if len(res) != N or len({x["rid"] for x in res}) != N:
+        fail(f"{len(res)} results for {N} requests")
+    for x, b in zip(res, budgets):
+        if x["n_new"] != b or len(x["tokens"]) != b:
+            fail(f"request {x['rid']} emitted {x['n_new']} tokens, budget {b}")
+        if x["tokens"].min() < 0 or x["tokens"].max() >= V:
+            fail(f"request {x['rid']} emitted tokens out of range")
+        if not (np.isfinite(x["logprobs"]).all() and x["logprobs"].max() <= 0):
+            fail(f"request {x['rid']} logprobs are not log-probabilities")
+    if not pre > 0:
+        fail("gemma2 serve: no request was preempted")
+    if peng.allocator.n_used != 0:
+        fail(f"{peng.allocator.n_used} pages still allocated after serve")
+    serve = {k: rep[k] for k in ("otps", "otps_vt", "wall_s", "iterations",
+                                 "total_new_tokens", "preemptions",
+                                 "weighted_acceptance_length", "peak_pages")}
+    serve.update(ms_per_iteration=rep["wall_s"] / it * 1e3,
+                 admissions=admissions, peak_memory_gb=peak_gb,
+                 launches=counts)
+    del peng, sched, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "serve": serve}
+
+
+def gemma2_rings(ops, dev, dtype="float32"):
+    """Phase 6b: gemma2-27b at full width cut to 4 layers (2 (local,
+    global) super-blocks), max_len 8192 and prompts of 4200-4800 tokens, so
+    the local layers' rings wrap in prefill and in decode. In float32: the
+    logits against the plain attention, parallel, ar and oracle drafts
+    against none, and the paged serve against the contiguous one, under
+    phase 4's near-tie rule. In bfloat16 (the dtype gemma2 serves in past
+    its window): parallel against none and the paged serve against the
+    contiguous one, under the bfloat16 near-tie rule."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.models.transformer import ring_length
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW, K, MAX_LEN = 2, 4500, 32, 5, 8192
+    f32 = dtype == "float32"
+    tie = NEAR_TIE if f32 else BF16_NEAR_TIE
+    tag = "6b" if f32 else "6b bf16"
+    log(f"phase {tag}: gemma2-27b {dtype}, full width, 4 of 46 layers (a cut"
+        f": 46 in float32 are ~109 GB; in bfloat16 phase 6 runs all 46), "
+        f"max_len {MAX_LEN}, batch {B}, prompt {P}, max_new {NEW}, K {K}, "
+        f"near tie {tie}")
+    free_card(dev, f"phase {tag}")
+    eng = build_engine(arch="gemma2-27b", n_layers=4, dtype=dtype,
+                       mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
+    cfg, V = eng.tcfg, eng.tcfg.vocab_size
+    rings = [ring_length(cfg, li, MAX_LEN, K + 1) for li in range(4)]
+    log(f"  ring slots per layer {rings} (0: full length); weights "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+    if rings != [4096 + K + 1, 0, 4096 + K + 1, 0] or not eng.ring:
+        fail(f"gemma2 rings {rings}")
+
+    def twin(**kw):
+        ecfg = dataclasses.replace(eng.ecfg, **kw)
+        use_d = ecfg.drafter_mode != "none"
+        return Engine(cfg, eng.dcfg if use_d else None, eng.tparams,
+                      eng.dparams if use_d else None, ecfg, B, device=dev)
+
+    none = twin(drafter_mode="none", K=0)
+    prompts = random_prompts(V, B, P, seed=1)
+    toks = {}
+    modes = [("none", none), ("parallel", eng)]
+    if f32:
+        modes.append(("ar", twin(drafter_mode="ar")))
+    for name, e in modes:
+        r = e.run(prompts)
+        toks[name] = r["tokens"]
+        log(f"  {name:8s} steps {r['steps']:3d} AL "
+            f"{r['acceptance_length']:.3f} prefill {r['prefill_s']:.3f} s "
+            f"decode {r['decode_s']:.3f} s")
+    kpos = r["state"]["tcache"]["blocks"][0]["positions"]
+    if not (int(kpos.max()) >= P + NEW - 1 and bool(
+            (kpos[0].argsort() != torch.arange(kpos.shape[1],
+                                               device=dev)).any())):
+        fail(f"{tag}: the local layer's ring did not wrap")
+    del r
+    oracle_al = None
+    for mode in toks:
+        if mode != "none":
+            near_ties(none, toks[mode][:, :P + NEW],
+                      toks["none"][:, :P + NEW], P, f"{tag} {mode}", dev, tie)
+    if f32:
+        oracle_al = gemma2_oracle(ops, eng, none, prompts, toks["none"], P,
+                                  NEW, K, MAX_LEN, dev)
+
+    # Scheduler.serve, paged (per-slot rings beside the global layers'
+    # pools) against contiguous, prompts of 4200 and 4800 tokens admitted in
+    # power-of-two chunks
+    lens = (4200, 4800)
+    sp = [np.random.default_rng(3 + i).integers(0, V - 1, n).astype(np.int32)
+          for i, n in enumerate(lens)]
+    out = {}
+    for layout in ("contiguous", "paged"):
+        e = twin(kv_layout=layout, page_size=16)
+        ops.reset_launches()
+        rep = Scheduler(e).serve([Request(p, max_new_tokens=NEW, rid=i)
+                                  for i, p in enumerate(sp)])
+        counts = dict(ops.launches)
+        chunks = [e.prefill_buckets(n) for n in lens]
+        want = dense_family_launches(cfg, e.dcfg.n_layers, rep["iterations"],
+                                     chunks, layout == "paged",
+                                     sum(1 for n in rings if n))
+        log(f"  Scheduler.serve {layout}: iterations {rep['iterations']}, "
+            f"chunks {chunks}, launches {counts}")
+        if rep["preemptions"] or counts != want:
+            fail(f"{tag} {layout} serve: {rep['preemptions']} preemptions, "
+                 f"launches {counts} != {want}")
+        out[layout] = [np.concatenate([p, x["tokens"]])[None]
+                       for p, x in zip(sp, rep["results"])]
+        del e
+    for i, n in enumerate(lens):
+        near_ties(none, out["paged"][i], out["contiguous"][i], n,
+                  f"{tag} paged vs contiguous serve, request {i}", dev, tie)
+    del eng, none
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dtype": dtype, "ring_slots": rings, "oracle_al": oracle_al,
+            "serve_chunks": [Engine.prefill_buckets(n) for n in lens]}
+
+
+def gemma2_oracle(ops, eng, none, prompts, ref, P, NEW, K, MAX_LEN, dev):
+    """Phase 6b's float32 checks beyond parallel: oracle drafts (a fifth
+    spoiled) lift AL above ORACLE_MIN_AL with every token equal to none's
+    under the near-tie rule, and the logits through the kernels match the
+    plain attention over the wrapped rings. Returns the oracle AL."""
+    V = eng.tcfg.vocab_size
+    bad = np.random.default_rng(2).random(ref.shape) < 0.2
+    table = np.where(bad, (ref + 1) % (V - 1), ref)
+    with oracle_drafts(torch.as_tensor(table, dtype=torch.int32, device=dev)):
+        r = eng.run(prompts)
+    oracle_al = r["acceptance_length"]
+    log(f"  oracle   steps {r['steps']:3d} AL {oracle_al:.3f}")
+    if not oracle_al > ORACLE_MIN_AL:
+        fail(f"oracle drafts reached AL {oracle_al}")
+    near_ties(none, r["tokens"][:, :P + NEW], ref[:, :P + NEW], P,
+              "6b oracle", dev)
+    del r
+    kernel_logits_vs_plain(
+        ops, none, torch.as_tensor(prompts, device=dev),
+        torch.as_tensor(ref[:, P:P + K + 1], device=dev), MAX_LEN,
+        last_only=True)
+    return oracle_al
+
+
+def minitron_path(ops, dev):
+    """Phase 6c: minitron-4b float32 at full width, all 32 layers (ReLU²
+    MLP, untied head): greedy parallel equals none."""
+    import dataclasses
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    B, P, NEW, K, MAX_LEN = 4, 256, 32, 5, 512
+    tcfg = get_config("minitron-4b")
+    log(f"phase 6c: minitron-4b float32, full width (32 layers, d 3072, "
+        f"24/8 heads, d_ff 9216 ReLU², untied head), batch {B}, prompt {P}, "
+        f"max_new {NEW}, K {K}")
+    free_card(dev, "phase 6c")
+    plan = memory_plan(tcfg, DrafterConfig().resolve(tcfg), B, MAX_LEN, 4)
+    log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
+    eng = build_engine(arch="minitron-4b", dtype="float32", mode="parallel",
+                       K=K, max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
+                       device=dev)
+    if "lm_head" not in eng.tparams:
+        fail("minitron-4b built no untied lm_head")
+    none = Engine(eng.tcfg, None, eng.tparams, None,
+                  dataclasses.replace(eng.ecfg, drafter_mode="none", K=0), B,
+                  device=dev)
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=1)
+    ops.reset_launches()
+    r = eng.run(prompts)
+    counts = dict(ops.launches)
+    n_d, L = eng.dcfg.n_layers, eng.tcfg.n_layers
+    want = {"flash_attention": L,
+            "decode_attention": 2 * n_d + r["steps"] * (2 * L + 4 * n_d),
+            "paged_decode_attention": 0, "mtp_attention": 0}
+    log(f"  parallel steps {r['steps']} AL {r['acceptance_length']:.3f}, "
+        f"launches {counts}")
+    if counts != want:
+        fail(f"minitron launch counts {counts} != {want}")
+    ref = none.run(prompts)
+    near_ties(none, r["tokens"][:, :P + NEW], ref["tokens"][:, :P + NEW], P,
+              "6c parallel vs none", dev)
+    del eng, none, r, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts, "memory_plan": plan}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2488,19 +3104,31 @@ def main() -> int:
 
 
 def run_phases(ops, dev) -> list:
-    """Phases 2-5 on ``dev``; returns the kernels' JSON rows."""
+    """Phases 2-6c on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst, measured = check_kernels(ops, dev)
-    path = main_path(ops, dev)
-    sched = scheduler_path(ops, dev)
-    greedy_ref = losslessness(ops, dev)
-    sampled = sampled_path(ops, dev, path, sched, greedy_ref)
-    policies = policy_path(ops, dev, sched)
-    policies["losslessness"] = policy_losslessness(dev)
-    front = streaming_path(ops, dev, sched)
-    front["losslessness"] = streaming_losslessness(dev, greedy_ref)
-    train = training_path(ops, dev)
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        what = " ".join([fn.__name__] + [x for x in a if isinstance(x, str)])
+        log(f"({what}: {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    worst, measured, g2_worst, pending = timed(check_kernels, ops, dev)
+    path = timed(main_path, ops, dev)
+    sched = timed(scheduler_path, ops, dev)
+    greedy_ref = timed(losslessness, ops, dev)
+    sampled = timed(sampled_path, ops, dev, path, sched, greedy_ref)
+    policies = timed(policy_path, ops, dev, sched)
+    policies["losslessness"] = timed(policy_losslessness, dev)
+    front = timed(streaming_path, ops, dev, sched)
+    front["losslessness"] = timed(streaming_losslessness, dev, greedy_ref)
+    train = timed(training_path, ops, dev)
+    gemma2 = timed(gemma2_path, ops, dev)
+    gemma2["rings"] = timed(gemma2_rings, ops, dev)
+    gemma2["rings_bf16"] = timed(gemma2_rings, ops, dev, "bfloat16")
+    minitron = timed(minitron_path, ops, dev)
+    timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
     sources = {name: f"{csrc}/{name}.cu" for name in (
@@ -2517,16 +3145,34 @@ def run_phases(ops, dev) -> list:
     launches = dict(path["launches"],
                     paged_decode_attention=sched["launches"][
                         "paged_decode_attention"])
+    # each kernel's gemma2-27b numbers: its launches in phase 6 (Engine.run
+    # for decode and flash, Scheduler.serve for paged) and its time at
+    # gemma2's main shape, softcap 50, beside flex_attention's
+    g2_shape = {"decode_attention": "gemma2 target verify phase 1",
+                "paged_decode_attention": "gemma2 target verify phase 1",
+                "flash_attention": "gemma2 target prefill"}
+    g2_launches = dict(gemma2["run"]["launches"],
+                       paged_decode_attention=gemma2["serve"]["launches"][
+                           "paged_decode_attention"])
     kernels = []
     for name in ("decode_attention", "paged_decode_attention",
                  "flash_attention"):
         m = measured[(name, main_shape[name])]
+        g2 = measured[(name, g2_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": worst[name], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "shape": main_shape[name]})
+            "library_ms": m["library_ms"],
+            "library": m.get("library", "scaled_dot_product_attention"),
+            "shape": main_shape[name],
+            "gemma2": {"shape": g2_shape[name], "launches": g2_launches[name],
+                       "max_abs_err": g2_worst[name], "ms": g2["ms"],
+                       "plain_ms": g2["plain_ms"], "bound_ms": g2["bound_ms"],
+                       "bound_by": g2["bound_by"],
+                       "library_ms": g2["library_ms"],
+                       "library": "flex_attention"}})
     # the MTP kernel: timed at the training shape in float32, the dtype the
     # training path gives it; launches over both training paths of phase 5
     mtp_shape = ("training shape n 2048 K 8 r 0.8", "float32")
@@ -2553,6 +3199,11 @@ def run_phases(ops, dev) -> list:
         {key[1]: v for key, v in measured.items()
          if key[0] == "paged_decode_attention"}))
     log(f"training: {json.dumps(train)}")
+    log(f"gemma2-27b: {json.dumps(gemma2)}")
+    log(f"minitron-4b: {json.dumps(minitron)}")
+    log("gemma2 kernel timing: " + json.dumps(
+        {f"{k[0]} {k[1]}": v for k, v in measured.items()
+         if isinstance(k, tuple) and k[1].startswith("gemma2")}))
     log("mtp_attention timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured["mtp_attention"].items()}))
     return kernels

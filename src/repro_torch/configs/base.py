@@ -96,6 +96,9 @@ class ModelConfig:
     def q_scale(self) -> float:
         return self.query_scale if self.query_scale is not None else self.head_dim ** -0.5
 
+    def attn_kind(self, layer_idx: int) -> str:
+        return self.attn_pattern[layer_idx % len(self.attn_pattern)]
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -56,7 +56,8 @@ def _scan_layers(tree: dict, cfg: ModelConfig):
 def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
                   dtype: Optional[torch.dtype] = None) -> dict:
     """JAX ``models/transformer.init_params`` tree -> the port's layout.
-    ``dtype`` casts the weights (norms stay float32)."""
+    ``dtype`` casts the weights (norms, post-norms included, stay
+    float32); an untied ``lm_head`` comes along."""
     def conv(a):
         return tensor(a, device, dtype)
 
@@ -64,11 +65,15 @@ def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
     for sub, sb in _scan_layers(jparams, cfg):
         layer = (_map(sub, conv) if sb is None
                  else _layer(sub, sb, device, dtype))
-        for norm in ("ln1", "ln2"):
-            layer[norm] = layer[norm].float()
+        for norm in ("ln1", "ln2", "pn1", "pn2"):
+            if norm in layer:
+                layer[norm] = layer[norm].float()
         blocks.append(layer)
-    return {"embed": conv(jparams["embed"]), "blocks": blocks,
-            "final_norm": tensor(jparams["final_norm"], device, torch.float32)}
+    out = {"embed": conv(jparams["embed"]), "blocks": blocks,
+           "final_norm": tensor(jparams["final_norm"], device, torch.float32)}
+    if "lm_head" in jparams:
+        out["lm_head"] = conv(jparams["lm_head"])
+    return out
 
 
 def drafter_params(jparams: dict, *, device="cpu",
@@ -100,7 +105,9 @@ def _layer_cache(c: dict, i: Optional[int], device) -> dict:
 
 
 def target_cache(jcache: dict, cfg: ModelConfig, *, device="cpu") -> dict:
-    """JAX ``models/transformer.make_cache`` tree -> ``{"blocks": [...]}``."""
+    """JAX ``models/transformer.make_cache`` tree -> ``{"blocks": [...]}``.
+    A ring keeps the JAX package's length (``window`` slots), not the
+    port's ``window + block``; each layer keeps its own ring flag."""
     return {"blocks": [_layer_cache(sub, sb, device)
                        for sub, sb in _scan_layers(jcache, cfg)]}
 

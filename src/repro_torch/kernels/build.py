@@ -36,10 +36,10 @@ _FLT = ctypes.c_float
 SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
                          [_PTR] * 11 + [_INT] * 6
-                         + [_FLT] + [_INT] * 6 + [_PTR]),
+                         + [_FLT, _INT, _FLT] + [_INT] * 5 + [_PTR]),
     "paged_decode_attention": ("paged_decode_attention_launch",
                                [_PTR] * 12 + [_INT] * 8
-                               + [_FLT] + [_INT] * 6 + [_PTR]),
+                               + [_FLT, _INT, _FLT] + [_INT] * 5 + [_PTR]),
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 4 + [_INT] * 6 + [_FLT, _INT, _INT, _FLT,
                                                    _INT, _INT, _PTR]),

@@ -8,7 +8,10 @@
 // first position masked by the caller), phase 2 against the current block
 // with k_positions = positions. Unlike the TPU kernel it also returns the
 // online-softmax stats (m, l) in (B, KV, G, T), which the phase merge needs,
-// and it takes any T (the drafter's prefill extend sends the whole prompt).
+// and it takes any T (the drafter's prefill extend sends the whole prompt)
+// and an optional tanh logit softcap: the TPU kernel has none, but the JAX
+// model's decode attention caps its scores (gemma2), and this kernel
+// computes that.
 //
 // What bounds it on this card: bytes. A target verify launch (B 8, T 6,
 // 12 heads over 2 KV heads, hd 128, 1024 cache slots, 576 live) moves
@@ -34,8 +37,8 @@ extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* k_positions,
     const void* q_positions, void* out, void* m_out, void* l_out, void* po,
     void* pm, void* pl, int B, int T, int H, int KV, int S, int hd,
-    float scale, int window, int nsplit, int chunk, int key_tile,
-    int row_tile, int is_bf16, void* stream) {
+    float scale, int window, float softcap, int nsplit, int chunk,
+    int key_tile, int row_tile, int is_bf16, void* stream) {
   constexpr int kRows = 16;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
@@ -47,7 +50,7 @@ extern "C" int decode_attention_launch(
         static_cast<const int*>(q_positions), static_cast<__nv_bfloat16*>(out),
         static_cast<float*>(m_out), static_cast<float*>(l_out),
         static_cast<float*>(po), static_cast<float*>(pm), static_cast<float*>(pl),
-        B, T, H, KV, S, window, nsplit, chunk, scale,
+        B, T, H, KV, S, window, nsplit, chunk, scale, softcap,
         /*block_table=*/nullptr, /*page=*/0, /*n_pages=*/0};
     return repro_decode_tc::launch</*PAGED=*/false>(p, hd, st);
   }
@@ -56,6 +59,6 @@ extern "C" int decode_attention_launch(
       static_cast<const float*>(v), static_cast<const int*>(k_positions),
       static_cast<const int*>(q_positions), static_cast<float*>(out),
       static_cast<float*>(m_out), static_cast<float*>(l_out),
-      B, T, H, KV, S, S, /*causal=*/1, window, scale, /*softcap=*/0.f};
+      B, T, H, KV, S, S, /*causal=*/1, window, scale, softcap};
   return repro_attn::launch<kRows>(p, hd, st);
 }

@@ -27,7 +27,9 @@
 // a two-stage cp.async ring in bf16; each of the 4 warps holds 16 rows'
 // Q fragments in registers, S = Q·Kᵀ and the hi/lo P·V (tc_common.cuh) run
 // on mma.sync m16n8k16, and the positional mask (kp >= 0, kp <= qp, the
-// window) is evaluated per key. With one split the block normalises and
+// window) is evaluated per key, after the scale and the optional tanh
+// softcap (gemma2's 50; `cap_tanh`, two MUFU ops a score, in the JAX
+// model's blocked_attention(logit_cap=) order). With one split the block normalises and
 // writes out and (m, l) itself; otherwise it writes its unnormalised f32
 // partial o and (m, l) per (split, row) to scratch the wrapper allocated.
 // Pass 2, the combine: each split's partial is rescaled by exp(m_i - m),
@@ -184,6 +186,7 @@ struct Params {
   float* pl;          // (B * KV, nsplit, G * T) partial l
   int B, T, H, KV, S, window, nsplit, chunk;
   float scale;
+  float softcap;           // > 0: scores become softcap * tanh(s / softcap)
   const int* block_table;  // (B, S / page) pool page ids (paged only)
   int page, n_pages;       // slots a page, pages in the pool (paged only)
 };
@@ -313,6 +316,7 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, tq = lane & 3;
   const bool active = row0 + warp * 16 < nrows;   // warp has a real row
   const int qp_a = qp_s[warp * 16 + g], qp_b = qp_s[warp * 16 + g + 8];
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
 
   for (int it = 0; it < nlive; ++it) {
     const int ahead = it + kStages - 1;
@@ -326,13 +330,17 @@ __global__ void __launch_bounds__(kThreads)
       float s[kBK / 8][4];
       qk_tile<HD, kBK>(s, qf, k_s + stage * kBK * ST, ST, lane);
       const int* kps = kp_s + stage * kBK;
+      // the scaled score, capped before the mask and the exponent (as
+      // flash_tc.cuh does); m and l stay in the capped units
 #pragma unroll
       for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = kps[nt * 8 + 2 * tq + (e & 1)];
           const bool ok = visible(kp, (e >> 1) ? qp_b : qp_a, p.window);
-          s[nt][e] = ok ? s[nt][e] * p.scale : masked_score();
+          float x = s[nt][e] * p.scale;
+          if (p.softcap > 0.f) x = cap_tanh(x * inv_cap, p.softcap);
+          s[nt][e] = ok ? x : masked_score();
         }
       online_softmax<HD, kBK>(s, m, l, o, kLog2e);
       pv_tile<HD, kBK>(o, s, v_s + stage * kBK * ST, ST, lane);

@@ -248,6 +248,7 @@ __global__ void __launch_bounds__(kThreads)
   // the scale rides in the exponent (f32) unless the softcap needs the
   // scaled score first; m is then in raw units, which nothing reads
   const float mult = softcap > 0.f ? kLog2e : p.scale * kLog2e;
+  const float cap_mult = softcap > 0.f ? p.scale / softcap : 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int tile = t_begin + it;
@@ -280,7 +281,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e];
-        if (softcap > 0.f) x = softcap * tanhf(x * p.scale / softcap);
+        if (softcap > 0.f) x = cap_tanh(x * cap_mult, softcap);
         if (edge) {
           const int kj = k0 + nt * 8 + 2 * tq + (e & 1);
           const int qi = qi0 + (e >> 1) * 8;

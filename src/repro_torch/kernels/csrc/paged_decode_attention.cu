@@ -11,7 +11,8 @@
 // been invalidated in the row's pages by the caller; phase 2 (the current
 // block) stays with decode_attention. Like the port's decode kernel, and
 // unlike the TPU kernel, it also returns the online-softmax stats (m, l) in
-// (B, KV, G, T) for the phase merge.
+// (B, KV, G, T) for the phase merge, and it takes decode_attention.cu's
+// optional tanh logit softcap.
 //
 // What bounds it on this card: bytes, as for decode_attention (a target
 // verify launch at batch 8 reads ~5 MB of live K/V for ~9 MFLOP). Key j of
@@ -39,8 +40,8 @@ extern "C" int paged_decode_attention_launch(
     const void* pos_pool, const void* block_table, const void* q_positions,
     void* out, void* m_out, void* l_out, void* po, void* pm, void* pl, int B,
     int T, int H, int KV, int n_pages, int page, int nb, int hd, float scale,
-    int window, int nsplit, int chunk, int key_tile, int row_tile,
-    int is_bf16, void* stream) {
+    int window, float softcap, int nsplit, int chunk, int key_tile,
+    int row_tile, int is_bf16, void* stream) {
   constexpr int kRows = 16;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = nb * page;   // keys a row addresses through its table
@@ -55,7 +56,8 @@ extern "C" int paged_decode_attention_launch(
         static_cast<__nv_bfloat16*>(out), static_cast<float*>(m_out),
         static_cast<float*>(l_out), static_cast<float*>(po),
         static_cast<float*>(pm), static_cast<float*>(pl), B, T, H, KV, S,
-        window, nsplit, chunk, scale, static_cast<const int*>(block_table),
+        window, nsplit, chunk, scale, softcap,
+        static_cast<const int*>(block_table),
         page, n_pages};
     return repro_decode_tc::launch</*PAGED=*/true>(p, hd, st);
   }
@@ -64,7 +66,7 @@ extern "C" int paged_decode_attention_launch(
       static_cast<const float*>(v_pool), static_cast<const int*>(pos_pool),
       static_cast<const int*>(q_positions), static_cast<float*>(out),
       static_cast<float*>(m_out), static_cast<float*>(l_out), B, T, H, KV, S,
-      S, /*causal=*/1, window, scale, /*softcap=*/0.f,
+      S, /*causal=*/1, window, scale, softcap,
       static_cast<const int*>(block_table), page, n_pages};
   return repro_attn::launch<kRows>(p, hd, st);
 }

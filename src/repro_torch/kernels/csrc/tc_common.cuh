@@ -44,6 +44,23 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// 1/x in one MUFU.RCP (1/inf = +0)
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cap * tanh(y) for the bfloat16 bodies, y the scaled score over the cap:
+// tanh(y) = 1 - 2 / (1 + 2^(2 y log2 e)) in one MUFU.EX2 and one MUFU.RCP
+// (2^+big = inf gives cap, 2^-big = 0 gives -cap). Its absolute error is
+// about 1e-6 of the cap, far inside bfloat16's rounding; tanhf after an
+// IEEE division costs several times the instructions a score, more than
+// the softmax itself. The float32 body keeps tanhf.
+__device__ __forceinline__ float cap_tanh(float y, float cap) {
+  return cap - 2.f * cap * rcp(1.f + ex2(2.f * kLog2e * y));
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -41,7 +41,7 @@ launches: Dict[str, int] = {"decode_attention": 0,
                             "flash_attention": 0, "mtp_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -61,8 +61,8 @@ def _check_operands(q, k, v, per_row=True):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS or k.shape[-1] != q.shape[-1]:
-        raise ValueError(f"head_dim must be one of {_HEAD_DIMS}, got "
+    if q.shape[-1] not in HEAD_DIMS or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got "
                          f"{q.shape[-1]}/{k.shape[-1]}")
     if (q.dim() != 4 or k.dim() != 4 or q.shape[2] % k.shape[2]
             or k.shape != v.shape or (per_row and q.shape[0] != k.shape[0])):
@@ -95,14 +95,15 @@ def _raise_on(lib, err: int, name: str):
 # ---------------------------------------------------------------------------
 
 def decode_attention_plain(q, k, v, k_positions, q_positions, *, scale,
-                           window=0, return_stats=False):
+                           window=0, softcap=0.0, return_stats=False):
     """Plain version of the decode kernel: q (B,T,H,hd) against k/v
     (B,S,KV,hd) holding absolute positions k_positions (B,S) (-1 = empty),
-    queries at q_positions (B,T). Returns out (B,T,H,hd), and with
-    return_stats the f32 (m, l), each (B, KV, G, T)."""
+    queries at q_positions (B,T), scores capped at ``softcap * tanh(s /
+    softcap)`` (0: no cap). Returns out (B,T,H,hd), and with return_stats
+    the f32 (m, l), each (B, KV, G, T)."""
     mask = L.cache_mask_fn(q_positions, k_positions, window=window)
     out, m, l = L.blocked_attention(q, k, v, scale=scale, mask_fn=mask,
-                                    return_stats=True)
+                                    logit_cap=softcap, return_stats=True)
     return (out, m, l) if return_stats else out
 
 
@@ -159,13 +160,14 @@ def _split_k(q, S, KV):
 
 
 def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
-                     return_stats=False):
+                     softcap=0.0, return_stats=False):
     """Decode attention (see ``decode_attention_plain``): the CUDA kernel of
     ``csrc/decode_attention.cu`` for CUDA tensors, split across the cache
     slots by ``decode_split`` in bfloat16."""
     if _device_kind(q) == "cpu":
         return decode_attention_plain(q, k, v, k_positions, q_positions,
                                       scale=scale, window=window,
+                                      softcap=softcap,
                                       return_stats=return_stats)
     _check_operands(q, k, v)
     B, T, H, hd = q.shape
@@ -180,8 +182,8 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_positions.data_ptr(),
         q_positions.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-        *scratch, B, T, H, KV, S, hd, float(scale), int(window), nsplit,
-        chunk, DECODE_KEY_TILE, DECODE_ROW_TILE,
+        *scratch, B, T, H, KV, S, hd, float(scale), int(window),
+        float(softcap), nsplit, chunk, DECODE_KEY_TILE, DECODE_ROW_TILE,
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["decode_attention"] += 1
@@ -195,7 +197,7 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
 
 def paged_decode_attention_plain(q, k_pool, v_pool, pos_pool, block_table,
                                  q_positions, *, scale, window=0,
-                                 return_stats=False):
+                                 softcap=0.0, return_stats=False):
     """Plain version of the paged decode kernel: q (B,T,H,hd) against the
     pages each row's block table (B, nb) names in the pool k/v (NP, page,
     KV, hd) with positions pos_pool (NP, page) (-1 = empty). Entries
@@ -206,11 +208,11 @@ def paged_decode_attention_plain(q, k_pool, v_pool, pos_pool, block_table,
     return decode_attention_plain(
         q, L.paged_view(k_pool, block_table),
         L.paged_view(v_pool, block_table), kpos, q_positions, scale=scale,
-        window=window, return_stats=return_stats)
+        window=window, softcap=softcap, return_stats=return_stats)
 
 
 def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
-                           q_positions, *, scale, window=0,
+                           q_positions, *, scale, window=0, softcap=0.0,
                            return_stats=False):
     """Paged decode attention (see ``paged_decode_attention_plain``): the
     CUDA kernel of ``csrc/paged_decode_attention.cu`` for CUDA tensors,
@@ -220,7 +222,8 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
     if _device_kind(q) == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, pos_pool, block_table, q_positions,
-            scale=scale, window=window, return_stats=return_stats)
+            scale=scale, window=window, softcap=softcap,
+            return_stats=return_stats)
     _check_operands(q, k_pool, v_pool, per_row=False)
     B, T, H, hd = q.shape
     NP, page, KV = k_pool.shape[:3]
@@ -237,7 +240,8 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos_pool.data_ptr(), block_table.data_ptr(), q_positions.data_ptr(),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), *scratch, B, T, H, KV,
-        NP, page, nb, hd, float(scale), int(window), nsplit, chunk,
+        NP, page, nb, hd, float(scale), int(window), float(softcap), nsplit,
+        chunk,
         DECODE_KEY_TILE, DECODE_ROW_TILE, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["paged_decode_attention"] += 1

@@ -42,19 +42,22 @@ def attention_reference(q, k, v, *, scale, causal=True, window=0,
     return _attend(q, k, v, ok, scale, softcap)
 
 
-def decode_reference(q, k, v, k_positions, q_positions, *, scale, window=0):
+def decode_reference(q, k, v, k_positions, q_positions, *, scale, window=0,
+                     softcap=0.0):
     """q (B,T,H,hd) against cache k/v (B,S,KV,hd) with per-slot absolute
-    positions (B,S) (-1 = empty) and query positions (B,T)."""
+    positions (B,S) (-1 = empty) and query positions (B,T); scores capped
+    at ``softcap`` (0: none; the JAX oracle has no cap, the JAX model's
+    decode does)."""
     kp = k_positions[:, None, :]
     qp = q_positions[:, :, None]
     ok = (kp <= qp) & (kp >= 0)
     if window > 0:
         ok &= (qp - kp) < window
-    return _attend(q, k, v, ok[:, None, None], scale)
+    return _attend(q, k, v, ok[:, None, None], scale, softcap)
 
 
 def paged_decode_reference(q, k_pool, v_pool, pos_pool, block_table,
-                           q_positions, *, scale, window=0):
+                           q_positions, *, scale, window=0, softcap=0.0):
     """Paged decode: each row's contiguous view gathered from the pool
     (unallocated entries read page 0 with positions -1), then the dense
     decode reference on it."""
@@ -68,7 +71,7 @@ def paged_decode_reference(q, k_pool, v_pool, pos_pool, block_table,
     kpos = torch.where((block_table < 0).repeat_interleave(page, dim=1), -1,
                        view(pos_pool))
     return decode_reference(q, view(k_pool), view(v_pool), kpos, q_positions,
-                            scale=scale, window=window)
+                            scale=scale, window=window, softcap=softcap)
 
 
 def mtp_reference(q, k, v, pos, depth, *, scale):

@@ -1,9 +1,10 @@
 """Where a serving step's time goes on the card: profile a window of
 decode steps of the full-width engine with ``torch.profiler``.
 
-Builds the engine as ``launch/serve.py`` does (qwen2-1.5b bfloat16, 4-layer
-parallel drafter, batch 8, 512-token prompts), prefills, runs warm-up
-steps, then times 16 unprofiled steps and profiles 16 more. With
+Builds the engine as ``launch/serve.py`` does (``--arch``, default
+qwen2-1.5b, bfloat16, 4-layer parallel drafter, batch 8, 512-token
+prompts), prefills, runs warm-up steps, then times 16 unprofiled steps and
+profiles 16 more. With
 ``--kv-layout paged`` the cache is a page pool (page 16, pages reserved up
 front) and each prompt is admitted into its slot as the scheduler admits
 it, so the steps are the scheduler's steps without its host loop. Prints, per
@@ -25,6 +26,7 @@ the verification (step keys, their split, the K uniforms, the resample and
 bonus draws over V) and, with ``--draft-sampling``, the K draft draws.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--kv-layout paged]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch gemma2-27b
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --temperature 0.8 --top-k 50 --top-p 0.95 [--draft-sampling]
 """
@@ -37,6 +39,7 @@ import time
 import torch
 
 from repro_torch import prng
+from repro_torch.configs import ARCH_IDS
 from repro_torch.core import spec_decode as SD
 from repro_torch.launch.serve import (build_engine, random_prompts,
                                       request_policy)
@@ -103,6 +106,7 @@ def sampled_lane_ms(eng, sp, draft_sampling: bool) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS)
     ap.add_argument("--mode", default="parallel", choices=("parallel", "ar", "none"))
     ap.add_argument("--kv-layout", default="contiguous",
                     choices=("contiguous", "paged"))
@@ -121,7 +125,8 @@ def main(argv=None):
                               seed=args.seed)
 
     max_new = WARMUP + 2 * steps + 2
-    eng = build_engine(mode=args.mode, batch=BATCH, seed=0, max_new=max_new,
+    eng = build_engine(arch=args.arch, mode=args.mode, batch=BATCH, seed=0,
+                       max_new=max_new,
                        max_len=-(-(PROMPT + max_new + 6) // 16) * 16,
                        kv_layout=args.kv_layout,
                        kv_growth="upfront", sampling=policy(0),
@@ -167,7 +172,8 @@ def main(argv=None):
         g[0] += count
         g[1] += us
     report = {
-        "device": torch.cuda.get_device_name(0), "mode": args.mode,
+        "device": torch.cuda.get_device_name(0), "arch": args.arch,
+        "mode": args.mode,
         "kv_layout": args.kv_layout, "temperature": args.temperature,
         "top_k": args.top_k, "top_p": args.top_p,
         "draft_sampling": args.draft_sampling,

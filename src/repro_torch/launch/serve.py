@@ -22,7 +22,8 @@ round-based baseline (``serve_round_based``: whole rounds of ``--batch``
 prompts, on a contiguous engine sharing the weights, under the engine's
 default policy) and reports its OTPS, rounds and AL beside the scheduler's.
 
-The target is full-width qwen2-1.5b in bfloat16 with a 4-layer parallel
+The target is ``--arch`` (default qwen2-1.5b; gemma2-27b, minitron-4b and,
+on the CPU, gemma-7b too) at full width in bfloat16 with a 4-layer parallel
 drafter, both with random weights drawn from ``--seed``; prompts are random
 tokens from the same seed and arrive with Exp(``--mean-gap``) gaps on the
 virtual clock (0: all at once). The KV cache is paged on the card and
@@ -42,6 +43,8 @@ repeated and the last (warm) run is reported.
         --prompt-len 256 --prefix-cache --swap host --adaptive-k
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 \
         --mean-gap 1 --round-based       # continuous against round-based
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
+        --requests 12 --mean-gap 1      # gemma2-27b, full width, on the card
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.configs import DrafterConfig, get_config
+from repro_torch.configs import ARCH_IDS, DrafterConfig, get_config
 from repro_torch.core import drafter as D
 from repro_torch.models.registry import get_model
 from repro_torch.serving.engine import Engine, EngineConfig, resolve_device
@@ -61,24 +64,28 @@ from repro_torch.serving.scheduler import (Request, Scheduler,
                                            serve_round_based)
 
 
-def build_engine(*, reduced=False, dtype=None, mode="parallel", K=5,
-                 max_new=128, max_len=1024, batch=8, seed=0, device="cuda",
-                 kv_layout="contiguous", page_size=16, pool_pages=0,
-                 kv_growth="incremental", sampling=None,
-                 draft_sampling=False, prefix_cache=False, swap="none",
-                 host_pool_bytes=0):
-    """qwen2-1.5b + the 4-layer drafter with seeded random weights, wrapped
-    in an Engine. ``dtype`` defaults to bfloat16 at full width and float32
-    reduced; ``sampling`` is the engine's default policy (None: greedy)."""
+def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
+                 dtype=None, mode="parallel", K=5, max_new=128, max_len=1024,
+                 batch=8, seed=0, device="cuda", kv_layout="contiguous",
+                 page_size=16, pool_pages=0, kv_growth="incremental",
+                 sampling=None, draft_sampling=False, prefix_cache=False,
+                 swap="none", host_pool_bytes=0):
+    """The target ``arch`` + the 4-layer drafter with seeded random weights,
+    wrapped in an Engine. ``n_layers`` cuts the target's depth (widths stay
+    the published ones). ``dtype`` defaults to bfloat16 at full width and
+    float32 reduced; ``sampling`` is the engine's default policy (None:
+    greedy). A target the device's kernels cannot serve raises before any
+    weight is made."""
     dev = resolve_device(device)
-    tcfg = get_config("qwen2-1.5b")
+    tcfg = get_config(arch)
     if reduced:
         tcfg = tcfg.reduced()
     dtype = dtype or ("float32" if reduced else "bfloat16")
-    tcfg = tcfg.replace(dtype=dtype)
+    tcfg = tcfg.replace(dtype=dtype, n_layers=n_layers or tcfg.n_layers)
     dcfg = DrafterConfig().resolve(tcfg)
+    model = get_model(tcfg, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tparams = get_model(tcfg).init(gen, device=dev)
+    tparams = model.init(gen, device=dev)
     dparams = None
     if mode != "none":
         dparams = D.init_params(dcfg, tcfg, gen, device=dev,
@@ -156,6 +163,8 @@ def shared_prefix_requests(vocab: int, n: int, prefix_len: int, groups: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS,
+                    help="the target architecture")
     ap.add_argument("--reduced", action="store_true",
                     help="the 2-layer CPU-test config instead of full width")
     ap.add_argument("--device", default="cuda")
@@ -226,8 +235,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     layout = args.kv_layout or ("paged" if dev.type == "cuda"
                                 else "contiguous")
-    eng = build_engine(reduced=args.reduced, mode=args.mode, K=args.k,
-                       max_new=args.max_new, max_len=args.max_len,
+    eng = build_engine(arch=args.arch, reduced=args.reduced, mode=args.mode,
+                       K=args.k, max_new=args.max_new, max_len=args.max_len,
                        batch=args.batch, seed=args.seed, device=dev,
                        kv_layout=layout, page_size=args.page_size,
                        pool_pages=args.pool_pages, kv_growth=args.kv_growth,

@@ -92,17 +92,36 @@ def apply_rope(x: Tensor, sin: Tensor, cos: Tensor) -> Tensor:
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_init(d: int, f: int, generator: torch.Generator, *, device,
-             dtype) -> dict:
-    return {"w_gate": dense_init((d, f), generator, device=device, dtype=dtype),
-            "w_up": dense_init((d, f), generator, device=device, dtype=dtype),
-            "w_down": dense_init((f, d), generator, device=device, dtype=dtype)}
+def softcap(x: Tensor, cap: float) -> Tensor:
+    """``cap * tanh(x / cap)``; x unchanged when cap is 0."""
+    return cap * torch.tanh(x / cap) if cap > 0.0 else x
+
+
+def mlp_init(d: int, f: int, generator: torch.Generator, *, device, dtype,
+             variant: str = "swiglu") -> dict:
+    """Gated variants (swiglu, geglu) have w_gate, w_up, w_down; relu2 and
+    gelu only w_up, w_down (as the JAX package's ``mlp_init``)."""
+    names = (("w_gate", "w_up") if variant in ("swiglu", "geglu")
+             else ("w_up",))
+    p = {n: dense_init((d, f), generator, device=device, dtype=dtype)
+         for n in names}
+    p["w_down"] = dense_init((f, d), generator, device=device, dtype=dtype)
+    return p
 
 
 def mlp_apply(p: dict, x: Tensor, variant: str) -> Tensor:
-    if variant != "swiglu":
-        raise NotImplementedError(f"mlp variant {variant!r} is not ported")
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """GELUs are tanh-approximate, as ``jax.nn.gelu(approximate=True)``."""
+    if variant == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif variant == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    elif variant == "relu2":
+        h = torch.square(F.relu(x @ p["w_up"]))
+    elif variant == "gelu":
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp variant {variant!r}")
+    return h @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -227,11 +246,14 @@ def cache_update(cache: dict, k_new: Tensor, v_new: Tensor,
     (speculative rollback) and are invalidated first. A ring cache writes
     slot ``position % W``; a plain cache writes slot ``position``, which
     the caller keeps below W (the engine checks its length budget up
-    front)."""
+    front). A ring takes only the last W of a block longer than itself
+    (a long admission chunk), so no two entries share a slot."""
     B, T = k_new.shape[0], k_new.shape[1]
     W = cache["k"].shape[1]
     positions = cache["positions"]
     positions.masked_fill_(positions >= pos[:, None], -1)
+    if cache["ring"] and T > W:
+        k_new, v_new, pos, T = k_new[:, -W:], v_new[:, -W:], pos + (T - W), W
     abs_pos = pos[:, None] + torch.arange(T, dtype=pos.dtype,
                                           device=pos.device)[None]
     slot = (abs_pos % W if cache["ring"] else abs_pos).long()

@@ -1,27 +1,36 @@
 """Decoder-only transformer, dense family (PyTorch).
 
 Counterpart of the JAX package's ``models/transformer.py`` for dense
-targets such as qwen2. The JAX model scans super-blocks; here the layers
-are a Python list and the forward is a loop. Parameters are plain dicts of
-tensors:
+targets: qwen2, gemma, gemma2, minitron. The JAX model scans super-blocks;
+here the layers are a Python list and the forward is a loop. Parameters are
+plain dicts of tensors:
 
-    {"embed": (V, D), "final_norm": (D,),
-     "blocks": [{"ln1", "ln2", "attn": {wq, wk, wv, wo[, bq, bk, bv]},
-                 "mlp": {w_gate, w_up, w_down}}, ...]}
+    {"embed": (V, D), "final_norm": (D,)[, "lm_head": (D, V)],
+     "blocks": [{"ln1", "ln2"[, "pn1", "pn2"],
+                 "attn": {wq, wk, wv, wo[, bq, bk, bv]},
+                 "mlp": {[w_gate,] w_up, w_down}}, ...]}
 
 and the cache is ``{"blocks": [layer cache, ...]}`` with the layer caches
 of ``layers.make_kv_cache``. ``convert.py`` turns the JAX package's
 scan-stacked trees into these.
 
+Each layer's attention is global or local (``cfg.attn_kind``): a local
+layer sees the last ``cfg.window_size`` positions, and its cache is a ring
+of ``window + block`` slots when that is shorter than ``max_len`` (see
+``make_cache``). ``cfg.logit_softcap`` caps every attention score,
+``cfg.final_softcap`` the logits.
+
 Attention goes through ``kernels.ops``: the flash kernel for the prefill,
 the decode kernel for both phases of the two-phase decode. Given a block
 table, a decode reads paged caches (``layers.paged_view`` layout): phase 1
-goes through the paged decode kernel on the pools. Configurations
-with a logit softcap, local (windowed) attention, MoE layers or other
-options the port does not carry yet raise ``NotImplementedError``.
+of a layer whose cache is a pool goes through the paged decode kernel; a
+ring stays per slot and goes through the decode kernel. MoE layers, NoPE,
+sinusoidal positions and the other families raise ``NotImplementedError``,
+and so does, on the card, a head dim the kernels do not take.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -48,36 +57,39 @@ def tap_layers(n_layers: int, num_taps: int = 3):
     return (min(2, n_layers - 1), n_layers // 2, n_layers - 1)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this port does not carry yet."""
+def check_supported(cfg: ModelConfig, device=None) -> None:
+    """Raise NotImplementedError for what this port does not carry yet; on
+    a CUDA ``device`` also for a head dim the attention kernels do not
+    take (checked before any weight or cache is made)."""
     missing = [name for name, unsupported in (
         (f"family {cfg.family!r}", cfg.family != "dense"),
-        ("logit_softcap", cfg.logit_softcap > 0),
-        ("final_softcap", cfg.final_softcap > 0),
-        ("local/windowed attention", any(k != "global" for k in cfg.attn_pattern)),
         ("MoE layers", cfg.moe.n_experts > 0),
-        ("post_norms", cfg.post_norms),
-        ("embed_scale", cfg.embed_scale),
         ("nope_on_global", cfg.nope_on_global),
         (f"positional {cfg.positional!r}", cfg.positional != "rope"),
-        (f"mlp {cfg.mlp_variant!r}", cfg.mlp_variant != "swiglu"),
-        ("untied lm_head", not cfg.tie_embeddings),
     ) if unsupported]
     if missing:
         raise NotImplementedError(
             f"{cfg.arch_id}: not ported yet: {', '.join(missing)}")
+    if (device is not None and torch.device(device).type == "cuda"
+            and cfg.head_dim not in ops.HEAD_DIMS):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: head dim {cfg.head_dim} has no kernel on the "
+            f"card: the decode, paged decode and flash kernels take head dims "
+            f"{ops.HEAD_DIMS}; head dim {cfg.head_dim} needs their bodies "
+            f"(decode_splitk.cuh, flash_tc.cuh, attention_common.cuh) "
+            f"redesigned for its register budget")
 
 
 # ---------------------------------------------------------------------------
 # attention layer
 # ---------------------------------------------------------------------------
 
-def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
-               cache: Optional[dict], mode: str,
+def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
+               positions: Tensor, cache: Optional[dict], mode: str,
                block_table: Optional[Tensor] = None):
-    """mode: train | prefill | decode. Returns (out, cache); a cache is
-    updated in place. ``block_table`` (B, nb): the cache is a page pool
-    (decode only)."""
+    """kind: global | local. mode: train | prefill | decode. Returns (out,
+    cache); a cache is updated in place. ``block_table`` (B, nb): a cache
+    that is not a ring is a page pool (decode only)."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -90,30 +102,36 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
     k = L.apply_rope(k.reshape(B, T, KV, hd), sin, cos)
     v = v.reshape(B, T, KV, hd)
     scale = cfg.q_scale()
+    mask = dict(window=cfg.window_size if kind == "local" else 0,
+                softcap=cfg.logit_softcap)
 
     if mode == "decode":
         pos0 = positions[:, 0]
+        table = None if cache["ring"] else block_table
         # two-phase: attend [old cache] + [current block], merge by LSE,
-        # THEN insert, so the cache is never copied
-        o1, m1, l1 = cache_phase(q, cache, positions, block_table, scale)
+        # THEN insert, so the cache is never copied (and a ring never
+        # evicts a key the block's queries still see)
+        o1, m1, l1 = cache_phase(q, cache, positions, table, scale, **mask)
         o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
-                                          scale=scale, return_stats=True)
+                                          scale=scale, return_stats=True,
+                                          **mask)
         out = L.merge_attention(o1, m1, l1, o2, m2, l2)
-        if block_table is None:
+        if table is None:
             L.cache_update(cache, k, v, pos0)
         else:
-            L.paged_cache_update(cache, block_table, k, v, pos0)
+            L.paged_cache_update(cache, table, k, v, pos0)
     else:
         if cache is not None:  # prefill: also populate the cache
             ins = min(T, cache["k"].shape[1])
             L.cache_update(cache, k[:, -ins:], v[:, -ins:],
                            positions[:, T - ins])
-        out = ops.flash_attention(q, k, v, scale=scale, causal=True)
+        out = ops.flash_attention(q, k, v, scale=scale, causal=True, **mask)
     return out.reshape(B, T, H * hd) @ p["wo"], cache
 
 
 def cache_phase(q: Tensor, cache: dict, positions: Tensor,
-                block_table: Optional[Tensor], scale: float):
+                block_table: Optional[Tensor], scale: float, *,
+                window: int = 0, softcap: float = 0.0):
     """Phase 1 of a two-phase decode: q at ``positions`` (B, T) against
     the cache entries older than the block (position < positions[:, 0]).
     Returns (out, m, l). A contiguous cache masks the newer entries; a paged
@@ -126,12 +144,13 @@ def cache_phase(q: Tensor, cache: dict, positions: Tensor,
                                cache["positions"])
         return ops.decode_attention(
             q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
-            positions, scale=scale, return_stats=True)
+            positions, scale=scale, window=window, softcap=softcap,
+            return_stats=True)
     L.paged_invalidate(cache["positions"], block_table, pos0[:, 0] - 1)
     return ops.paged_decode_attention(
         q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
         cache["positions"], block_table, positions, scale=scale,
-        return_stats=True)
+        window=window, softcap=softcap, return_stats=True)
 
 
 # ---------------------------------------------------------------------------
@@ -149,18 +168,21 @@ def _layer_init(cfg: ModelConfig, g: torch.Generator, device, dtype) -> dict:
     if cfg.qkv_bias:
         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             attn[name] = torch.zeros(n, dtype=dtype, device=device)
-    ones = torch.ones(d, dtype=torch.float32, device=device)
-    return {"ln1": ones, "ln2": ones.clone(), "attn": attn,
-            "mlp": L.mlp_init(d, cfg.d_ff, g, device=device, dtype=dtype)}
+    layer = {"attn": attn,
+             "mlp": L.mlp_init(d, cfg.d_ff, g, device=device, dtype=dtype,
+                               variant=cfg.mlp_variant)}
+    for norm in ("ln1", "ln2") + (("pn1", "pn2") if cfg.post_norms else ()):
+        layer[norm] = torch.ones(d, dtype=torch.float32, device=device)
+    return layer
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cuda") -> dict:
     """Random weights in ``cfg.dtype`` (norms in float32), drawn from
     ``generator`` (which must live on ``device``)."""
-    check_supported(cfg)
+    check_supported(cfg, device)
     dtype = getattr(torch, cfg.dtype)
-    return {
+    params = {
         "embed": L.embed_init(cfg.vocab_size, cfg.d_model, generator,
                               device=device, dtype=dtype),
         "blocks": [_layer_init(cfg, generator, device, dtype)
@@ -168,15 +190,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
                                  device=device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init((cfg.d_model, cfg.vocab_size),
+                                         generator, device=device,
+                                         dtype=dtype)
+    return params
+
+
+def ring_length(cfg: ModelConfig, layer_idx: int, max_len: int,
+                block: int = 1) -> int:
+    """Slots of layer ``layer_idx``'s ring cache, or 0 for a full-length
+    cache. A local layer's ring holds ``window + block`` slots, ``block``
+    being the widest decode block that may be rolled back (K + 1 for a
+    verify): a rejected tail then never evicts a key that a later query's
+    window still covers. The JAX package's ring holds ``window`` slots, and
+    a rejected draft can overwrite an in-window key. A ring that would not
+    be shorter than ``max_len`` is a full-length cache instead."""
+    n = cfg.window_size + block
+    return n if cfg.attn_kind(layer_idx) == "local" and n < max_len else 0
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.bfloat16, device="cuda") -> dict:
-    check_supported(cfg)
-    return {"blocks": [L.make_kv_cache(batch, max_len, cfg.n_kv_heads,
-                                       cfg.head_dim, dtype=dtype,
-                                       device=device)
-                       for _ in range(cfg.n_layers)]}
+               dtype=torch.bfloat16, device="cuda", block: int = 1) -> dict:
+    """Per-layer KV caches; local layers get rings of ``ring_length``."""
+    check_supported(cfg, device)
+
+    def layer(li):
+        ring = ring_length(cfg, li, max_len, block)
+        return L.make_kv_cache(batch, ring or max_len, cfg.n_kv_heads,
+                               cfg.head_dim, dtype=dtype, ring=ring > 0,
+                               device=device)
+    return {"blocks": [layer(li) for li in range(cfg.n_layers)]}
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +238,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     so they take the default positions 0..S-1 only. ``head_positions``
     (B,) restricts the LM head to one sequence index per row,
     ``head_last_only`` to the last one. ``block_table`` (B, nb) makes the
-    cache's layers page pools (decode mode only)."""
+    cache's layers that are not rings page pools (decode mode only)."""
     check_supported(cfg)
     B, S = tokens.shape
     if mode == "decode":
@@ -207,17 +251,25 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     x = params["embed"][tokens]
+    if cfg.embed_scale:   # sqrt(d) cast to the activation dtype first
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     taps_idx = tap_layers(cfg.n_layers)
     taps = [None] * len(taps_idx)
     new_blocks = [] if cache is not None else None
     for li, bp in enumerate(params["blocks"]):
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
-        a, lc = attn_apply(bp["attn"], h, cfg=cfg, positions=positions,
+        a, lc = attn_apply(bp["attn"], h, cfg=cfg, kind=cfg.attn_kind(li),
+                           positions=positions,
                            cache=None if cache is None else cache["blocks"][li],
                            mode=mode, block_table=block_table)
+        if cfg.post_norms:
+            a = L.rms_norm(a, bp["pn1"], cfg.norm_eps)
         x = x + a
         h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(bp["mlp"], h, cfg.mlp_variant)
+        f = L.mlp_apply(bp["mlp"], h, cfg.mlp_variant)
+        if cfg.post_norms:
+            f = L.rms_norm(f, bp["pn2"], cfg.norm_eps)
+        x = x + f
         if new_blocks is not None:
             new_blocks.append(lc)
         if collect_taps:
@@ -230,7 +282,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     elif head_last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["embed"].T.to(x.dtype)).float()
+    head = params.get("lm_head")
+    logits = x @ (head if head is not None else params["embed"].T.to(x.dtype))
+    logits = L.softcap(logits.float(), cfg.final_softcap)
     return ModelOutput(
         logits=logits,
         taps=torch.cat(taps, dim=-1) if collect_taps else None,

@@ -22,7 +22,8 @@ Paged (block) KV layout
 -----------------------
 ``paged_state`` re-expresses every attention KV cache (a dict with
 ``k/v/positions/ring``, not a ring) as a pool of fixed-size position pages
-shared by all slots, plus the state's ``block_table`` (B, max_len / page):
+shared by all slots, plus the state's ``block_table`` (B, max_len / page);
+a local layer's ring stays per slot (B, W, ...):
 
     contiguous   k (B, max_len, KV, hd)    positions (B, max_len)
     paged        k (NP + 1, page, KV, hd)  positions (NP + 1, page)
@@ -67,15 +68,36 @@ def _spec_or_flat(tree, spec):
     return spec if spec is not None else map_tree(lambda *_: NOT_PAGED, tree)
 
 
+def _is_kv(node) -> bool:
+    return isinstance(node, dict) and {"k", "v", "positions", "ring"} <= set(node)
+
+
+def has_ring_cache(cache_tree) -> bool:
+    """Whether any attention KV cache in the tree is a ring (a local
+    layer's sliding window shorter than max_len). A ring wraps on write
+    (slot = position % W): a right-padded prefill could evict live prompt
+    entries, so admission chunks instead, and a ring stays per slot where
+    the other caches are paged."""
+    if _is_kv(cache_tree):
+        return bool(cache_tree["ring"])
+    if isinstance(cache_tree, dict):
+        return any(has_ring_cache(v) for v in cache_tree.values())
+    if isinstance(cache_tree, list):
+        return any(has_ring_cache(v) for v in cache_tree)
+    return False
+
+
 def commit(cache, commit_pos: Tensor,
            block_table: Optional[Tensor] = None):
     """Invalidate, in place, every ``positions`` leaf of ``cache`` (a tree
     of dicts and lists) beyond ``commit_pos`` (B,), the last valid absolute
-    position of each row; with ``block_table`` the leaves are page pools
-    and each row's own pages are invalidated. Returns the cache."""
+    position of each row; with ``block_table`` the caches that are not
+    rings are page pools and each row's own pages are invalidated (rings
+    stay per slot). Returns the cache."""
     if isinstance(cache, dict):
+        per_row = block_table is None or bool(cache.get("ring", False))
         for name, leaf in cache.items():
-            if name == "positions" and block_table is None:
+            if name == "positions" and per_row:
                 leaf.masked_fill_(leaf > commit_pos[:, None], -1)
             elif name == "positions":
                 L.paged_invalidate(leaf, block_table, commit_pos)
@@ -261,10 +283,12 @@ class HostPagePool:
 def paged_spec(tree):
     """A tree shaped like ``tree`` (a decode state or cache, either layout)
     tagging each leaf: PAGED_KV / PAGED_POS for the leaves of attention KV
-    caches that are not rings, NOT_PAGED otherwise."""
+    caches that are not rings, NOT_PAGED otherwise (a ring stays per slot:
+    its batch-first rows are written, reset and swapped like any per-slot
+    leaf)."""
     def walk(node):
         if isinstance(node, dict):
-            if {"k", "v", "positions", "ring"} <= set(node) and not node["ring"]:
+            if _is_kv(node) and not node["ring"]:
                 return {k: (PAGED_KV if k in ("k", "v") else
                             PAGED_POS if k == "positions" else NOT_PAGED)
                         for k in node}

@@ -31,7 +31,10 @@ behind a per-slot ``block_table``, pages handed out by a
 ``cache_ops.BlockAllocator``). Unlike the JAX engine, whose paged step
 gathers each slot's pages into a contiguous view and scatters it back, the
 paged step reads and writes the pools through the table: phase 1 of every
-decode attention runs the paged decode kernel.
+decode attention against a pool runs the paged decode kernel. A local
+layer's ring cache stays per slot in both layouts (and goes through the
+decode kernel), and a target with rings admits a prompt in power-of-two
+chunks instead of padding it.
 
 Two policies ride on the paged layout. The prefix cache
 (``EngineConfig.prefix_cache``, ``serving/prefix_cache.py``) keeps the
@@ -40,6 +43,10 @@ whose prompt walks a cached chain maps those pages into its table row
 (refcount-shared), copies a partially matching page on write, and prefills
 only the uncached suffix, in decode-mode chunks over a batch-1 view
 gathered from the row's pages: token for token a cold prefill's output.
+For a target with rings (local layers whose window is shorter than
+max_len) the cache stays idle, no match and no insert: a page does not
+hold the per-slot ring entries a hit would need (the JAX engine maps the
+pages anyway, and its hit streams part from its cold ones).
 Swap-to-host (``EngineConfig.swap = "host"``) parks a preempted slot's
 exclusively owned pages and per-slot rows in pinned host memory
 (``cache_ops.HostPagePool``) and restores them bitwise; pages shared with
@@ -182,6 +189,9 @@ def make_decode_state(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
     ``ecfg.sampling``."""
     cdt = getattr(torch, ecfg.cache_dtype)
     rows = batch if cache_rows is None else cache_rows
+    # a verify block (K + 1 positions) is the widest write that is rolled
+    # back: it sizes the rings of local layers
+    block = (ecfg.K if ecfg.drafter_mode != "none" else 0) + 1
     i32 = dict(dtype=torch.int32, device=device)
     state = {
         "tokens": torch.zeros((batch, ecfg.max_len), **i32),
@@ -193,7 +203,7 @@ def make_decode_state(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         "taps_last": torch.zeros((batch, 3 * tcfg.d_model), dtype=cdt,
                                  device=device),
         "tcache": model.make_cache(rows, ecfg.max_len, dtype=cdt,
-                                   device=device),
+                                   device=device, block=block),
         "new_count": torch.full((batch,), new_count_fill, **i32),
         "slot_iters": torch.zeros((batch,), **i32),
         "iters": torch.zeros((), **i32),
@@ -269,7 +279,8 @@ class Engine:
             raise ValueError(f"drafter_mode {ecfg.drafter_mode!r} needs a "
                              f"drafter config and parameters")
         self.tcfg, self.dcfg, self.ecfg, self.batch = tcfg, dcfg, ecfg, batch
-        self.model = get_model(tcfg)
+        # refuses, before any weight moves, what the device's kernels lack
+        self.model = get_model(tcfg, self.device)
         self.tparams = _to(tparams, self.device)
         self.dparams = _to(dparams, self.device)
         self.last_logprob = 0.0     # of the last admission's first token
@@ -278,6 +289,7 @@ class Engine:
         self._slot_sampled = [False] * batch
         self.paged = ecfg.kv_layout == "paged"
         self.incremental = self.paged and ecfg.kv_growth == "incremental"
+        template = self._state_template(1, device="meta")   # no storage
         if self.paged:
             if ecfg.max_len % ecfg.page_size:
                 raise ValueError(f"max_len {ecfg.max_len} must be a multiple "
@@ -286,11 +298,13 @@ class Engine:
             self.pool_pages = ecfg.pool_pages or batch * self.pages_per_slot
             self.allocator = cache_ops.BlockAllocator(self.pool_pages)
             self._slot_pages: List[List[int]] = [[] for _ in range(batch)]
-            # which leaves become pools: read off a storage-free template
-            self.pspec = cache_ops.paged_spec(self._state_template(
-                1, device="meta"))
-        self.prefix_cache = (PrefixCache(ecfg.page_size) if ecfg.prefix_cache
-                             else None)
+            self.pspec = cache_ops.paged_spec(template)   # which leaves pool
+        # a target with local layers' rings: admission chunks instead of
+        # padding, and no prefix cache is built (pages do not hold a ring's
+        # per-slot entries, so a hit would lose the local layers' keys)
+        self.ring = cache_ops.has_ring_cache(template["tcache"])
+        self.prefix_cache = (PrefixCache(ecfg.page_size)
+                             if ecfg.prefix_cache and not self.ring else None)
         self.swap_enabled = ecfg.swap == "host"
         self.host_pool = (cache_ops.HostPagePool(ecfg.host_pool_bytes)
                           if self.swap_enabled else None)
@@ -379,10 +393,10 @@ class Engine:
             return self._prefill_rows(prompts, P, samp, sp.is_greedy)
 
     def prefill_bucket(self, length: int) -> int:
-        """Tokens the admission prefill of a ``length``-token prompt runs:
-        the next power of two, or the exact length where bucketing is off
-        or the bucket would reach max_len. (The JAX engine's chunked
-        variant is for recurrent families, which the port does not carry.)"""
+        """Tokens the padded admission prefill of a ``length``-token prompt
+        runs: the next power of two, or the exact length where bucketing is
+        off or the bucket would reach max_len. (A target with rings chunks
+        instead: ``_admission_prefill``.)"""
         pb = 1 << max(length - 1, 0).bit_length()
         if not self.ecfg.bucket_prefill or pb >= self.ecfg.max_len:
             return length
@@ -390,10 +404,24 @@ class Engine:
 
     def _admission_prefill(self, prompt: Tensor,
                            sp: SamplingParams) -> dict:
+        """The batch-1 state of an admission. Bucketed: padded to
+        ``prefill_bucket``, or, for a target with rings (a pad past the
+        window would evict live prompt entries), cut into the MSB-first
+        power-of-two chunks of ``prefill_buckets``: a prefill of the first,
+        then decode-mode chunks (the JAX engine's ``_chunk_only`` path)."""
         P = prompt.shape[1]
-        padded = F.pad(prompt, (0, self.prefill_bucket(P) - P))
         samp = batch_sampling_state(sp, 1, device=self.device)
-        return self._prefill_rows(padded, P, samp, sp.is_greedy)
+        if not (self.ring and self.ecfg.bucket_prefill):
+            padded = F.pad(prompt, (0, self.prefill_bucket(P) - P))
+            return self._prefill_rows(padded, P, samp, sp.is_greedy)
+        sizes = self.prefill_buckets(P)
+        src = self._prefill_rows(prompt[:, :sizes[0]], sizes[0], samp,
+                                 sp.is_greedy)
+        start = sizes[0]
+        for c in sizes[1:]:
+            self._chunk(src, prompt[:, start:start + c], start, sp.is_greedy)
+            start += c
+        return src
 
     # ------------------------------------------------------------------
     # per-slot lifecycle (continuous batching; serving/scheduler.py)
@@ -401,8 +429,9 @@ class Engine:
     def blank_state(self) -> dict:
         """An all-idle state: empty caches (positions -1), zero tokens,
         every slot frozen (new_count == max_new_tokens). Paged: the caches
-        are page pools and ``block_table`` (B, max_len / page_size) is all
-        -1. Slots come alive through ``prefill_into_slot``."""
+        are page pools (a local layer's ring stays per slot) and
+        ``block_table`` (B, max_len / page_size) is all -1. Slots come alive
+        through ``prefill_into_slot``."""
         if not self.paged:
             return self._state_template(
                 self.batch, device=self.device,
@@ -414,6 +443,16 @@ class Engine:
             sampling=blank_sampling_state(self.batch, device=self.device))
         state = cache_ops.paged_state(state, self.pspec, self.ecfg.page_size,
                                       self.pool_pages)
+
+        def per_slot(_, leaf, tag):    # rings: one row per slot
+            if tag == cache_ops.NOT_PAGED and isinstance(leaf, Tensor) \
+                    and leaf.dim() > 0:
+                return leaf.expand((self.batch,) + leaf.shape[1:]).clone()
+            return leaf
+        for key in ("tcache", "dcache"):
+            if key in state:
+                state[key] = cache_ops.map_tree(per_slot, state[key],
+                                                self.pspec[key])
         state["block_table"] = torch.full(
             (self.batch, self.pages_per_slot), -1, dtype=torch.int32,
             device=self.device)

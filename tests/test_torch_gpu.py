@@ -7,7 +7,10 @@ bitwise swap round trip), the streaming front end (streamed equals its
 virtual twin, an abort frees pages and pinned bytes) and the round-based
 baseline's flash launches, the threefry PRNG's words on the card against
 the CPU's, the chi-square
-losslessness of rejection verification on the card, the flash training
+losslessness of rejection verification on the card, gemma2's softcap in
+the decode and paged kernels at its shapes (a wrapped ring too) and flash
+with softcap and window past 4096, reduced gemma2's rings through the
+kernels, the flash training
 attention's gradients, and reduced training steps through the MTP kernel.
 
 Marked ``gpu``; each test decides inside the ``card`` fixture whether a
@@ -164,6 +167,118 @@ def test_flash_kernel_matches_plain(card, dtype, B, Sq, Skv, H, KV, hd,
     torch.testing.assert_close(out.float(),
                                ops.flash_attention_plain(q, k, v, **kw).float(),
                                atol=atol, rtol=rtol)
+
+
+# gemma2-27b's attention: 32 query heads over 16 KV heads (its drafter 36 /
+# 36), head dim 128, query scale 144^-0.5, softcap 50, local window 4096
+GEMMA2_SCALE, GEMMA2_CAP, GEMMA2_WINDOW = 144 ** -0.5, 50.0, 4096
+
+
+def _ring_positions(B, ring, last, device):
+    """Slot s of a ring of ``ring`` slots holds the last position p <= last
+    with p % ring == s: wrapped, not monotone in the slot index."""
+    s = torch.arange(ring, dtype=torch.int32, device=device)
+    kpos = last - torch.remainder(last - s, ring)
+    return kpos[None].repeat(B, 1).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,B,T,H,KV,S,valid,window,qscale", [
+    ("target verify, phase 1", 8, 6, 32, 16, 1024, 576, 0, 2.0),
+    ("target verify, phase 2", 8, 6, 32, 16, 6, 6, 0, 2.0),
+    ("drafter draft, phase 1", 8, 5, 36, 36, 1024, 575, 0, 2.0),
+    ("drafter extend, phase 1", 8, 6, 36, 36, 1024, 576, 0, 2.0),
+    ("local ring, wrapped", 8, 6, 32, 16, 4102, -1, 4096, 2.0),
+    ("cap bites: q scale 16", 8, 6, 32, 16, 1024, 576, 0, 16.0),
+])
+def test_softcap_decode_kernel_matches_plain(card, dtype, label, B, T, H, KV,
+                                             S, valid, window, qscale):
+    """The decode kernel with gemma2's softcap at its shapes, against the
+    plain version (``blocked_attention`` with ``logit_cap``). ``valid`` -1:
+    the cache is a local layer's ring of window + 6 slots after position
+    4700 (wrapped, the window crossing chunk boundaries)."""
+    hd = 128
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v = _qkv(g, (B, T, H, hd), (B, S, KV, hd), dtype, card)
+    q = (q.float() * (qscale / 2.0)).to(dtype)
+    if valid < 0:
+        kpos = _ring_positions(B, S, 4700, card)
+        qpos = (4701 + torch.arange(T, dtype=torch.int32, device=card)
+                )[None].repeat(B, 1)
+    else:
+        kpos = torch.arange(S, dtype=torch.int32, device=card)[None].repeat(
+            B, 1)
+        kpos = torch.where(kpos < valid, kpos, -1).to(torch.int32)
+        qpos = (max(valid, T) - T + torch.arange(
+            T, dtype=torch.int32, device=card))[None].repeat(B, 1)
+    kw = dict(scale=GEMMA2_SCALE, window=window, softcap=GEMMA2_CAP)
+    out, m, l = ops.decode_attention(q, k, v, kpos, qpos.contiguous(),
+                                     return_stats=True, **kw)
+    torch.cuda.synchronize()
+    po, pm, pl = ops.decode_attention_plain(q, k, v, kpos, qpos,
+                                            return_stats=True, **kw)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,H,KV", [(6, 32, 16), (5, 36, 36), (6, 36, 36)])
+def test_softcap_paged_kernel_matches_plain(card, dtype, T, H, KV):
+    """The paged kernel with gemma2's softcap at its phase-1 shapes (global
+    layers and the drafter: page 16, 64 table entries a row)."""
+    q, k, v, pos, table, qpos = _paged_inputs(card, dtype, 8, T, H, KV, 128,
+                                              513, 16, 64)
+    kw = dict(scale=GEMMA2_SCALE, softcap=GEMMA2_CAP)
+    out, m, l = ops.paged_decode_attention(q, k, v, pos, table, qpos,
+                                           return_stats=True, **kw)
+    torch.cuda.synchronize()
+    po, pm, pl = ops.paged_decode_attention_plain(q, k, v, pos, table, qpos,
+                                                  return_stats=True, **kw)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_softcap_and_window_past_4096(card, dtype):
+    """gemma2's local-layer prefill at S 4608 > its window: softcap 50 and
+    window 4096 both bite."""
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = _qkv(g, (1, 4608, 32, 128), (1, 4608, 16, 128), dtype, card)
+    kw = dict(scale=GEMMA2_SCALE, causal=True, window=GEMMA2_WINDOW,
+              softcap=GEMMA2_CAP)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(),
+                               ops.flash_attention_plain(q, k, v, **kw).float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_gemma2_rings_lossless_through_kernels(card):
+    """Reduced gemma2 (window 64, rings of 64 + 4 slots at max_len 160) on
+    the card through the kernels: parallel equals none over a run past the
+    window, and a paged serve (per-slot rings beside the pools) equals the
+    contiguous run."""
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.scheduler import Request, Scheduler
+    kw = dict(arch="gemma2-27b", reduced=True, K=3, max_new=80, max_len=160,
+              batch=2, seed=0, device=card)
+    none = build_engine(mode="none", **kw)
+    par = build_engine(mode="parallel", **kw)
+    assert par.ring
+    prompts = random_prompts(par.tcfg.vocab_size, 2, 40, seed=1)
+    want = none.run(prompts)["tokens"][:, :120]
+    np.testing.assert_array_equal(par.run(prompts)["tokens"][:, :120], want)
+    paged = build_engine(mode="parallel", kv_layout="paged", page_size=16,
+                         **kw)
+    rep = Scheduler(paged).serve([Request(p, max_new_tokens=80)
+                                  for p in prompts])
+    got = np.stack([r["tokens"] for r in rep["results"]])
+    np.testing.assert_array_equal(got, want[:, 40:])
 
 
 def test_cuda_tensor_never_takes_the_plain_path(card):

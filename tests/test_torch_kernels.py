@@ -202,6 +202,102 @@ def test_card_bf16_limit_fails_a_dropped_key_tile(T, H, KV, valid):
     assert used(lost) > 100.0
 
 
+def _ring_inputs(rng, B, T, H, KV, hd, ring, last, dtype):
+    """A ring of ``ring`` slots after positions up to ``last`` were written
+    (slot p % ring holds p, for the last ``ring`` positions: wrapped, not
+    monotone in the slot index), queries at the next T positions."""
+    slots = np.arange(ring)
+    kpos = last - (last - slots) % ring
+    kpos = np.broadcast_to(kpos[None], (B, ring)).astype(np.int32)
+    qpos = (last + 1 + np.broadcast_to(np.arange(T)[None], (B, T))).astype(
+        np.int32)
+    arrs = [_both(_rand(rng, s), dtype)
+            for s in ((B, T, H, hd), (B, ring, KV, hd), (B, ring, KV, hd))]
+    return arrs, kpos, qpos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_softcap_over_a_ring_matches_jax_model_decode(dtype):
+    """The decode plain version with gemma2's softcap 50, a window of 64 and
+    the query scale 144^-0.5, over a wrapped ring of 64 + 3 slots: equals
+    the JAX model's decode attention (``blocked_attention`` with
+    ``logit_cap``; the JAX decode kernel has no cap) and the dense
+    oracle."""
+    rng = np.random.default_rng(11)
+    B, T, H, KV, hd, window = 2, 3, 4, 2, 64, 64
+    ((jq, tq), (jk, tk), (jv, tv)), kpos, qpos = _ring_inputs(
+        rng, B, T, H, KV, hd, window + T, 100, dtype)
+    tol, scale, cap = DTYPES[dtype][2], 144 ** -0.5, 50.0
+    t = torch.from_numpy
+    out, m, l = ops.decode_attention(
+        4.0 * tq, tk, tv, t(kpos), t(qpos), scale=scale, window=window,
+        softcap=cap, return_stats=True)
+    jout, jm, jl = JL.blocked_attention(
+        4.0 * jq, jk, jv, scale=scale, logit_cap=cap, return_stats=True,
+        mask_fn=JL.cache_mask_fn(jnp.asarray(qpos), jnp.asarray(kpos),
+                                 window=window))
+    _close(out, jout, tol)
+    _close(m, jm, 3e-5)
+    _close(l, jl, 3e-5)
+    _close(out, ref.decode_reference(4.0 * tq, tk, tv, t(kpos), t(qpos),
+                                     scale=scale, window=window,
+                                     softcap=cap).float().numpy(), tol)
+
+
+def test_paged_decode_softcap_plain_matches_contiguous():
+    """The paged plain version with a softcap equals the contiguous one on
+    the same keys laid out in pages."""
+    rng = np.random.default_rng(12)
+    B, T, H, KV, hd, page, nb = 2, 6, 4, 2, 32, 8, 6
+    q, k, v = (torch.from_numpy(_rand(rng, s)) * 4 for s in (
+        (B, T, H, hd), (B, nb * page, KV, hd), (B, nb * page, KV, hd)))
+    kpos = torch.arange(nb * page, dtype=torch.int32)[None].repeat(B, 1)
+    kpos = torch.where(kpos < 40, kpos, -1).to(torch.int32)
+    qpos = (40 + torch.arange(T, dtype=torch.int32))[None].repeat(B, 1)
+    table = torch.arange(B * nb, dtype=torch.int32).reshape(B, nb).flip(1)
+    kp, vp = torch.zeros((B * nb, page, KV, hd)), torch.zeros((B * nb, page,
+                                                               KV, hd))
+    pp = torch.full((B * nb, page), -1, dtype=torch.int32)
+    for b in range(B):
+        for i in range(nb):
+            sl = slice(i * page, (i + 1) * page)
+            kp[table[b, i]], vp[table[b, i]] = k[b, sl], v[b, sl]
+            pp[table[b, i]] = kpos[b, sl]
+    kw = dict(scale=144 ** -0.5, window=16, softcap=50.0)
+    got = ops.paged_decode_attention(q, kp, vp, pp, table, qpos, **kw)
+    want = ops.decode_attention(q, k, v, kpos, qpos, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5,
+                               rtol=3e-5)
+    np.testing.assert_allclose(
+        ref.paged_decode_reference(q, kp, vp, pp, table, qpos, **kw).numpy(),
+        want.numpy(), atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("T,H,KV,valid", [
+    (6, 32, 16, 576),      # gemma2 target verify, phase 1
+    (5, 36, 36, 575),      # its drafter's draft, phase 1 (no cap there)
+])
+def test_card_bf16_limit_fails_a_dropped_softcap(T, H, KV, valid):
+    """The card's bfloat16 limit (elementwise 1e-4 + 2^-6 |plain|, inputs of
+    score std 2 at gemma2's query scale 144^-0.5) passes a float32 sum in
+    another order with the cap (the dense oracle against the blocked plain
+    version) and fails, by far, a kernel that drops gemma2's softcap of 50."""
+    B, hd, S = 8, 128, 1024
+    g = torch.Generator().manual_seed(0)
+    q, k, v = ((scale * torch.randn(s, generator=g)).to(torch.bfloat16)
+               for scale, s in ((2.0, (B, T, H, hd)), (1.0, (B, S, KV, hd)),
+                                (1.0, (B, S, KV, hd))))
+    kpos = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+    kpos = torch.where(kpos < valid, kpos, -1).to(torch.int32)
+    qpos = (valid + torch.arange(T, dtype=torch.int32))[None].repeat(B, 1)
+    kw = dict(scale=144 ** -0.5)
+    want = ops.decode_attention_plain(q, k, v, kpos, qpos, softcap=50.0, **kw)
+    reordered = ref.decode_reference(q, k, v, kpos, qpos, softcap=50.0, **kw)
+    dropped = ops.decode_attention_plain(q, k, v, kpos, qpos, **kw)
+    assert _used(reordered, want) <= 0.5
+    assert _used(dropped, want) > 10.0
+
+
 def _used(got, want):
     """The worst element's share of the card's bfloat16 limit."""
     d = (got.float() - want.float()).abs()

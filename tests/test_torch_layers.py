@@ -47,16 +47,20 @@ def test_rope(theta, batched):
 
 
 def test_mlp_swiglu():
+    """Every MLP variant of the JAX package (swiglu, and the rest of the
+    dense family's geglu, relu2 and gelu, the GELUs tanh-approximate)
+    equals its ``mlp_apply``; an unknown variant raises."""
     rng = np.random.default_rng(2)
     p = {"w_gate": _rand(rng, 16, 40), "w_up": _rand(rng, 16, 40),
          "w_down": _rand(rng, 40, 16)}
     x = _rand(rng, 2, 3, 16)
-    _close(L.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()},
-                       torch.from_numpy(x), "swiglu"),
-           JL.mlp_apply({k: jnp.asarray(v) for k, v in p.items()},
-                        jnp.asarray(x), "swiglu"), 1e-4)
-    with pytest.raises(NotImplementedError):
-        L.mlp_apply({}, torch.from_numpy(x), "relu2")
+    for variant in ("swiglu", "geglu", "relu2", "gelu"):
+        _close(L.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()},
+                           torch.from_numpy(x), variant),
+               JL.mlp_apply({k: jnp.asarray(v) for k, v in p.items()},
+                            jnp.asarray(x), variant), 1e-4)
+    with pytest.raises(ValueError):
+        L.mlp_apply(p, torch.from_numpy(x), "reglu")
 
 
 @pytest.mark.parametrize("mask", ["none", "cache", "cache_window"])

@@ -5,6 +5,8 @@ logits, taps and every cache leaf are compared.
 
 Tolerance 3e-5 (float32 on both sides, reductions in another order);
 drafted tokens must be equal."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,11 +130,21 @@ def test_target_head_selection(setup, head):
 
 
 def test_unsupported_configs_raise():
+    """What stays unported raises: MoE layers, NoPE, sinusoidal positions,
+    other families; the rest of the dense family (softcaps, local
+    attention, post-norms, embedding scale, other MLPs, an untied head)
+    builds."""
     cfg = get_config("qwen2-1.5b").reduced()
-    for bad in (dict(logit_softcap=50.0), dict(attn_pattern=("local", "global")),
-                dict(family="ssm")):
+    moe = dataclasses.replace(cfg.moe, n_experts=4, top_k=2)
+    for bad in (dict(moe=moe), dict(nope_on_global=True),
+                dict(positional="sinusoidal"), dict(family="ssm")):
         with pytest.raises(NotImplementedError):
             get_model(cfg.replace(**bad))
+    for ok in (dict(logit_softcap=50.0, final_softcap=30.0),
+               dict(attn_pattern=("local", "global")),
+               dict(post_norms=True, embed_scale=True),
+               dict(mlp_variant="relu2", tie_embeddings=False)):
+        get_model(cfg.replace(**ok))
 
 
 def _prefilled_drafter(s):

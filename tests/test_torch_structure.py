@@ -146,6 +146,47 @@ def test_serve_rehearses_on_cpu_when_asked():
     assert r["acceptance_length"] >= 1.0
 
 
+def test_serve_rehearses_gemma2_with_rings_on_cpu():
+    """``--arch gemma2-27b --reduced``: the local layers' windows (64) are
+    shorter than max_len, so their caches are per-slot rings beside the
+    paged global layers, and 70-token prompts are admitted in chunks; every
+    request reaches its budget."""
+    r = serve.main(["--arch", "gemma2-27b", "--reduced", "--device", "cpu",
+                    "--batch", "2", "--requests", "3", "--prompt-len", "70",
+                    "--max-new", "6", "--max-len", "128", "--kv-layout",
+                    "paged", "--page-size", "8", "--runs", "1"])
+    assert r["arch"] == "gemma2-27b" and r["new_tokens"] == 18
+    assert r["kv_layout"] == "paged"
+
+
+@pytest.fixture
+def card_claimed(monkeypatch):
+    """A CPU-only torch told that a card exists: what runs before the first
+    CUDA allocation is exercised; anything that reaches the card fails."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+
+def test_gemma7b_on_card_refuses_head_dim_before_weights(card_claimed,
+                                                         monkeypatch):
+    """gemma-7b's head dim 256 has no kernel on the card: building its
+    engine for a CUDA device raises, naming the kernel work, before any
+    weight is made (no init, no generator) and before weights would move."""
+    from repro_torch.models import layers as L
+    monkeypatch.setattr(L, "dense_init", lambda *a, **k: pytest.fail(
+        "a weight was made"))
+    with pytest.raises(NotImplementedError, match="head dim 256"):
+        serve.build_engine(arch="gemma-7b", device="cuda")
+    tcfg = get_config("gemma-7b")
+    with pytest.raises(NotImplementedError, match="decode_splitk.cuh"):
+        Engine(tcfg, DrafterConfig().resolve(tcfg), {}, {}, EngineConfig(), 1)
+    # the same config builds for the CPU, and gemma2-27b passes the check
+    monkeypatch.undo()
+    serve.build_engine(arch="gemma-7b", reduced=True, device="cpu", batch=1,
+                       max_len=32, max_new=4, K=2)
+    from repro_torch.models import transformer
+    transformer.check_supported(get_config("gemma2-27b"), "cuda")
+
+
 def test_serve_rehearses_paged_arrivals_on_cpu():
     """The scheduler path of the launcher: arrivals on the virtual clock, a
     pool small enough to preempt, every request to its budget."""
