@@ -10,7 +10,10 @@ server) and runs LLMEngine and the round-based baseline, trains the
 full-width drafter (whole-sequence and Algorithm-1 segmented)
 through the MTP kernel, and serves the rest of the dense family: gemma2-27b
 at full width (GeGLU, softcaps, alternating local/global attention over
-ring caches, post-norms, embedding scale) and minitron-4b.
+ring caches, post-norms, embedding scale), minitron-4b and gemma-7b (head
+dim 256 through the decode, paged and flash kernels), and the SSM family:
+mamba2-780m at full width (chunked SSD, per-token recurrent snapshots
+selected at the commit).
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -74,7 +77,15 @@ Phases, in order; any failure exits non-zero:
    a block mask built outside the timed call), held against the plain
    version first and timed after the last phase (its compilation leaves a
    thread that slows the next host-bound phase); of an uncapped decode or
-   flash case, SDPA;
+   flash case, SDPA. Head dim 256 (gemma-7b: 16/16 heads, query scale
+   256^-0.5), both dtypes: decode at its verify phases 1 and 2 and an
+   admission chunk of 128, paged at its verify phase 1, flash at its
+   prefill (B 8 x 512) and an admission bucket (B 1 x 512), its drafter's
+   draft (24/24 heads of 128), and the hd-256 bodies' edges (GQA 8/2 with
+   a window across chunks, 40 rows in several row tiles with live and with
+   no keys, the JAX paged sweep's layout, flash with a window and cap,
+   ragged tiles, Sq < Skv, kv_len without the causal mask); the serving
+   shapes timed beside their bounds and SDPA;
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
    512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache,
    after a cold run of 8 steps; the warm run is reported (OTPS, prefill seconds, decode seconds
@@ -179,9 +190,10 @@ Phases, in order; any failure exits non-zero:
    4096 window exceeds it, so no layer is a ring) after a cold run (OTPS,
    ms/step, prefill s, AL, peak memory; 46 flash launches and 8 decode at the
    prefill, then 108 decode a step), and Scheduler.serve of phase 3b's first
-   12 requests on a paged twin sharing the weights (page 16, a 224-page pool
+   8 requests on a paged twin sharing the weights (page 16, a 192-page pool
    that preempts; every request to its budget, 54 paged launches an
-   iteration, the pool empty after);
+   iteration, the pool empty after; cut from 12 requests on 224 pages for
+   time);
 6b. gemma2-27b in float32 at full width cut to 4 layers (two (local, global)
    super-blocks), max_len 8192, batch 2, 4500-token prompts: the local
    layers' rings (4096 + 6 slots) wrap in prefill and decode; logits through
@@ -194,7 +206,28 @@ Phases, in order; any failure exits non-zero:
    none and the paged serve against the contiguous one under the bfloat16
    near-tie rule (BF16_NEAR_TIE), launch counts stated;
 6c. minitron-4b in float32 at full width (32 layers, ReLU², an untied head):
-   4 prompts of 256, 32 new tokens, greedy parallel against none.
+   4 prompts of 256, 32 new tokens, greedy parallel against none;
+7. gemma-7b at full width in bfloat16 (28 layers, d 3072, 16/16 heads of
+   256, d_ff 24576 GeGLU, vocab 256000; the 4-layer drafter, 24 heads of
+   128): Engine.run at phase 3's shapes after a cold run (28 flash and 8
+   decode at the prefill, 72 decode a step) and Scheduler.serve of phase
+   3b's 24 requests on a paged twin (pool 256, preempts; 36 paged an
+   iteration, launches of each admission prefill logged); 7b: float32 at
+   full width (~34 GB of weights), phase 4's prompts: parallel and ar
+   against none, a paged serve under pool pressure against the contiguous
+   one, under phase 4's near-tie rule;
+8. mamba2-780m at full width in bfloat16 (48 SSD layers, d 1536, d_inner
+   3072, 48 heads of 64, d_state 128; the drafter 12 heads of 128): the
+   memory plan with the verify's snapshot peak (the state after each of
+   K + 1 tokens, all layers, float32), Engine.run at phase 3's shapes (the
+   target launches no attention: 8 decode at the prefill, 16 a step), a
+   verify step's measured peak beyond its state, and Scheduler.serve of
+   phase 3b's 24 requests, paged (only the drafter's KV), swap to host, on
+   a 256-page pool that preempts (8 paged an iteration; the drafter's
+   extend once per MSB chunk of each admission); 8b: float32, phase 4's
+   prompts: parallel and ar against none, paged against contiguous, a
+   recompute-preempted and a swapped request each equal to itself served
+   alone, and a seeded sampled request alone equal to itself batched.
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -593,6 +626,56 @@ def gemma2_cases(dev, dtype, c):
     return out
 
 
+def gemma7b_cases(dev, dtype, c):
+    """Phase 2's head-dim-256 cases (gemma-7b, arXiv:2403.08295: 16 query
+    heads over 16 KV heads, hd 256, query scale 256^-0.5, no cap):
+    (kernel, label, inputs, keywords). The serving shapes first (verify
+    phases 1 and 2, paged verify phase 1, the prefill and an admission
+    bucket; its drafter's draft at hd 128, 24/24 heads), then the edges of
+    the hd-256 bodies: GQA rows, a window across chunks, more rows than a
+    block (16 at hd 256) with live and with no keys, a JAX sweep paged
+    layout, and flash with a window, a cap, ragged tiles, kv_len and no
+    causal mask."""
+    kw = dict(scale=256 ** -0.5)
+    out = []
+    for label, (B, T, H, KV, hd, S, valid), extra in [
+            ("gemma7b target verify phase 1",
+             (8, 6, 16, 16, 256, 1024, c), {}),
+            ("gemma7b target verify phase 2", (8, 6, 16, 16, 256, 6, 6), {}),
+            ("gemma7b drafter draft phase 1",
+             (8, 5, 24, 24, 128, 1024, c - 1), {}),
+            ("hd256 edge: GQA 8/2, window across chunks",
+             (8, 6, 8, 2, 256, 1024, 600), dict(window=100)),
+            ("hd256 edge: T 40, 4 row tiles, live keys",
+             (2, 40, 4, 2, 256, 1000, 600), {}),
+            ("hd256 edge: every key empty", (2, 40, 4, 2, 256, 1024, 0), {}),
+            ("gemma7b admission chunk 128 phase 1",
+             (1, 128, 16, 16, 256, 1024, 512), {})]:
+        out.append(("decode_attention", label,
+                    decode_case(dev, dtype, B, T, H, KV, hd, S, valid),
+                    dict(scale=hd ** -0.5, **extra)))
+    out.append(("paged_decode_attention", "gemma7b target verify phase 1",
+                paged_case(dev, dtype, 8, 6, 16, 16, 256, 16, 64, c,
+                           seed=40), kw))
+    out.append(("paged_decode_attention", "hd256 sweep (3, 4, 2, 1, 16, 8)",
+                paged_sweep_case(dev, dtype, 3, 4, 2, 1, 256, 16, 8, 6,
+                                 seed=41), kw))
+    g = torch.Generator(device=dev).manual_seed(4)
+    for label, (B, Sq, Skv, H, KV), extra in [
+            ("gemma7b target prefill", (8, 512, 512, 16, 16), {}),
+            ("gemma7b admission bucket 512", (1, 512, 512, 16, 16), {}),
+            ("hd256 edge: ragged 500, GQA 8/2", (2, 500, 500, 8, 2), {}),
+            ("hd256 edge: window 64, cap 50", (2, 256, 256, 4, 2),
+             dict(window=64, softcap=50.0)),
+            ("hd256 edge: Sq 100 < Skv 300", (2, 100, 300, 4, 2), {}),
+            ("hd256 edge: kv_len 150, not causal", (2, 200, 256, 4, 2),
+             dict(causal=False, kv_len=150))]:
+        out.append(("flash_attention", label,
+                    qkv(g, dev, dtype, (B, Sq, H, 256), (B, Skv, KV, 256)),
+                    dict(kw, **{"causal": True, **extra})))
+    return out
+
+
 def check_kernels(ops, dev):
     """Every kernel against its plain version; returns the per-kernel
     measurements of the main-path shapes (the MTP kernel's keyed by
@@ -602,7 +685,9 @@ def check_kernels(ops, dev):
     shares = {}      # (kernel, dtype) -> the worst share of the limit
     rows = {}
     row_kw = {}      # (kernel, label) -> the call's keywords, if not plain
-    g2_worst = {}    # kernel -> gemma2's worst bfloat16 error at its shapes
+    # (family, kernel) -> the worst bfloat16 error at that family's
+    # shapes: "gemma2" (softcap 50) and "gemma7b" (head dim 256)
+    fam_worst = {}
 
     def compare(name, got, want, dtype, label):
         atol, rtol = KERNEL_TOL[dtype]
@@ -809,8 +894,10 @@ def check_kernels(ops, dev):
         # extend phase-1 shapes and verify phase 2, a local layer's ring of
         # 4096 + 6 slots after position 4700 (wrapped; the window's edge
         # falls inside a split chunk), the cap with scores 8x larger; flash
-        # at the prefill and past the window
-        for name, label, inp, kw in gemma2_cases(dev, dtype, c):
+        # at the prefill and past the window. Then head dim 256 (gemma-7b's
+        # serving shapes and the edges of the hd-256 bodies)
+        for name, label, inp, kw in (gemma2_cases(dev, dtype, c)
+                                     + gemma7b_cases(dev, dtype, c)):
             fn = getattr(ops, name)
             before = ops.launches[name]
             if name == "flash_attention":
@@ -828,8 +915,10 @@ def check_kernels(ops, dev):
             if ops.launches[name] != before + 1:
                 fail(f"{name} {label}: a call moved the launch count by "
                      f"{ops.launches[name] - before}")
-            if dtype == "bfloat16":
-                g2_worst[name] = max(g2_worst.get(name, 0.0), err)
+            fam = label.split()[0]
+            if dtype == "bfloat16" and fam in ("gemma2", "gemma7b"):
+                fam_worst[(fam, name)] = max(fam_worst.get((fam, name), 0.0),
+                                             err)
                 rows[(name, label)], row_kw[(name, label)] = inp, kw
 
     log("phase 2: timing at the serving shapes (bfloat16; CUDA events)")
@@ -894,7 +983,7 @@ def check_kernels(ops, dev):
         for (name, dtype), share in sorted(shares.items())))
     log("phase 2: flash training attention gradients (float32, TF32 off)")
     check_mtp_backward(dev)
-    return worst, measured, g2_worst, pending
+    return worst, measured, fam_worst, pending
 
 
 def flex_library(ops, dev, pending, measured):
@@ -2121,16 +2210,17 @@ ROUND_PROMPT_LEN = 256
 STREAM_ABORTED = 5
 
 
-def sched3b_traffic(vocab):
-    """Phase 3b's 24 prompts (256-640 tokens) and budgets (64-192), seed 0;
-    its virtual arrivals are drawn and dropped to keep the stream."""
+def sched3b_traffic(vocab, n=24):
+    """Phase 3b's first ``n`` requests, drawn as phase 3b draws them
+    (prompts of 256-640 tokens, budgets 64-192, Exp(1) virtual arrivals,
+    seed 0): (prompts, budgets, arrivals)."""
     rng = np.random.default_rng(0)
-    N = 24
-    lens = rng.integers(256, 641, N)
-    budgets = rng.integers(64, 193, N)
-    rng.exponential(1.0, N)
-    prompts = [rng.integers(0, vocab - 1, n).astype(np.int32) for n in lens]
-    return prompts, [int(b) for b in budgets]
+    lens = rng.integers(256, 641, 24)
+    budgets = rng.integers(64, 193, 24)
+    arrivals = np.cumsum(rng.exponential(1.0, 24))
+    prompts = [rng.integers(0, vocab - 1, m).astype(np.int32) for m in lens]
+    return (prompts[:n], [int(b) for b in budgets[:n]],
+            [float(a) for a in arrivals[:n]])
 
 
 def pct(xs, p):
@@ -2230,7 +2320,7 @@ def streaming_path(ops, dev, sched3b):
                        page_size=16, pool_pages=POOL, swap="host",
                        host_pool_bytes=HOST_POOL_BYTES)
     cfg, V, n_d = eng.tcfg, eng.tcfg.vocab_size, eng.dcfg.n_layers
-    prompts, budgets = sched3b_traffic(V)
+    prompts, budgets, _ = sched3b_traffic(V)
     N = STREAM_REQUESTS
     policies = [None if i % 2 == 0 else SamplingParams(seed=i, **SAMPLED)
                 for i in range(N)]
@@ -2761,12 +2851,9 @@ def dense_family_launches(cfg, n_d, iterations, chunk_lists, paged, n_ring):
 def gemma2_path(ops, dev):
     """Phase 6: full-width gemma2-27b in bfloat16 through Engine.run and a
     paged Scheduler.serve under pool pressure (weights shared)."""
-    import dataclasses
     from repro_torch.configs import DrafterConfig, get_config
     from repro_torch.launch.serve import build_engine, random_prompts
-    from repro_torch.serving.engine import Engine
-    from repro_torch.serving.scheduler import Request, Scheduler
-    B, P, NEW, K, MAX_LEN, PAGE, POOL, N = 8, 512, 128, 5, 1024, 16, 224, 12
+    B, P, NEW, K, MAX_LEN, PAGE, POOL, N = 8, 512, 128, 5, 1024, 16, 192, 8
     tcfg = get_config("gemma2-27b")
     dcfg = DrafterConfig().resolve(tcfg)
     log(f"phase 6: full-width gemma2-27b bfloat16 (46 layers, d 4608, 32/16 "
@@ -2788,109 +2875,22 @@ def gemma2_path(ops, dev):
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; drafter d "
         f"{eng.dcfg.d_model} heads {eng.dcfg.n_heads}/{eng.dcfg.n_kv_heads} "
         f"d_ff {eng.dcfg.d_ff}")
-    cfg, V = eng.tcfg, eng.tcfg.vocab_size
     if eng.ring:
         fail("gemma2 at max_len 1024 built a ring (its window is 4096)")
-    prompts = random_prompts(V, B, P, seed=0)
-    eng.run(prompts, max_iters=8)                      # cold run, 8 steps
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launches()
-    r = eng.run(prompts)
-    counts = dict(ops.launches)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    steps = r["steps"]
-    log(f"  Engine.run warm: otps {r['otps']:.1f} tok/s, prefill "
-        f"{r['prefill_s']:.4f} s, decode {r['decode_s']:.4f} s over {steps} "
-        f"steps ({r['decode_s'] / steps * 1e3:.2f} ms/step), AL "
-        f"{r['acceptance_length']:.4f}, new tokens {r['new_tokens']}, peak "
-        f"memory {peak_gb:.2f} GB")
-    log(f"  launches: {counts}")
-    n_d = eng.dcfg.n_layers
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": 2 * n_d + steps * (2 * cfg.n_layers + 4 * n_d),
-            "paged_decode_attention": 0, "mtp_attention": 0}
-    if counts != want:
-        fail(f"gemma2 launch counts {counts} != expected {want}")
-    state = r["state"]
-    if not bool((state["new_count"] == NEW).all()):
-        fail(f"new_count {state['new_count'].tolist()} != {NEW}")
-    gen = torch.as_tensor(r["tokens"])[:, P:P + NEW]
-    if gen.min() < 0 or gen.max() >= V:
-        fail("gemma2 generated tokens out of range")
-    lp = state["logprobs"][:, P:P + NEW]
-    if not bool(torch.isfinite(lp).all()) or float(lp.max()) > 0:
-        fail("gemma2 logprobs are not finite log-probabilities")
-    if not (1.0 <= r["acceptance_length"] <= K + 1):
-        fail(f"gemma2 acceptance length {r['acceptance_length']}")
-    run = dict(otps=r["otps"], prefill_s=r["prefill_s"],
-               decode_s=r["decode_s"], steps=steps,
-               decode_ms_per_step=r["decode_s"] / steps * 1e3,
-               acceptance_length=r["acceptance_length"],
-               weights_gb=built_gb, peak_memory_gb=peak_gb, launches=counts,
-               memory_plan=plan)
-    del state, r
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "6")
+    run.update(weights_gb=built_gb, memory_plan=plan)
     gc.collect()
     torch.cuda.empty_cache()
-
-    # phase 3b's first 12 requests on a paged twin sharing the weights
-    peng = Engine(cfg, eng.dcfg, eng.tparams, eng.dparams,
-                  dataclasses.replace(eng.ecfg, kv_layout="paged",
-                                      page_size=PAGE, pool_pages=POOL,
-                                      max_new_tokens=192), B, device=dev)
-    del eng
     log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, "
         f"incremental growth; phase 3b's first {N} requests (prompts "
         f"256-640, budgets 64-192, Exp(1) arrival gaps)")
-    rng = np.random.default_rng(0)          # drawn as phase 3b draws them
-    lens = rng.integers(256, 641, 24)
-    budgets = rng.integers(64, 193, 24)[:N]
-    arrivals = np.cumsum(rng.exponential(1.0, 24))[:N]
-    sched_prompts = [rng.integers(0, V - 1, n).astype(np.int32)
-                     for n in lens][:N]
-    sched = Scheduler(peng, sync_every=1)
-    sched.serve([Request(p, max_new_tokens=8) for p in sched_prompts[:8]])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    peng.allocator.reset_stats()
-    ops.reset_launches()
-    rep = sched.serve([Request(p, max_new_tokens=int(b), arrival_time=float(a))
-                       for p, b, a in zip(sched_prompts, budgets, arrivals)])
-    counts = dict(ops.launches)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    it, pre = rep["iterations"], rep["preemptions"]
-    admissions = N + pre
-    log(f"  Scheduler.serve warm: otps {rep['otps']:.1f} tok/s, wall "
-        f"{rep['wall_s']:.3f} s ({rep['wall_s'] / it * 1e3:.2f} ms/iteration "
-        f"over {it}), otps_vt {rep['otps_vt']:.4f}, AL "
-        f"{rep['weighted_acceptance_length']:.4f}, preemptions {pre}, peak "
-        f"pages {rep['peak_pages']}/{POOL}, new tokens "
-        f"{rep['total_new_tokens']}, peak memory {peak_gb:.2f} GB")
-    log(f"  launches: {counts} ({counts['paged_decode_attention'] / it:.1f} "
-        f"paged a iteration)")
-    want = sched_launches_want(cfg, n_d, it, admissions)
-    if counts != want:
-        fail(f"gemma2 scheduler launch counts {counts} != expected {want}")
-    res = rep["results"]
-    if len(res) != N or len({x["rid"] for x in res}) != N:
-        fail(f"{len(res)} results for {N} requests")
-    for x, b in zip(res, budgets):
-        if x["n_new"] != b or len(x["tokens"]) != b:
-            fail(f"request {x['rid']} emitted {x['n_new']} tokens, budget {b}")
-        if x["tokens"].min() < 0 or x["tokens"].max() >= V:
-            fail(f"request {x['rid']} emitted tokens out of range")
-        if not (np.isfinite(x["logprobs"]).all() and x["logprobs"].max() <= 0):
-            fail(f"request {x['rid']} logprobs are not log-probabilities")
-    if not pre > 0:
-        fail("gemma2 serve: no request was preempted")
-    if peng.allocator.n_used != 0:
-        fail(f"{peng.allocator.n_used} pages still allocated after serve")
-    serve = {k: rep[k] for k in ("otps", "otps_vt", "wall_s", "iterations",
-                                 "total_new_tokens", "preemptions",
-                                 "weighted_acceptance_length", "peak_pages")}
-    serve.update(ms_per_iteration=rep["wall_s"] / it * 1e3,
-                 admissions=admissions, peak_memory_gb=peak_gb,
-                 launches=counts)
-    del peng, sched, rep
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192)
+    del eng
+    serve = family_serve(ops, dev, peng,
+                         sched3b_traffic(peng.tcfg.vocab_size, N), "6")
+    del peng
     gc.collect()
     torch.cuda.empty_cache()
     return {"run": run, "serve": serve}
@@ -3065,6 +3065,384 @@ def minitron_path(ops, dev):
     return {"launches": counts, "memory_plan": plan}
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: gemma-7b (head dim 256) and the SSM family (mamba2-780m)
+# ---------------------------------------------------------------------------
+
+def ssm_memory_plan(tcfg, dcfg, B, max_len, K, dtype_bytes):
+    """The bytes an SSM run holds, from the configs: target and drafter
+    weights, the per-slot conv and state rows, the drafter's KV at (B,
+    max_len), and the verify's peak of per-token snapshots (the state after
+    each of its K + 1 tokens, float32, every layer: held from the forward
+    to the commit)."""
+    d, V, L = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers
+    s = tcfg.ssm
+    d_inner = s.expand * d
+    H, N = d_inner // s.head_dim, s.d_state
+    conv_ch = d_inner + 2 * N
+    layer = d * (2 * d_inner + 2 * N + H) + s.conv_width * conv_ch \
+        + d_inner * d
+    target = (V * d + L * layer) * dtype_bytes
+    dd, Hd, hdd = dcfg.d_model, dcfg.n_heads, dcfg.head_dim
+    drafter = (2 * V * dd + 3 * d * dd + 2 * dd * dd + dcfg.n_layers * (
+        4 * dd * Hd * hdd + 3 * dd * dcfg.d_ff)) * dtype_bytes
+    state = L * B * (H * s.head_dim * N * 4
+                     + (s.conv_width - 1) * conv_ch * dtype_bytes)
+    kv = dcfg.n_layers * dcfg.n_kv_heads * hdd * 2 * B * max_len * dtype_bytes
+    snaps = (K + 1) * L * B * H * s.head_dim * N * 4
+    return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
+                recurrent_state_gb=state / 1e9, drafter_kv_gb=kv / 1e9,
+                verify_snapshots_gb=snaps / 1e9,
+                total_gb=(target + drafter + state + kv + snaps) / 1e9)
+
+
+def admissions_logged(eng):
+    """Record the prompt length of every admission prefill ``eng`` runs
+    (a fresh request's or a recompute resume's; a swap-in runs none)."""
+    lens = []
+    inner = eng._admission_prefill
+
+    def logged(prompt, sp):
+        lens.append(int(prompt.shape[1]))
+        return inner(prompt, sp)
+    eng._admission_prefill = logged
+    return lens
+
+
+def serve_launches_want(eng, iterations, admitted):
+    """Attention launches of a paged Scheduler.serve: each iteration runs
+    phase 1 of every target attention layer and of the drafter's draft and
+    extend (paged) and their phase 2 (decode); an admission prefill of a
+    P-token prompt runs, for a dense target, one flash per layer and the
+    drafter's extend (2 decode a drafter layer); for a recurrent target,
+    no target attention and the drafter's extend once per MSB chunk of
+    P."""
+    L_att = 0 if eng.model.recurrent else eng.tcfg.n_layers
+    n_d = eng.dcfg.n_layers
+    per_it = L_att + 2 * n_d
+    ext = sum(len(eng.prefill_buckets(n)) if eng.chunk_only else 1
+              for n in admitted)
+    return {"paged_decode_attention": iterations * per_it,
+            "decode_attention": iterations * per_it + ext * 2 * n_d,
+            "flash_attention": 0 if eng.chunk_only else len(admitted) * L_att,
+            "mtp_attention": 0}
+
+
+def family_run(ops, dev, eng, prompts, NEW, K, tag):
+    """Engine.run at phase 3's shapes after a cold run of 8 steps: the warm
+    run's numbers, its launch counts against the target's formula (a dense
+    target: one flash a layer at the prefill, 2 decode a layer a step; a
+    recurrent one: none), and the output's checks."""
+    eng.run(prompts, max_iters=8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    r = eng.run(prompts)
+    counts = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = r["steps"]
+    log(f"  Engine.run warm: otps {r['otps']:.1f} tok/s, prefill "
+        f"{r['prefill_s']:.4f} s, decode {r['decode_s']:.4f} s over {steps} "
+        f"steps ({r['decode_s'] / steps * 1e3:.2f} ms/step), AL "
+        f"{r['acceptance_length']:.4f}, new tokens {r['new_tokens']}, peak "
+        f"memory {peak_gb:.2f} GB")
+    log(f"  launches: {counts}")
+    L_att = 0 if eng.model.recurrent else eng.tcfg.n_layers
+    n_d = eng.dcfg.n_layers
+    want = {"flash_attention": L_att,
+            "decode_attention": 2 * n_d + steps * (2 * L_att + 4 * n_d),
+            "paged_decode_attention": 0, "mtp_attention": 0}
+    if counts != want:
+        fail(f"{tag} launch counts {counts} != expected {want}")
+    state = r["state"]
+    P, V = prompts.shape[1], eng.tcfg.vocab_size
+    if not bool((state["new_count"] == NEW).all()):
+        fail(f"{tag} new_count {state['new_count'].tolist()} != {NEW}")
+    gen = torch.as_tensor(r["tokens"])[:, P:P + NEW]
+    if gen.min() < 0 or gen.max() >= V:
+        fail(f"{tag} generated tokens out of range")
+    lp = state["logprobs"][:, P:P + NEW]
+    if not bool(torch.isfinite(lp).all()) or float(lp.max()) > 0:
+        fail(f"{tag} logprobs are not finite log-probabilities")
+    if not (1.0 <= r["acceptance_length"] <= K + 1):
+        fail(f"{tag} acceptance length {r['acceptance_length']}")
+    return dict(otps=r["otps"], prefill_s=r["prefill_s"],
+                decode_s=r["decode_s"], steps=steps,
+                decode_ms_per_step=r["decode_s"] / steps * 1e3,
+                acceptance_length=r["acceptance_length"],
+                peak_memory_gb=peak_gb, launches=counts)
+
+
+def family_serve(ops, dev, peng, traffic, tag):
+    """Scheduler.serve of ``traffic`` on the paged engine ``peng`` after a
+    cold serve of its first 4 prompts (8-token budgets): the warm run's
+    numbers, launch counts by ``serve_launches_want``, every request to its
+    budget, preemptions, and both pools empty after."""
+    from repro_torch.serving.scheduler import Request, Scheduler
+    prompts, budgets, arrivals = traffic
+    N = len(prompts)
+    sched = Scheduler(peng, sync_every=1)
+    sched.serve([Request(p, max_new_tokens=8) for p in prompts[:4]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    peng.reset_stats()
+    admitted = admissions_logged(peng)
+    ops.reset_launches()
+    rep = sched.serve([Request(p, max_new_tokens=b, arrival_time=a)
+                       for p, b, a in zip(prompts, budgets, arrivals)])
+    counts = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    it, pre = rep["iterations"], rep["preemptions"]
+    log(f"  Scheduler.serve warm: otps {rep['otps']:.1f} tok/s, wall "
+        f"{rep['wall_s']:.3f} s ({rep['wall_s'] / it * 1e3:.2f} ms/iteration "
+        f"over {it}), otps_vt {rep['otps_vt']:.4f}, AL "
+        f"{rep['weighted_acceptance_length']:.4f}, preemptions {pre} (swap "
+        f"{rep['preempt_swap']}, recompute {rep['preempt_recompute']}), "
+        f"admission prefills {len(admitted)}, peak pages "
+        f"{rep['peak_pages']}/{peng.pool_pages}, new tokens "
+        f"{rep['total_new_tokens']}, peak memory {peak_gb:.2f} GB")
+    want = serve_launches_want(peng, it, admitted)
+    log(f"  launches: {counts} ({counts['paged_decode_attention'] / it:.1f} "
+        f"paged an iteration)")
+    if counts != want:
+        fail(f"{tag} scheduler launch counts {counts} != expected {want}")
+    res = rep["results"]
+    V = peng.tcfg.vocab_size
+    if len(res) != N or len({x["rid"] for x in res}) != N:
+        fail(f"{tag}: {len(res)} results for {N} requests")
+    for x, b in zip(res, budgets):
+        if x["n_new"] != b or len(x["tokens"]) != b:
+            fail(f"{tag} request {x['rid']} emitted {x['n_new']} tokens, "
+                 f"budget {b}")
+        if x["tokens"].min() < 0 or x["tokens"].max() >= V:
+            fail(f"{tag} request {x['rid']} emitted tokens out of range")
+        if not (np.isfinite(x["logprobs"]).all() and x["logprobs"].max() <= 0):
+            fail(f"{tag} request {x['rid']} logprobs are not "
+                 f"log-probabilities")
+    if not pre > 0:
+        fail(f"{tag} serve: no request was preempted")
+    if peng.allocator.n_used != 0:
+        fail(f"{tag}: {peng.allocator.n_used} pages allocated after serve")
+    if peng.host_pool is not None and len(peng.host_pool):
+        fail(f"{tag}: the host pool still holds a snapshot")
+    out = {k: rep[k] for k in ("otps", "otps_vt", "wall_s", "iterations",
+                               "total_new_tokens", "preemptions",
+                               "preempt_swap", "preempt_recompute",
+                               "weighted_acceptance_length", "peak_pages")}
+    out.update(ms_per_iteration=rep["wall_s"] / it * 1e3,
+               admission_prefills=len(admitted), peak_memory_gb=peak_gb,
+               launches=counts)
+    return out
+
+
+def family_twin(eng, B, dev, **kw):
+    """An Engine sharing ``eng``'s weights under another configuration."""
+    import dataclasses
+    from repro_torch.serving.engine import Engine
+    ecfg = dataclasses.replace(eng.ecfg, **kw)
+    use_d = ecfg.drafter_mode != "none"
+    return Engine(eng.tcfg, eng.dcfg if use_d else None, eng.tparams,
+                  eng.dparams if use_d else None, ecfg, B, device=dev)
+
+
+def family_lossless(ops, dev, arch, tag):
+    """float32 at full width, phase 4's prompts (batch 4, 128 tokens, 32
+    new, K 5): parallel and ar against none, and a paged Scheduler.serve
+    under pool pressure (30 pages of 16, recompute preemption) against the
+    contiguous one, under phase 4's near-tie rule. Returns (the none
+    engine, its tokens, the prompts, the parallel engine)."""
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW, K, MAX_LEN = 4, 128, 32, 5, 256
+    eng = build_engine(arch=arch, mode="parallel", dtype="float32", K=K,
+                       max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
+                       device=dev)
+    none = family_twin(eng, B, dev, drafter_mode="none", K=0)
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=1)
+    toks = {}
+    for name, e in (("none", none), ("parallel", eng),
+                    ("ar", family_twin(eng, B, dev, drafter_mode="ar"))):
+        r = e.run(prompts)
+        toks[name] = r["tokens"][:, :P + NEW]
+        log(f"  {name:8s} steps {r['steps']:3d} AL "
+            f"{r['acceptance_length']:.3f} decode {r['decode_s']:.3f} s")
+    for mode in ("parallel", "ar"):
+        near_ties(none, toks[mode], toks["none"], P, f"{tag} {mode}", dev)
+    served = {}
+    for layout in ("contiguous", "paged"):
+        e = family_twin(eng, B, dev, kv_layout=layout, page_size=16,
+                        pool_pages=30 if layout == "paged" else 0)
+        rep = Scheduler(e).serve([Request(p, max_new_tokens=NEW)
+                                  for p in prompts])
+        served[layout] = np.concatenate(
+            [prompts, np.stack([x["tokens"] for x in rep["results"]])], 1)
+        log(f"  Scheduler.serve {layout}: iterations {rep['iterations']}, "
+            f"preemptions {rep['preemptions']}")
+        if layout == "paged" and not (rep["preemptions"] > 0
+                                      and e.allocator.n_used == 0):
+            fail(f"{tag} paged serve: {rep['preemptions']} preemptions, "
+                 f"{e.allocator.n_used} pages left allocated")
+        del e
+    near_ties(none, served["paged"], served["contiguous"], P,
+              f"{tag} paged vs contiguous serve", dev)
+    near_ties(none, served["contiguous"], toks["none"], P,
+              f"{tag} contiguous serve vs none", dev)
+    return none, toks["none"], prompts, eng
+
+
+def gemma7b_path(ops, dev):
+    """Phase 7: full-width gemma-7b (head dim 256 through the decode, paged
+    and flash kernels): bfloat16 Engine.run at phase 3's shapes and
+    Scheduler.serve of phase 3b's traffic on a paged twin; then float32
+    greedy losslessness."""
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.launch.serve import build_engine, random_prompts
+    B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 512, 128, 5, 1024, 16, 256
+    tcfg = get_config("gemma-7b")
+    dcfg = DrafterConfig().resolve(tcfg)
+    log(f"phase 7: full-width gemma-7b bfloat16 (28 layers, d 3072, 16/16 "
+        f"heads of 256, d_ff 24576 GeGLU, vocab 256000, embedding scale), "
+        f"4-layer parallel drafter (d {dcfg.d_model}, {dcfg.n_heads} heads of "
+        f"{dcfg.head_dim}), batch {B}, prompt {P}, max_new {NEW}, K {K}, "
+        f"max_len {MAX_LEN}")
+    free_card(dev, "phase 7")
+    plan = memory_plan(tcfg, dcfg, B, MAX_LEN, 2)
+    log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
+    t0 = time.perf_counter()
+    eng = build_engine(arch="gemma-7b", mode="parallel", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "7")
+    run["memory_plan"] = plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, "
+        f"incremental growth; phase 3b's 24 requests")
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192)
+    del eng
+    serve = family_serve(ops, dev, peng, sched3b_traffic(peng.tcfg.vocab_size), "7")
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 7b: gemma-7b float32 at full width (~34 GB of weights), "
+        "phase 4's prompts")
+    free_card(dev, "phase 7b")
+    lossless = family_lossless(ops, dev, "gemma-7b", "7b")
+    del lossless
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "serve": serve}
+
+
+def mamba2_path(ops, dev):
+    """Phase 8: full-width mamba2-780m (SSD, attention-free; its drafter
+    through the decode and paged kernels): bfloat16 Engine.run at phase 3's
+    shapes and Scheduler.serve of phase 3b's traffic, paged (the drafter's
+    KV only) with swap to host on a pool that preempts; then the float32
+    checks."""
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.launch.serve import build_engine, random_prompts
+    B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 512, 128, 5, 1024, 16, 256
+    tcfg = get_config("mamba2-780m")
+    dcfg = DrafterConfig().resolve(tcfg)
+    log(f"phase 8: full-width mamba2-780m bfloat16 (48 SSD layers, d 1536, "
+        f"d_inner 3072, 48 heads of 64, d_state 128, chunk 128, vocab "
+        f"50280), 4-layer parallel drafter (d {dcfg.d_model}, "
+        f"{dcfg.n_heads} heads of {dcfg.head_dim}), batch {B}, prompt {P}, "
+        f"max_new {NEW}, K {K}, max_len {MAX_LEN}")
+    free_card(dev, "phase 8")
+    plan = ssm_memory_plan(tcfg, dcfg, B, MAX_LEN, K, 2)
+    log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
+    eng = build_engine(arch="mamba2-780m", mode="parallel", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    if not (eng.model.recurrent and eng.chunk_only):
+        fail("mamba2 did not build as a recurrent, chunk-only target")
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    held = torch.cuda.memory_allocated(dev)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "8")
+    run.update(memory_plan=plan,
+               peak_over_weights_gb=run["peak_memory_gb"] - held / 1e9)
+    # the verify's snapshots: a step's peak beyond the state it starts from
+    state = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(4):
+        state = eng.step(state)
+    torch.cuda.synchronize()
+    run["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+    log(f"  a verify step holds {run['step_peak_gb']:.3f} GB beyond its "
+        f"state (planned snapshots {plan['verify_snapshots_gb']:.3f} GB)")
+    if run["step_peak_gb"] < plan["verify_snapshots_gb"]:
+        fail("a verify step held less than its snapshots: were they built?")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  Scheduler.serve: paged (the drafter's KV), page {PAGE}, pool "
+        f"{POOL} pages, swap to host, incremental growth; phase 3b's 24 "
+        f"requests")
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192, swap="host")
+    del eng
+    serve = family_serve(ops, dev, peng, sched3b_traffic(peng.tcfg.vocab_size), "8")
+    if not serve["preempt_swap"] > 0:
+        fail("phase 8 serve: no request was swapped to the host")
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 8b: mamba2-780m float32 at full width, phase 4's prompts")
+    checks = mamba2_float32(ops, dev)
+    return {"run": run, "serve": serve, "float32": checks}
+
+
+def mamba2_float32(ops, dev):
+    """Phase 8b: parallel, ar and none; paged against contiguous; a
+    recompute-preempted and a swapped request each equal to itself served
+    alone; a seeded sampled request alone equal to itself in a batch."""
+    from repro_torch.serving.margins import MarginLog
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import Request, Scheduler
+    none, ref, prompts, eng = family_lossless(ops, dev, "mamba2-780m", "8b")
+    B, NEW = 4, 32
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5)
+    out = {}
+    with MarginLog() as margins:
+        for swap in ("none", "host"):
+            e = family_twin(eng, B, dev, kv_layout="paged", page_size=16,
+                            pool_pages=30, swap=swap)
+            reqs = [Request(p, max_new_tokens=NEW, rid=i,
+                            sampling=sp if i == 0 else None)
+                    for i, p in enumerate(prompts)]
+            rep = Scheduler(e).serve(reqs)
+            kind = "preempt_swap" if swap == "host" else "preempt_recompute"
+            moved = [x for x in rep["results"] if x["n_preempt"] > 0]
+            log(f"  paged serve, swap {swap}: preemptions "
+                f"{rep['preemptions']} ({kind} {rep[kind]}), preempted "
+                f"requests {[x['rid'] for x in moved]}")
+            if not (rep[kind] > 0 and moved):
+                fail(f"8b serve (swap {swap}): no request was preempted so")
+            for x in moved + [rep["results"][0]]:
+                req = reqs[x["rid"]]
+                alone = Scheduler(e).serve([Request(
+                    req.prompt, max_new_tokens=NEW, rid=req.rid,
+                    sampling=req.sampling)])["results"][0]
+                streams_agree(f"8b swap {swap} alone vs batched", none,
+                              margins, req, x["tokens"], alone["tokens"])
+            out[swap] = {k: rep[k] for k in ("preemptions", "preempt_swap",
+                                             "preempt_recompute")}
+            if e.allocator.n_used or (e.host_pool is not None
+                                      and len(e.host_pool)):
+                fail(f"8b serve (swap {swap}): a pool did not drain")
+            del e
+    del none, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3114,7 +3492,7 @@ def run_phases(ops, dev) -> list:
         log(f"({what}: {time.perf_counter() - t0:.1f} s)")
         return out
 
-    worst, measured, g2_worst, pending = timed(check_kernels, ops, dev)
+    worst, measured, fam_worst, pending = timed(check_kernels, ops, dev)
     path = timed(main_path, ops, dev)
     sched = timed(scheduler_path, ops, dev)
     greedy_ref = timed(losslessness, ops, dev)
@@ -3128,6 +3506,8 @@ def run_phases(ops, dev) -> list:
     gemma2["rings"] = timed(gemma2_rings, ops, dev)
     gemma2["rings_bf16"] = timed(gemma2_rings, ops, dev, "bfloat16")
     minitron = timed(minitron_path, ops, dev)
+    gemma7b = timed(gemma7b_path, ops, dev)
+    mamba2 = timed(mamba2_path, ops, dev)
     timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -3154,11 +3534,23 @@ def run_phases(ops, dev) -> list:
     g2_launches = dict(gemma2["run"]["launches"],
                        paged_decode_attention=gemma2["serve"]["launches"][
                            "paged_decode_attention"])
+    # gemma-7b's (head dim 256) the same way, from phase 7; mamba2's
+    # drafter's launches from phase 8 (its target runs no attention)
+    g7_shape = {"decode_attention": "gemma7b target verify phase 1",
+                "paged_decode_attention": "gemma7b target verify phase 1",
+                "flash_attention": "gemma7b target prefill"}
+    g7_launches = dict(gemma7b["run"]["launches"],
+                       paged_decode_attention=gemma7b["serve"]["launches"][
+                           "paged_decode_attention"])
+    m2_launches = dict(mamba2["run"]["launches"],
+                       paged_decode_attention=mamba2["serve"]["launches"][
+                           "paged_decode_attention"])
     kernels = []
     for name in ("decode_attention", "paged_decode_attention",
                  "flash_attention"):
         m = measured[(name, main_shape[name])]
         g2 = measured[(name, g2_shape[name])]
+        g7 = measured[(name, g7_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
@@ -3168,11 +3560,22 @@ def run_phases(ops, dev) -> list:
             "library": m.get("library", "scaled_dot_product_attention"),
             "shape": main_shape[name],
             "gemma2": {"shape": g2_shape[name], "launches": g2_launches[name],
-                       "max_abs_err": g2_worst[name], "ms": g2["ms"],
+                       "max_abs_err": fam_worst[("gemma2", name)],
+                       "ms": g2["ms"],
                        "plain_ms": g2["plain_ms"], "bound_ms": g2["bound_ms"],
                        "bound_by": g2["bound_by"],
                        "library_ms": g2["library_ms"],
-                       "library": "flex_attention"}})
+                       "library": "flex_attention"},
+            "gemma7b": {"shape": g7_shape[name], "head_dim": 256,
+                        "launches": g7_launches[name],
+                        "max_abs_err": fam_worst[("gemma7b", name)],
+                        "ms": g7["ms"], "plain_ms": g7["plain_ms"],
+                        "bound_ms": g7["bound_ms"],
+                        "bound_by": g7["bound_by"],
+                        "library_ms": g7["library_ms"],
+                        "library": g7.get("library",
+                                          "scaled_dot_product_attention")},
+            "mamba2": {"launches": m2_launches[name]}})
     # the MTP kernel: timed at the training shape in float32, the dtype the
     # training path gives it; launches over both training paths of phase 5
     mtp_shape = ("training shape n 2048 K 8 r 0.8", "float32")
@@ -3201,9 +3604,11 @@ def run_phases(ops, dev) -> list:
     log(f"training: {json.dumps(train)}")
     log(f"gemma2-27b: {json.dumps(gemma2)}")
     log(f"minitron-4b: {json.dumps(minitron)}")
-    log("gemma2 kernel timing: " + json.dumps(
+    log(f"gemma-7b: {json.dumps(gemma7b)}")
+    log(f"mamba2-780m: {json.dumps(mamba2)}")
+    log("gemma2 and gemma7b kernel timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured.items()
-         if isinstance(k, tuple) and k[1].startswith("gemma2")}))
+         if isinstance(k, tuple) and k[1].startswith(("gemma2", "gemma7b"))}))
     log("mtp_attention timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured["mtp_attention"].items()}))
     return kernels

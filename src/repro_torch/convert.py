@@ -4,10 +4,11 @@ of numpy arrays, into the port's tensors.
 The JAX target stacks its layers for ``lax.scan``: ``blocks`` holds one
 ``slot{i}`` subtree per position in a super-block of ``period`` layers,
 each leaf with a leading super-block axis, and ``tail`` holds the
-``n_layers % period`` remaining layers unstacked. The JAX drafter stacks
-its blocks along a leading layer axis (``vmap``). Their KV caches are
-stacked the same way. The port keeps layers as Python lists, so every
-converter here unstacks into layer order.
+``n_layers % period`` remaining layers unstacked. The JAX drafter and the
+JAX SSM target stack their blocks along a leading layer axis (``vmap``).
+Their caches are stacked the same way (an SSM target's ``conv`` and
+``state`` leaves, and its verify's snapshots, too). The port keeps layers
+as Python lists, so every converter here unstacks into layer order.
 """
 from __future__ import annotations
 
@@ -53,14 +54,38 @@ def _scan_layers(tree: dict, cfg: ModelConfig):
         yield tail[f"slot{i}"], None
 
 
+def _stacked(tree: dict):
+    """Layers of a tree whose leaves stack the layers on axis 0."""
+    def first(t):
+        return first(next(iter(t.values()))) if isinstance(t, dict) else t
+    return np.asarray(first(tree)).shape[0]
+
+
+# SSM block leaves kept in float32 whatever the weights' dtype (the JAX
+# model makes them float32)
+_SSM_F32 = ("ln", "A_log", "dt_bias", "D", "gnorm")
+
+
 def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
                   dtype: Optional[torch.dtype] = None) -> dict:
-    """JAX ``models/transformer.init_params`` tree -> the port's layout.
-    ``dtype`` casts the weights (norms, post-norms included, stay
+    """JAX ``models/transformer.init_params`` (or, for the SSM family,
+    ``models/ssm.init_params``) tree -> the port's layout. ``dtype`` casts
+    the weights (norms, post-norms and the SSD's A, dt and D stay
     float32); an untied ``lm_head`` comes along."""
     def conv(a):
         return tensor(a, device, dtype)
 
+    if cfg.family == "ssm":
+        blocks = []
+        for li in range(_stacked(jparams["blocks"])):
+            layer = _layer(jparams["blocks"], li, device, dtype)
+            for name in _SSM_F32:
+                layer[name] = tensor(np.asarray(jparams["blocks"][name])[li],
+                                     device, torch.float32)
+            blocks.append(layer)
+        return {"embed": conv(jparams["embed"]), "blocks": blocks,
+                "final_norm": tensor(jparams["final_norm"], device,
+                                     torch.float32)}
     blocks = []
     for sub, sb in _scan_layers(jparams, cfg):
         layer = (_map(sub, conv) if sb is None
@@ -107,9 +132,21 @@ def _layer_cache(c: dict, i: Optional[int], device) -> dict:
 def target_cache(jcache: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     """JAX ``models/transformer.make_cache`` tree -> ``{"blocks": [...]}``.
     A ring keeps the JAX package's length (``window`` slots), not the
-    port's ``window + block``; each layer keeps its own ring flag."""
+    port's ``window + block``; each layer keeps its own ring flag. An SSM
+    target's (``models/ssm.make_cache``, or its verify's snapshots) keeps
+    its ``conv`` and ``state`` leaves, one layer each."""
+    if cfg.family == "ssm":
+        return ssm_layers(jcache["blocks"], device=device)
     return {"blocks": [_layer_cache(sub, sb, device)
                        for sub, sb in _scan_layers(jcache, cfg)]}
+
+
+def ssm_layers(jblocks: dict, *, device="cpu") -> dict:
+    """A JAX SSM tree stacked on the layer axis (a cache's ``blocks``, or
+    ``aux["snapshots"]["blocks"]``) -> ``{"blocks": [{"conv", "state"},
+    ...]}``, every leaf keeping its dtype."""
+    return {"blocks": [_layer(jblocks, li, device, None)
+                       for li in range(_stacked(jblocks))]}
 
 
 def drafter_cache(jcache: dict, *, device="cpu") -> dict:
@@ -124,7 +161,8 @@ def decode_state(jstate: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     port's. The ``"sampling"`` subtree keeps its leaves; its uint32 keys
     become int64 words. A paged state's pools (NP, page, ...) get the
     port's sink page appended (positions -1, K/V 0) and keep their
-    ``block_table``."""
+    ``block_table``; an SSM target's recurrent leaves are per slot in both
+    layouts."""
     out = {k: tensor(v, device) for k, v in jstate.items()
            if k not in ("tcache", "dcache", "sampling")}
     if "sampling" in jstate:
@@ -138,6 +176,8 @@ def decode_state(jstate: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     if "block_table" in jstate:
         for name in ("tcache", "dcache"):
             for c in out.get(name, {"blocks": []})["blocks"]:
+                if "k" not in c:     # recurrent leaves stay per slot
+                    continue
                 c["k"] = torch.cat([c["k"], torch.zeros_like(c["k"][:1])])
                 c["v"] = torch.cat([c["v"], torch.zeros_like(c["v"][:1])])
                 c["positions"] = torch.cat(

@@ -19,6 +19,11 @@
 //   4. every thread rescales and accumulates its (row, column) outputs
 //      with p @ V.
 //
+// At head dim 256 (gemma-7b) the 256 threads map one column each, so a
+// thread accumulates all ROWS rows (64 registers for the flash body's 64
+// rows); shared memory is 140 KB for 64 rows and 84 KB for 16, both above
+// 48 KB and under the 227 KB opt-in.
+//
 // Keys are addressed in one of two ways. Per row (block_table == nullptr):
 // key j of row b is slot b * S + j of k/v/kpos, each (B, S, ...). Paged
 // (paged_decode_attention): k/v/kpos are a shared pool of pages (NP, page,
@@ -352,6 +357,7 @@ int launch(const Params<T>& p, int hd, cudaStream_t stream) {
     case 32: return launch_hd<T, 32, ROWS>(p, stream);
     case 64: return launch_hd<T, 64, ROWS>(p, stream);
     case 128: return launch_hd<T, 128, ROWS>(p, stream);
+    case 256: return launch_hd<T, 256, ROWS>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

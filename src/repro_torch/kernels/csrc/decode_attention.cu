@@ -24,7 +24,8 @@
 //     combine pass; split-K is what fills the 132 SMs. `nsplit` and `chunk`
 //     come from ops.decode_split, and the wrapper allocates the partials'
 //     scratch (po, pm, pl) when nsplit > 1. `key_tile` and `row_tile` are
-//     the tiles ops.decode_split assumed; they must equal kBK and kRows.
+//     the tiles ops.decode_split assumed; they must equal kBK and
+//     rows_per_block(hd) (16 at hd 256, where four warps split O's columns).
 //   - float32: attention_common.cuh's f32-FMA body (16 rows a block); its
 //     1e-4 absolute limit admits neither bf16 MMAs nor TF32.
 // In both, the G query heads of a KV head share one block, so each K/V tile
@@ -42,7 +43,8 @@ extern "C" int decode_attention_launch(
   constexpr int kRows = 16;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (key_tile != repro_decode_tc::kBK || row_tile != repro_decode_tc::kRows)
+    if (key_tile != repro_decode_tc::kBK ||
+        row_tile != repro_decode_tc::rows_per_block(hd))
       return (int)cudaErrorInvalidValue;
     repro_decode_tc::Params p{
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -14,6 +14,8 @@
 // heads over 2 KV heads, hd 128, 1024 slots, 576 live) moves 5.05 MB, a
 // 1.51 µs bound; the drafter's phase 1 (12 KV heads) about 28 MB, 8.5 µs.
 // Both are far below the 295 FLOP/byte where the tensor cores would bind.
+// gemma-7b's verify phase 1 (16/16 heads of 256, 576 live) moves 75.5 MB,
+// a 22.5 µs bound.
 // A block per (batch row, KV head) walking its keys alone puts 16 blocks on
 // the 132 SMs at target verify and is bound by the latency of its serial
 // tiles; split-K is what fills the SMs.
@@ -36,6 +38,19 @@
 // summed and divided by l; splits with l == 0 drop out and rows with
 // l == 0 are written as zeros. (m, l) leave in the (B, KV, G, T) layout
 // the two-phase merge reads.
+//
+// Head dim 256 (gemma-7b's target). Sixteen rows of O in f32 over 256
+// columns are 128 registers a thread, and the Q fragments another 64:
+// spilled. So at HD 256 the four warps share one 16-row group and split
+// O's columns, 64 each (kColSplit): each warp scores the whole group
+// (S = Q·Kᵀ over all 256 columns, repeated per warp: this kernel is bound
+// by bytes, and the repeat costs tensor-core time it has to spare) and
+// accumulates P·V into its own quarter of the columns, so a thread holds
+// 32 accumulators and 64 Q registers, as at HD 128. A block then has 16
+// rows (kRows / kColSplit): gemma-7b's verify (MHA, G 1, T 6) puts 6 rows
+// in a block, and all four warps work on them where at HD <= 128 a
+// block's 6 rows leave three of four warps idle. Shared memory at HD 256
+// is 144 KB (Q, two stages of K and V), under the 227 KB opt-in.
 //
 // Keys are addressed through key_slot() alone, a compile-time policy: slot
 // b * S + j of (B, S) per row, or, paged, offset j % page of pool page
@@ -157,19 +172,29 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4],
   }
 }
 
-constexpr int kRows = 64;        // packed (query, head) rows per block
+constexpr int kRows = 64;        // rows per block at HD <= 128 (4 x 16)
 constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 128;
 constexpr int kStages = 2;
 constexpr int kMaxTiles = 256;   // key tiles per chunk (ops.decode_split)
 constexpr int kCombineThreads = 128;
 
+// warps that share one 16-row group, each owning HD / col_split(HD) columns
+// of O; packed (query, head) rows per block (ops.decode_row_tile)
+__host__ __device__ constexpr int col_split(int hd) {
+  return hd == 256 ? 4 : 1;
+}
+__host__ __device__ constexpr int rows_per_block(int hd) {
+  return kRows / col_split(hd);
+}
+
 template <int HD> constexpr int kStride = HD + 8;   // smem row, elements
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * kStride<HD> * (kRows + 2 * kStages * kBK) +
-         sizeof(int) * (kStages * kBK + kRows + kMaxTiles) + kMaxTiles;
+  constexpr int R = rows_per_block(HD);
+  return sizeof(bf16) * kStride<HD> * (R + 2 * kStages * kBK) +
+         sizeof(int) * (kStages * kBK + R + kMaxTiles) + kMaxTiles;
 }
 
 struct Params {
@@ -212,18 +237,21 @@ __global__ void __launch_bounds__(kThreads)
     decode_tc_attention_kernel(Params p) {
   constexpr int ST = kStride<HD>;
   constexpr int CPR = HD / 8;          // 16-byte chunks per row
+  constexpr int CS = col_split(HD);
+  constexpr int R = rows_per_block(HD);
+  constexpr int OW = HD / CS;          // columns of O a warp accumulates
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // kRows x ST
-  bf16* k_s = q_s + kRows * ST;                    // kStages x kBK x ST
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // R x ST
+  bf16* k_s = q_s + R * ST;                        // kStages x kBK x ST
   bf16* v_s = k_s + kStages * kBK * ST;            // kStages x kBK x ST
   int* kp_s = reinterpret_cast<int*>(v_s + kStages * kBK * ST);  // kStages x kBK
-  int* qp_s = kp_s + kStages * kBK;                // kRows
-  int* list_s = qp_s + kRows;                      // kMaxTiles: live tiles
+  int* qp_s = kp_s + kStages * kBK;                // R
+  int* list_s = qp_s + R;                          // kMaxTiles: live tiles
   unsigned char* live_s = reinterpret_cast<unsigned char*>(list_s + kMaxTiles);
   __shared__ int qlo_s, qhi_s, nlive_s;
 
   const int G = p.H / p.KV, nrows = G * p.T;
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * R;
   const int bk = blockIdx.y, b = bk / p.KV, kvh = bk % p.KV;
   const int split = blockIdx.z;
   const int c0 = split * p.chunk, c1 = min(p.S, c0 + p.chunk);
@@ -235,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
     qhi_s = INT_MIN;
   }
   for (int i = tid; i < ntiles; i += kThreads) live_s[i] = 0;
-  for (int i = tid; i < kRows * CPR; i += kThreads) {
+  for (int i = tid; i < R * CPR; i += kThreads) {
     const int rr = i / CPR, c = (i % CPR) * 8, r = row0 + rr;
     const bool valid = r < nrows;
     const bf16* from =
@@ -245,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_commit();
   __syncthreads();
-  if (tid < kRows) {
+  if (tid < R) {
     const int r = row0 + tid;
     int qp = -1;                         // rows past the end see no key
     if (r < nrows) {
@@ -306,16 +334,17 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   }
 
-  float o[HD / 8][4];
+  float o[OW / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
+  for (int dt = 0; dt < OW / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   uint32_t qf[HD / 16][4];
   const int g = lane >> 2, tq = lane & 3;
-  const bool active = row0 + warp * 16 < nrows;   // warp has a real row
-  const int qp_a = qp_s[warp * 16 + g], qp_b = qp_s[warp * 16 + g + 8];
+  const int rg = warp / CS, c0w = (warp % CS) * OW;   // row group, 1st column
+  const bool active = row0 + rg * 16 < nrows;      // warp has a real row
+  const int qp_a = qp_s[rg * 16 + g], qp_b = qp_s[rg * 16 + g + 8];
   const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
 
   for (int it = 0; it < nlive; ++it) {
@@ -325,7 +354,7 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait<kStages - 1>();   // tile `it` (and Q) has landed
     __syncthreads();
     if (active) {
-      if (it == 0) load_q_frags<HD>(qf, q_s + warp * 16 * ST, ST, lane);
+      if (it == 0) load_q_frags<HD>(qf, q_s + rg * 16 * ST, ST, lane);
       const int stage = it % kStages;
       float s[kBK / 8][4];
       qk_tile<HD, kBK>(s, qf, k_s + stage * kBK * ST, ST, lane);
@@ -342,8 +371,8 @@ __global__ void __launch_bounds__(kThreads)
           if (p.softcap > 0.f) x = cap_tanh(x * inv_cap, p.softcap);
           s[nt][e] = ok ? x : masked_score();
         }
-      online_softmax<HD, kBK>(s, m, l, o, kLog2e);
-      pv_tile<HD, kBK>(o, s, v_s + stage * kBK * ST, ST, lane);
+      online_softmax<OW, kBK>(s, m, l, o, kLog2e);
+      pv_tile<OW, kBK>(o, s, v_s + stage * kBK * ST + c0w, ST, lane);
     }
     __syncthreads();        // stage `it % kStages` is refilled next
   }
@@ -354,17 +383,19 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int r = row0 + warp * 16 + g + i * 8;
+    const int r = row0 + rg * 16 + g + i * 8;
     if (r >= nrows) continue;
     const int t = r / G, gg = r % G;
+    const bool stats = tq == 0 && c0w == 0;   // one writer of (m, l) a row
     if (p.nsplit == 1) {
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-      bf16* dst = p.out + ((size_t)(b * p.T + t) * p.H + kvh * G + gg) * HD + 2 * tq;
+      bf16* dst = p.out + ((size_t)(b * p.T + t) * p.H + kvh * G + gg) * HD +
+                  c0w + 2 * tq;
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt)
+      for (int dt = 0; dt < OW / 8; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
             __floats2bfloat162_rn(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
-      if (tq == 0) {
+      if (stats) {
         const size_t so = ((size_t)bk * G + gg) * p.T + t;
         p.m_out[so] = m[i];
         p.l_out[so] = l[i];
@@ -372,13 +403,13 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       const size_t pr = ((size_t)bk * p.nsplit + split) * nrows + r;
       if (l[i] > 0.f) {   // an empty partial is never read
-        float* dst = p.po + pr * HD + 2 * tq;
+        float* dst = p.po + pr * HD + c0w + 2 * tq;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
+        for (int dt = 0; dt < OW / 8; ++dt)
           *reinterpret_cast<float2*>(dst + dt * 8) =
               make_float2(o[dt][2 * i], o[dt][2 * i + 1]);
       }
-      if (tq == 0) {
+      if (stats) {
         p.pm[pr] = m[i];
         p.pl[pr] = l[i];
       }
@@ -450,7 +481,8 @@ int launch_hd(const Params& p, cudaStream_t stream) {
       (p.nsplit > 1 && (p.po == nullptr || p.pm == nullptr || p.pl == nullptr)) ||
       (PAGED && (p.block_table == nullptr || p.page < 1 || p.S % p.page)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((nrows + kRows - 1) / kRows, p.B * p.KV, p.nsplit);
+  constexpr int R = rows_per_block(HD);
+  const dim3 grid((nrows + R - 1) / R, p.B * p.KV, p.nsplit);
   decode_tc_attention_kernel<HD, PAGED><<<grid, kThreads, smem, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return (int)err;
@@ -467,6 +499,7 @@ int launch(const Params& p, int hd, cudaStream_t stream) {
     case 32: return launch_hd<32, PAGED>(p, stream);
     case 64: return launch_hd<64, PAGED>(p, stream);
     case 128: return launch_hd<128, PAGED>(p, stream);
+    case 256: return launch_hd<256, PAGED>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,8 @@
 //     K/V tiles of 64 keys (each key resolving its own page) and a combine
 //     pass; `nsplit` and `chunk` come from ops.decode_split, and the
 //     wrapper allocates the partials' scratch (po, pm, pl) when nsplit > 1.
-//     `key_tile` and `row_tile` are the tiles ops.decode_split assumed.
+//     `key_tile` and `row_tile` are the tiles ops.decode_split assumed
+//     (kBK and rows_per_block(hd)).
 //   - float32: attention_common.cuh's f32-FMA body (16 rows a block, one
 //     key per lane through the table); its 1e-4 absolute limit admits
 //     neither bf16 MMAs nor TF32.
@@ -46,7 +47,8 @@ extern "C" int paged_decode_attention_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int S = nb * page;   // keys a row addresses through its table
   if (is_bf16) {
-    if (key_tile != repro_decode_tc::kBK || row_tile != repro_decode_tc::kRows)
+    if (key_tile != repro_decode_tc::kBK ||
+        row_tile != repro_decode_tc::rows_per_block(hd))
       return (int)cudaErrorInvalidValue;
     repro_decode_tc::Params p{
         static_cast<const __nv_bfloat16*>(q),

@@ -41,7 +41,7 @@ launches: Dict[str, int] = {"decode_attention": 0,
                             "flash_attention": 0, "mtp_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -109,11 +109,20 @@ def decode_attention_plain(q, k, v, k_positions, q_positions, *, scale,
 
 # The bfloat16 decode kernel's tiles, mirrors of kBK, kRows and kMaxTiles in
 # csrc/decode_splitk.cuh: keys per tile, packed (query, head) rows per
-# block, key tiles per chunk at most. The launch rejects a key or row tile
-# that differs from the kernel's, and a chunk of more tiles than it holds.
+# block at head dims up to 128, key tiles per chunk at most. The launch
+# rejects a key or row tile that differs from the kernel's, and a chunk of
+# more tiles than it holds.
 DECODE_KEY_TILE = 64
 DECODE_ROW_TILE = 64
 DECODE_MAX_CHUNK_TILES = 256
+
+
+def decode_row_tile(hd: int) -> int:
+    """Packed (query, head) rows a block of the bfloat16 decode kernel
+    takes at head dim ``hd`` (``rows_per_block`` in decode_splitk.cuh): 16
+    at 256, where the four warps split the columns of one 16-row group, else
+    ``DECODE_ROW_TILE``."""
+    return DECODE_ROW_TILE // 4 if hd == 256 else DECODE_ROW_TILE
 
 
 def decode_split(S: int, row_blocks: int, n_sm: int) -> Tuple[int, int]:
@@ -148,7 +157,7 @@ def _split_k(q, S, KV):
     G = H // KV
     if q.dtype != torch.bfloat16:
         return 1, S, None, [None] * 3
-    row_blocks = -(-G * T // DECODE_ROW_TILE) * B * KV
+    row_blocks = -(-G * T // decode_row_tile(hd)) * B * KV
     nsplit, chunk = decode_split(S, row_blocks, _sm_count(q.device.index))
     if nsplit == 1:
         return nsplit, chunk, None, [None] * 3
@@ -183,7 +192,7 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_positions.data_ptr(),
         q_positions.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
         *scratch, B, T, H, KV, S, hd, float(scale), int(window),
-        float(softcap), nsplit, chunk, DECODE_KEY_TILE, DECODE_ROW_TILE,
+        float(softcap), nsplit, chunk, DECODE_KEY_TILE, decode_row_tile(hd),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["decode_attention"] += 1
@@ -242,7 +251,7 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
         out.data_ptr(), m.data_ptr(), l.data_ptr(), *scratch, B, T, H, KV,
         NP, page, nb, hd, float(scale), int(window), float(softcap), nsplit,
         chunk,
-        DECODE_KEY_TILE, DECODE_ROW_TILE, int(q.dtype == torch.bfloat16),
+        DECODE_KEY_TILE, decode_row_tile(hd), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["paged_decode_attention"] += 1
     _raise_on(lib, err, "paged_decode_attention")

@@ -13,7 +13,9 @@ ends), the device time summed over every kernel and
 copy the profiler recorded, the device's idle share
 (1 - device time / host time), and the kernels by device time, grouped
 (the port's attention kernels, matrix products, sorts, everything else)
-and the 15 largest one by one.
+and the 15 largest one by one, and the memory a step holds beyond the
+state it starts from (its peak over the unprofiled window: a recurrent
+target's verify keeps each token's state until the commit).
 
 With ``--temperature`` > 0 every slot samples under that policy (the flags
 of ``launch/serve.py``; slot i on the key stream of ``--seed + i``), so the
@@ -27,6 +29,9 @@ bonus draws over V) and, with ``--draft-sampling``, the K draft draws.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--kv-layout paged]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch gemma2-27b
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch gemma-7b
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch mamba2-780m [--kv-layout paged]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --temperature 0.8 --top-k 50 --top-p 0.95 [--draft-sampling]
 """
@@ -147,11 +152,14 @@ def main(argv=None):
     for _ in range(WARMUP):
         state = eng.step(state, *live)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(eng.device)
+    torch.cuda.reset_peak_memory_stats(eng.device)
     t0 = time.perf_counter()           # a window without the profiler
     for _ in range(steps):
         state = eng.step(state, *live)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    step_peak = torch.cuda.max_memory_allocated(eng.device) - held
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -180,6 +188,7 @@ def main(argv=None):
         "steps": steps, "host_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": (1 - device_ms / wall_ms) if wall_ms else None,
+        "step_peak_gb": step_peak / 1e9, "state_gb": held / 1e9,
         "groups": {k: {"launches_per_step": v[0] / steps,
                        "ms_per_step": v[1] / 1e3 / steps}
                    for k, v in sorted(groups.items(), key=lambda kv: -kv[1][1])},
@@ -188,7 +197,9 @@ def main(argv=None):
         report["sampled_lane"] = sampled_lane_ms(eng, policy(0),
                                                  args.draft_sampling)
     print(f"host {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, "
-          f"idle share {report['device_idle_share']:.3f}")
+          f"idle share {report['device_idle_share']:.3f}, a step holds "
+          f"{step_peak / 1e9:.3f} GB beyond the {held / 1e9:.3f} GB it "
+          f"starts from")
     for name, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
         print(f"  {us / 1e3 / steps:8.3f} ms/step {count / steps:7.1f}"
               f" launches/step  {name[:100]}")

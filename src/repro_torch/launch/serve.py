@@ -22,9 +22,11 @@ round-based baseline (``serve_round_based``: whole rounds of ``--batch``
 prompts, on a contiguous engine sharing the weights, under the engine's
 default policy) and reports its OTPS, rounds and AL beside the scheduler's.
 
-The target is ``--arch`` (default qwen2-1.5b; gemma2-27b, minitron-4b and,
-on the CPU, gemma-7b too) at full width in bfloat16 with a 4-layer parallel
-drafter, both with random weights drawn from ``--seed``; prompts are random
+The target is ``--arch`` (default qwen2-1.5b; gemma-7b, gemma2-27b,
+minitron-4b and the SSM mamba2-780m too) at full width in bfloat16 with a
+4-layer parallel drafter, both with random weights drawn from ``--seed``
+(mamba2-780m keeps its conv and SSD state per slot, so only its drafter's
+KV is paged, and admits prompts in power-of-two chunks); prompts are random
 tokens from the same seed and arrive with Exp(``--mean-gap``) gaps on the
 virtual clock (0: all at once). The KV cache is paged on the card and
 contiguous on the CPU unless ``--kv-layout`` says otherwise. The run is
@@ -45,6 +47,10 @@ repeated and the last (warm) run is reported.
         --mean-gap 1 --round-based       # continuous against round-based
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         --requests 12 --mean-gap 1      # gemma2-27b, full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
+        --requests 24 --mean-gap 1 --pool-pages 256   # head dim 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+        --requests 24 --mean-gap 1 --pool-pages 256 --swap host   # SSM
 """
 from __future__ import annotations
 

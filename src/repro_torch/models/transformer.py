@@ -25,8 +25,8 @@ the decode kernel for both phases of the two-phase decode. Given a block
 table, a decode reads paged caches (``layers.paged_view`` layout): phase 1
 of a layer whose cache is a pool goes through the paged decode kernel; a
 ring stays per slot and goes through the decode kernel. MoE layers, NoPE,
-sinusoidal positions and the other families raise ``NotImplementedError``,
-and so does, on the card, a head dim the kernels do not take.
+sinusoidal positions raise ``NotImplementedError``, and so does, on the
+card, a head dim the kernels do not take.
 """
 from __future__ import annotations
 
@@ -48,6 +48,9 @@ class ModelOutput:
     logits: Tensor
     taps: Optional[Tensor]         # (B, S, num_taps * D)
     cache: Optional[dict]
+    # {"snapshots": per-token recurrent states} of a recurrent target's
+    # verify (models/ssm.py); None for attention targets
+    aux: Optional[dict] = None
 
 
 def tap_layers(n_layers: int, num_taps: int = 3):
@@ -58,11 +61,11 @@ def tap_layers(n_layers: int, num_taps: int = 3):
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
-    """Raise NotImplementedError for what this port does not carry yet; on
-    a CUDA ``device`` also for a head dim the attention kernels do not
-    take (checked before any weight or cache is made)."""
+    """Raise NotImplementedError for what this port does not carry yet of
+    a dense target (``models/registry.py`` gates the family); on a CUDA
+    ``device`` also for a head dim the attention kernels do not take
+    (checked before any weight or cache is made)."""
     missing = [name for name, unsupported in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
         ("MoE layers", cfg.moe.n_experts > 0),
         ("nope_on_global", cfg.nope_on_global),
         (f"positional {cfg.positional!r}", cfg.positional != "rope"),
@@ -75,9 +78,8 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: head dim {cfg.head_dim} has no kernel on the "
             f"card: the decode, paged decode and flash kernels take head dims "
-            f"{ops.HEAD_DIMS}; head dim {cfg.head_dim} needs their bodies "
-            f"(decode_splitk.cuh, flash_tc.cuh, attention_common.cuh) "
-            f"redesigned for its register budget")
+            f"{ops.HEAD_DIMS}; another head dim needs a body of its own in "
+            f"decode_splitk.cuh, flash_tc.cuh and attention_common.cuh")
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,16 @@
 """Cache commit after speculative verification, per-slot batch surgery for
 continuous batching, and the paged KV layout (PyTorch).
 
-Counterpart of the JAX package's ``serving/cache_ops.py`` for attention
-caches (dense targets have no recurrent snapshots to select).
+Counterpart of the JAX package's ``serving/cache_ops.py``.
 
 Attention caches roll back by position invalidation: a slot holding a
 position beyond the last accepted token is marked empty (-1), and the next
-write reuses it.
+write reuses it. Recurrent caches (an SSM target's ``conv`` and ``state``)
+roll back by snapshot selection: the verify returns the leaf after each
+token of its block, and ``commit`` writes the one at the last accepted
+token. They are per slot in both layouts (``paged_spec`` tags them
+``NOT_PAGED``), so ``write_slot``, ``reset_slot`` and ``extract_slot``
+carry them with the slot's other rows.
 
 The port's decode state is batch-first everywhere: every per-slot leaf has
 the batch on axis 0 (the ``"sampling"`` policy rows too, so admission
@@ -45,6 +49,9 @@ import torch
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
+
+# recurrent cache leaves, rolled back by snapshot selection
+_SNAP_LEAVES = ("state", "conv", "h")
 
 # paged-spec leaf tags (a tree shaped like the decode state)
 NOT_PAGED = 0          # per-slot or global leaf
@@ -88,25 +95,45 @@ def has_ring_cache(cache_tree) -> bool:
 
 
 def commit(cache, commit_pos: Tensor,
-           block_table: Optional[Tensor] = None):
-    """Invalidate, in place, every ``positions`` leaf of ``cache`` (a tree
-    of dicts and lists) beyond ``commit_pos`` (B,), the last valid absolute
+           block_table: Optional[Tensor] = None, snapshots=None,
+           accept_idx: Optional[Tensor] = None):
+    """Roll ``cache`` (a tree of dicts and lists) back to the last
+    accepted token, in place, and return it. Every ``positions`` leaf is
+    invalidated beyond ``commit_pos`` (B,), the last valid absolute
     position of each row; with ``block_table`` the caches that are not
     rings are page pools and each row's own pages are invalidated (rings
-    stay per slot). Returns the cache."""
+    stay per slot). With ``snapshots`` (a recurrent target's verify: a tree
+    shaped like the cache whose recurrent leaves carry the block's tokens
+    on axis 1, ``ModelOutput.aux["snapshots"]``) each recurrent leaf takes
+    its snapshot at ``accept_idx`` (B,), the index of the last committed
+    token in the block; a row whose index is negative (a frozen or masked
+    slot, which commits nothing) keeps its leaf."""
     if isinstance(cache, dict):
         per_row = block_table is None or bool(cache.get("ring", False))
         for name, leaf in cache.items():
+            snap = snapshots.get(name) if isinstance(snapshots, dict) else None
             if name == "positions" and per_row:
                 leaf.masked_fill_(leaf > commit_pos[:, None], -1)
             elif name == "positions":
                 L.paged_invalidate(leaf, block_table, commit_pos)
+            elif name in _SNAP_LEAVES and isinstance(snap, Tensor):
+                _select_snapshot(leaf, snap, accept_idx)
             elif isinstance(leaf, (dict, list)):
-                commit(leaf, commit_pos, block_table)
+                commit(leaf, commit_pos, block_table, snap, accept_idx)
     elif isinstance(cache, list):
-        for sub in cache:
-            commit(sub, commit_pos, block_table)
+        for i, sub in enumerate(cache):
+            commit(sub, commit_pos, block_table,
+                   None if snapshots is None else snapshots[i], accept_idx)
     return cache
+
+
+def _select_snapshot(leaf: Tensor, snap: Tensor, accept_idx: Tensor) -> None:
+    """leaf (B, ...) <- snap (B, T, ...) at token ``accept_idx`` (B,), in
+    place; rows with a negative index keep their leaf."""
+    rows = torch.arange(leaf.shape[0], device=leaf.device)
+    sel = snap[rows, accept_idx.clamp(min=0).long()].to(leaf.dtype)
+    keep = (accept_idx < 0).reshape((-1,) + (1,) * (leaf.dim() - 1))
+    leaf.copy_(torch.where(keep, leaf, sel))
 
 
 # ---------------------------------------------------------------------------

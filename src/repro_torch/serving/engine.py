@@ -33,8 +33,14 @@ gathers each slot's pages into a contiguous view and scatters it back, the
 paged step reads and writes the pools through the table: phase 1 of every
 decode attention against a pool runs the paged decode kernel. A local
 layer's ring cache stays per slot in both layouts (and goes through the
-decode kernel), and a target with rings admits a prompt in power-of-two
-chunks instead of padding it.
+decode kernel), and a target with rings or recurrent state admits a
+prompt in power-of-two chunks instead of padding it (a pad would be
+evicting live entries of a ring, or be folded into the recurrence).
+
+A recurrent target (``models/ssm.py``) keeps its conv window and SSD state
+per slot in both layouts (only the drafter's KV is paged). Its verify
+returns the state after each token of the block, and the commit writes the
+one at the last accepted token (``cache_ops.commit``).
 
 Two policies ride on the paged layout. The prefix cache
 (``EngineConfig.prefix_cache``, ``serving/prefix_cache.py``) keeps the
@@ -44,9 +50,11 @@ whose prompt walks a cached chain maps those pages into its table row
 only the uncached suffix, in decode-mode chunks over a batch-1 view
 gathered from the row's pages: token for token a cold prefill's output.
 For a target with rings (local layers whose window is shorter than
-max_len) the cache stays idle, no match and no insert: a page does not
-hold the per-slot ring entries a hit would need (the JAX engine maps the
-pages anyway, and its hit streams part from its cold ones).
+max_len) or with recurrent state (the SSM family) the cache stays idle, no
+match and no insert: a page does not hold the per-slot ring entries or the
+recurrent state a hit would need (for rings the JAX engine maps the pages
+anyway, and its hit streams part from its cold ones; for recurrent targets
+it stays idle too).
 Swap-to-host (``EngineConfig.swap = "host"``) parks a preempted slot's
 exclusively owned pages and per-slot rows in pinned host memory
 (``cache_ops.HostPagePool``) and restores them bitwise; pages shared with
@@ -299,12 +307,16 @@ class Engine:
             self.allocator = cache_ops.BlockAllocator(self.pool_pages)
             self._slot_pages: List[List[int]] = [[] for _ in range(batch)]
             self.pspec = cache_ops.paged_spec(template)   # which leaves pool
-        # a target with local layers' rings: admission chunks instead of
-        # padding, and no prefix cache is built (pages do not hold a ring's
-        # per-slot entries, so a hit would lose the local layers' keys)
+        # a target with local layers' rings or with recurrent state is
+        # pad-unsafe (the JAX engine's _chunk_only): admission chunks
+        # instead of padding, and no prefix cache is built (pages hold
+        # neither a ring's per-slot entries nor the recurrent state, so a
+        # hit would lose them)
         self.ring = cache_ops.has_ring_cache(template["tcache"])
+        self.chunk_only = self.ring or self.model.recurrent
         self.prefix_cache = (PrefixCache(ecfg.page_size)
-                             if ecfg.prefix_cache and not self.ring else None)
+                             if ecfg.prefix_cache and not self.chunk_only
+                             else None)
         self.swap_enabled = ecfg.swap == "host"
         self.host_pool = (cache_ops.HostPagePool(ecfg.host_pool_bytes)
                           if self.swap_enabled else None)
@@ -395,7 +407,7 @@ class Engine:
     def prefill_bucket(self, length: int) -> int:
         """Tokens the padded admission prefill of a ``length``-token prompt
         runs: the next power of two, or the exact length where bucketing is
-        off or the bucket would reach max_len. (A target with rings chunks
+        off or the bucket would reach max_len. (A pad-unsafe target chunks
         instead: ``_admission_prefill``.)"""
         pb = 1 << max(length - 1, 0).bit_length()
         if not self.ecfg.bucket_prefill or pb >= self.ecfg.max_len:
@@ -405,13 +417,15 @@ class Engine:
     def _admission_prefill(self, prompt: Tensor,
                            sp: SamplingParams) -> dict:
         """The batch-1 state of an admission. Bucketed: padded to
-        ``prefill_bucket``, or, for a target with rings (a pad past the
-        window would evict live prompt entries), cut into the MSB-first
-        power-of-two chunks of ``prefill_buckets``: a prefill of the first,
-        then decode-mode chunks (the JAX engine's ``_chunk_only`` path)."""
+        ``prefill_bucket``, or, for a pad-unsafe target (a pad past a ring's
+        window would evict live prompt entries; a recurrent target would
+        fold it into its state), cut into the MSB-first power-of-two chunks
+        of ``prefill_buckets``: a prefill of the first, then decode-mode
+        chunks (the JAX engine's ``_chunk_only`` path). Decode-mode chunks
+        of a recurrent target build no per-token snapshots."""
         P = prompt.shape[1]
         samp = batch_sampling_state(sp, 1, device=self.device)
-        if not (self.ring and self.ecfg.bucket_prefill):
+        if not (self.chunk_only and self.ecfg.bucket_prefill):
             padded = F.pad(prompt, (0, self.prefill_bucket(P) - P))
             return self._prefill_rows(padded, P, samp, sp.is_greedy)
         sizes = self.prefill_buckets(P)
@@ -1221,7 +1235,7 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
     tout = model.forward(tparams, vt, mode="decode", positions=positions,
                          cache=state["tcache"],
                          collect_taps=ecfg.drafter_mode != "none",
-                         block_table=table)
+                         block_table=table, snapshots=model.recurrent)
     if K == 0:
         accept_len = torch.zeros((B,), dtype=torch.int32, device=c.device)
         if greedy_only:
@@ -1251,8 +1265,12 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         active &= active_mask
     accept_len = torch.where(active, accept_len, 0)
 
-    # invalidate the target cache past the last accepted token
-    tcache = cache_ops.commit(tout.cache, c + accept_len, table)
+    # roll the target cache back to the last accepted token: invalidate
+    # attention entries past it, write a recurrent target's snapshot at it
+    # (a frozen or masked row keeps its state: it commits nothing)
+    tcache = cache_ops.commit(tout.cache, c + accept_len, table,
+                              snapshots=(tout.aux or {}).get("snapshots"),
+                              accept_idx=torch.where(active, accept_len, -1))
 
     # append committed tokens t_star[0..accept_len]
     ar = torch.arange(K + 1, dtype=torch.int32, device=c.device)[None]

@@ -78,6 +78,14 @@ def _tol(dtype):
     (1, 256, 12, 2, 128, 256, 256, 0),     # ... phase 2
     (1, 255, 12, 12, 128, 1024, 320, 0),   # drafter hit extend, phase 1
     (1, 512, 12, 2, 128, 1024, 64, 0),     # the widest chunk, phase 1
+    # head dim 256 (gemma-7b: MHA 16/16): 16 rows a block, four warps
+    # splitting O's columns
+    (8, 6, 16, 16, 256, 1024, 576, 0),     # target verify, phase 1
+    (8, 6, 16, 16, 256, 6, 6, 0),          # ... phase 2
+    (8, 6, 8, 2, 256, 1024, 600, 100),     # GQA, window across chunks
+    (2, 40, 4, 2, 256, 1000, 600, 0),      # several row tiles, ragged S
+    (2, 40, 4, 2, 256, 1024, 0, 0),        # every key empty: zeros, l 0
+    (1, 128, 16, 16, 256, 1024, 512, 0),   # an admission chunk, phase 1
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
                                      window):
@@ -154,6 +162,13 @@ def test_decode_serving_shapes_split_and_count_once(card, T, H, KV, valid):
     (2, 160, 160, 4, 2, 128, True, 0, 50.0, 0),
     (2, 160, 160, 4, 2, 32, False, 0, 0.0, 0),     # non-causal
     (2, 160, 160, 4, 2, 64, False, 0, 0.0, 0),
+    # head dim 256 (gemma-7b): two blocks a (b, h, 64 queries), each 128 of
+    # O's columns
+    (8, 512, 512, 16, 16, 256, True, 0, 0.0, 0),   # gemma-7b prefill
+    (2, 500, 500, 8, 2, 256, True, 0, 0.0, 0),     # ragged tiles, GQA
+    (2, 160, 160, 4, 2, 256, True, 64, 50.0, 0),   # window and softcap
+    (2, 100, 300, 4, 2, 256, True, 0, 0.0, 0),     # Sq < Skv
+    (2, 200, 256, 4, 2, 256, False, 0, 0.0, 150),  # kv_len, non-causal
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, Sq, Skv, H, KV, hd,
                                     causal, window, cap, kv_len):
@@ -346,6 +361,8 @@ def _paged_check(inp, dtype):
     (8, 6, 12, 2, 128, 257, 32, 32),    # page 32 (16)
     (8, 6, 12, 2, 128, 600, 16, 37),    # nb * page 592, not a multiple of 64
     (4, 200, 12, 2, 128, 160, 16, 40),  # row tiles fill the card (1)
+    (8, 6, 16, 16, 256, 513, 16, 64),   # gemma-7b verify, hd 256
+    (3, 4, 2, 1, 256, 16, 8, 6),        # the JAX sweep's layout at hd 256
 ])
 def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
                                     nb):
@@ -396,7 +413,7 @@ def test_paged_holes_inside_live_tiles_are_never_read(card):
     assert (l == 0).all() and (m == -1e30).all()
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_f32_decode_and_paged_each_opt_in(card, hd):
     """The float32 decode and paged kernels, two libraries holding the same
     FMA-body instantiation, load side by side in one process and each
@@ -531,6 +548,65 @@ def test_engine_lossless_through_kernels(card):
         assert ops.launches["decode_attention"] > 0
     np.testing.assert_array_equal(toks["parallel"], toks["none"])
     np.testing.assert_array_equal(toks["ar"], toks["none"])
+
+
+def _equal_but_near_ties(none, got, want, start, tie=1e-3):
+    """Each row of ``got`` equals ``want`` from ``start`` on, or first
+    parts where the plain-decoding engine ``none``'s top-2 logit gap over
+    the shared context is below ``tie`` (float32 products of other shapes
+    sum in another order)."""
+    for b in range(want.shape[0]):
+        where = np.flatnonzero(got[b, start:] != want[b, start:])
+        if len(where):
+            pos = start + int(where[0])
+            ctx = torch.as_tensor(want[b:b + 1, :pos], device=none.device)
+            with torch.no_grad():
+                top2 = none.model.forward(none.tparams, ctx,
+                                          collect_taps=False,
+                                          head_last_only=True
+                                          ).logits[0, -1].topk(2).values
+            assert float(top2[0] - top2[1]) < tie, (b, pos)
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "mamba2-780m"])
+def test_full_width_two_layers_serve_on_card(card, arch):
+    """gemma-7b (head dim 256 through the decode, paged and flash kernels)
+    and the SSM mamba2-780m (its drafter through the decode and paged
+    kernels, the target through none) at full width cut to 2 layers, in
+    float32: parallel equals plain decoding but at near-ties; a paged
+    Scheduler.serve under pool pressure (swap to host on) equals the
+    contiguous one token for token; launch counts of the target's family."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW = 2, 40, 16
+    kw = dict(arch=arch, n_layers=2, dtype="float32", K=3, max_new=NEW,
+              max_len=64, batch=B, seed=0, device=card)
+    par = build_engine(mode="parallel", **kw)
+    none = Engine(par.tcfg, None, par.tparams, None,
+                  dataclasses.replace(par.ecfg, drafter_mode="none", K=0), B,
+                  device=card)
+    prompts = random_prompts(par.tcfg.vocab_size, B, P, seed=1)
+    ops.reset_launches()
+    got = par.run(prompts)["tokens"][:, :P + NEW]
+    flash = ops.launches["flash_attention"]
+    assert flash == (2 if arch == "gemma-7b" else 0)
+    want = none.run(prompts)["tokens"][:, :P + NEW]
+    _equal_but_near_ties(none, got, want, P)
+    reqs = lambda: [Request(p, max_new_tokens=NEW)        # noqa: E731
+                    for p in prompts]
+    paged = Engine(par.tcfg, par.dcfg, par.tparams, par.dparams,
+                   dataclasses.replace(par.ecfg, kv_layout="paged",
+                                       page_size=8, pool_pages=13,
+                                       swap="host"), B, device=card)
+    ops.reset_launches()
+    rep = Scheduler(paged).serve(reqs())
+    assert ops.launches["paged_decode_attention"] > 0
+    assert rep["preemptions"] > 0 and paged.allocator.n_used == 0
+    ref = Scheduler(par).serve(reqs())
+    for r, w in zip(rep["results"], ref["results"]):
+        np.testing.assert_array_equal(r["tokens"], w["tokens"])
 
 
 @pytest.mark.parametrize("shape", [(5,), (3, 70001), (2, 8, 151936)],

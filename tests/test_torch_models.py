@@ -131,13 +131,13 @@ def test_target_head_selection(setup, head):
 
 def test_unsupported_configs_raise():
     """What stays unported raises: MoE layers, NoPE, sinusoidal positions,
-    other families; the rest of the dense family (softcaps, local
-    attention, post-norms, embedding scale, other MLPs, an untied head)
-    builds."""
+    the hybrid family (and moe, vlm, encdec); the rest of the dense family
+    (softcaps, local attention, post-norms, embedding scale, other MLPs, an
+    untied head) builds, and so does the SSM family."""
     cfg = get_config("qwen2-1.5b").reduced()
     moe = dataclasses.replace(cfg.moe, n_experts=4, top_k=2)
     for bad in (dict(moe=moe), dict(nope_on_global=True),
-                dict(positional="sinusoidal"), dict(family="ssm")):
+                dict(positional="sinusoidal"), dict(family="hybrid")):
         with pytest.raises(NotImplementedError):
             get_model(cfg.replace(**bad))
     for ok in (dict(logit_softcap=50.0, final_softcap=30.0),
@@ -145,6 +145,8 @@ def test_unsupported_configs_raise():
                dict(post_norms=True, embed_scale=True),
                dict(mlp_variant="relu2", tie_embeddings=False)):
         get_model(cfg.replace(**ok))
+    ssm = get_model(get_config("mamba2-780m").reduced())
+    assert ssm.recurrent and ssm.module.__name__.endswith(".ssm")
 
 
 def _prefilled_drafter(s):

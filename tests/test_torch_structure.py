@@ -168,23 +168,77 @@ def card_claimed(monkeypatch):
 
 def test_gemma7b_on_card_refuses_head_dim_before_weights(card_claimed,
                                                          monkeypatch):
-    """gemma-7b's head dim 256 has no kernel on the card: building its
-    engine for a CUDA device raises, naming the kernel work, before any
-    weight is made (no init, no generator) and before weights would move."""
+    """The head-dim gate on the card, now that head dim 256 has its bodies:
+    a head dim outside ``ops.HEAD_DIMS`` (gemma-7b's config at head dim 96)
+    is refused for a CUDA device, naming the kernel work, before any weight
+    is made (no init, no generator) and before weights would move; gemma-7b
+    itself (head dim 256) passes the gate, as gemma2-27b does."""
+    from repro_torch.kernels import ops
     from repro_torch.models import layers as L
+    from repro_torch.models import registry, transformer
     monkeypatch.setattr(L, "dense_init", lambda *a, **k: pytest.fail(
         "a weight was made"))
-    with pytest.raises(NotImplementedError, match="head dim 256"):
-        serve.build_engine(arch="gemma-7b", device="cuda")
-    tcfg = get_config("gemma-7b")
+    odd = get_config("gemma-7b").replace(head_dim=96)
+    assert odd.head_dim not in ops.HEAD_DIMS
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        registry.get_model(odd, "cuda")
     with pytest.raises(NotImplementedError, match="decode_splitk.cuh"):
-        Engine(tcfg, DrafterConfig().resolve(tcfg), {}, {}, EngineConfig(), 1)
-    # the same config builds for the CPU, and gemma2-27b passes the check
+        Engine(odd, DrafterConfig().resolve(odd), {}, {}, EngineConfig(), 1)
+    for arch in ("gemma-7b", "gemma2-27b"):
+        transformer.check_supported(get_config(arch), "cuda")
+        registry.get_model(get_config(arch), "cuda")
+    # the same odd head dim builds for the CPU (the plain attention)
     monkeypatch.undo()
     serve.build_engine(arch="gemma-7b", reduced=True, device="cpu", batch=1,
                        max_len=32, max_new=4, K=2)
-    from repro_torch.models import transformer
-    transformer.check_supported(get_config("gemma2-27b"), "cuda")
+
+
+def test_head_dims_and_row_tiles():
+    """The kernels take head dims 32, 64, 128 and 256; the bfloat16 decode
+    kernel's block holds 64 packed rows, 16 at head dim 256 (four warps
+    split O's columns), and ``decode_split`` counts row blocks so: gemma-7b's
+    verify (B 8, T 6, MHA 16 heads) is 128 row blocks, and its 1024 slots
+    split into 4 chunks of up to 320 on 132 SMs."""
+    from repro_torch.kernels import ops
+    assert ops.HEAD_DIMS == (32, 64, 128, 256)
+    assert [ops.decode_row_tile(h) for h in ops.HEAD_DIMS] == [64, 64, 64, 16]
+    text = (ROOT / "src/repro_torch/kernels/csrc/decode_splitk.cuh").read_text()
+    assert "case 256: return launch_hd<256, PAGED>" in text
+    for name in ("flash_tc.cuh", "attention_common.cuh"):
+        body = (ROOT / "src/repro_torch/kernels/csrc" / name).read_text()
+        assert "case 256:" in body, name
+    rows = -(-6 // ops.decode_row_tile(256)) * 8 * 16
+    assert rows == 128 and ops.decode_split(1024, rows, 132) == (4, 320)
+
+
+def test_card_admits_gemma7b_and_mamba2_and_refuses_other_families(
+        card_claimed):
+    """On a CUDA device the registry admits gemma-7b and the SSM
+    mamba2-780m before any weight is made; the moe, vlm, encdec and hybrid
+    families still raise NotImplementedError."""
+    from repro_torch.models import registry
+    for arch in ("gemma-7b", "mamba2-780m"):
+        assert registry.get_model(get_config(arch), "cuda").cfg.arch_id == arch
+    cfg = get_config("qwen2-1.5b")
+    for family in ("moe", "vlm", "encdec", "hybrid"):
+        with pytest.raises(NotImplementedError, match=family):
+            registry.get_model(cfg.replace(family=family), "cuda")
+
+
+def test_serve_rehearses_mamba2_on_cpu():
+    """``--arch mamba2-780m --reduced``, paged and preempting, swap to the
+    host: the recurrent state stays per slot beside the drafter's pages,
+    13-token prompts are admitted in chunks (8 + 4 + 1), a request is
+    swapped out, and every request reaches its budget; the prefix cache
+    asked for stays idle."""
+    r = serve.main(["--arch", "mamba2-780m", "--reduced", "--device", "cpu",
+                    "--batch", "2", "--requests", "4", "--prompt-len", "13",
+                    "--max-new", "8", "--max-len", "64", "--kv-layout",
+                    "paged", "--page-size", "8", "--pool-pages", "7",
+                    "--swap", "host", "--prefix-cache", "--runs", "1"])
+    assert r["arch"] == "mamba2-780m" and r["new_tokens"] == 32
+    assert r["kv_layout"] == "paged" and r["preempt_swap"] > 0
+    assert r["cache_hit_tokens"] == 0
 
 
 def test_serve_rehearses_paged_arrivals_on_cpu():
