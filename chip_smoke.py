@@ -11,9 +11,10 @@ full-width drafter (whole-sequence and Algorithm-1 segmented)
 through the MTP kernel, and serves the rest of the dense family: gemma2-27b
 at full width (GeGLU, softcaps, alternating local/global attention over
 ring caches, post-norms, embedding scale), minitron-4b and gemma-7b (head
-dim 256 through the decode, paged and flash kernels), and the SSM family:
+dim 256 through the decode, paged and flash kernels), the SSM family:
 mamba2-780m at full width (chunked SSD, per-token recurrent snapshots
-selected at the commit).
+selected at the commit), and the hybrid family: recurrentgemma-2b at full
+width (RG-LRU, causal conv, MQA local attention at head dim 256).
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -85,7 +86,14 @@ Phases, in order; any failure exits non-zero:
    a window across chunks, 40 rows in several row tiles with live and with
    no keys, the JAX paged sweep's layout, flash with a window and cap,
    ragged tiles, Sq < Skv, kv_len without the causal mask); the serving
-   shapes timed beside their bounds and SDPA;
+   shapes timed beside their bounds and SDPA. recurrentgemma-2b's local
+   attention (MQA, 10 query heads on 1 KV head of 256, window 2048: 60
+   rows a KV head at the verify), both dtypes: decode at its verify phases
+   1 and 2, an admission chunk of 128 and a ring of 2048 + 6 slots after
+   position 2600 (wrapped), its drafter's draft (20/20 heads of 128),
+   paged at its verify phase 1, flash at its prefill (B 8 x 512) and an
+   admission bucket (B 1 x 512); timed beside their bounds and SDPA
+   (flex_attention for paged);
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
    512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache,
    after a cold run of 8 steps; the warm run is reported (OTPS, prefill seconds, decode seconds
@@ -145,7 +153,8 @@ Phases, in order; any failure exits non-zero:
    the host with its swap_out / swap_in events, every request to its
    budget, the attention launches of the stated formula (a hit's suffix
    chunks run the decode kernel), the allocator and the host pool empty
-   after a flush and reset_stats; then float32, the same traffic served
+   after a flush and reset_stats; then float32 (14 of the 28 layers, cut
+   for time), the same traffic served
    with the three policies on and off (cold prefill, recompute preemption,
    fixed K), one request sampled and swapped out: every stream equal
    between the two (a greedy one may part only at a top-2 gap < 1e-3 of
@@ -207,27 +216,49 @@ Phases, in order; any failure exits non-zero:
    near-tie rule (BF16_NEAR_TIE), launch counts stated;
 6c. minitron-4b in float32 at full width (32 layers, ReLU², an untied head):
    4 prompts of 256, 32 new tokens, greedy parallel against none;
-7. gemma-7b at full width in bfloat16 (28 layers, d 3072, 16/16 heads of
-   256, d_ff 24576 GeGLU, vocab 256000; the 4-layer drafter, 24 heads of
-   128): Engine.run at phase 3's shapes after a cold run (28 flash and 8
-   decode at the prefill, 72 decode a step) and Scheduler.serve of phase
-   3b's 24 requests on a paged twin (pool 256, preempts; 36 paged an
-   iteration, launches of each admission prefill logged); 7b: float32 at
-   full width (~34 GB of weights), phase 4's prompts: parallel and ar
+7. gemma-7b at full width in bfloat16 (14 of its 28 layers, cut for time;
+   d 3072, 16/16 heads of 256, d_ff 24576 GeGLU, vocab 256000; the
+   4-layer drafter, 24 heads of 128): Engine.run at phase 3's shapes
+   after a cold run (one flash a layer and 8 decode at the prefill, 2
+   decode a layer and 16 a step) and Scheduler.serve of phase
+   3b's first 12 requests (cut from 24 for time) on a paged twin (pool
+   256, preempts; 22 paged an iteration, launches of each admission
+   prefill logged); 7b: float32 at full width, 14 layers, phase 4's
+   prompts: parallel and ar
    against none, a paged serve under pool pressure against the contiguous
    one, under phase 4's near-tie rule;
-8. mamba2-780m at full width in bfloat16 (48 SSD layers, d 1536, d_inner
-   3072, 48 heads of 64, d_state 128; the drafter 12 heads of 128): the
+8. mamba2-780m at full width in bfloat16 (24 of its 48 SSD layers, cut
+   for time; d 1536, d_inner 3072, 48 heads of 64, d_state 128; the
+   drafter 12 heads of 128): the
    memory plan with the verify's snapshot peak (the state after each of
    K + 1 tokens, all layers, float32), Engine.run at phase 3's shapes (the
    target launches no attention: 8 decode at the prefill, 16 a step), a
    verify step's measured peak beyond its state, and Scheduler.serve of
-   phase 3b's 24 requests, paged (only the drafter's KV), swap to host, on
-   a 256-page pool that preempts (8 paged an iteration; the drafter's
-   extend once per MSB chunk of each admission); 8b: float32, phase 4's
-   prompts: parallel and ar against none, paged against contiguous, a
-   recompute-preempted and a swapped request each equal to itself served
-   alone, and a seeded sampled request alone equal to itself batched.
+   phase 3b's first 12 requests (cut from 24 for time), paged (only the
+   drafter's KV), swap to host, on a 256-page pool that preempts (8 paged
+   an iteration; the drafter's extend once per MSB chunk of each
+   admission); 8b: float32, phase 4's prompts: parallel and ar against
+   none, paged against contiguous, a recompute-preempted and a swapped
+   request each equal to itself served alone, and a seeded sampled request
+   alone equal to itself batched;
+9. recurrentgemma-2b at full width in bfloat16 (26 layers: 8 x (recurrent,
+   recurrent, attention) + 2 recurrent; d 2560, RG-LRU width 2560, conv
+   4, MQA 10/1 heads of 256, window 2048, d_ff 7680 GeGLU, vocab 256000;
+   the drafter 20 heads of 128): the memory plan with the verify's
+   snapshots (conv windows and h after each of K + 1 tokens, 18 recurrent
+   layers), Engine.run at phase 3's shapes (8 flash and 8 decode at the
+   prefill, 32 decode a step: the 8 attention layers' two phases and the
+   drafter's), a verify step's measured peak beyond its state, and
+   Scheduler.serve of phase 3b's 24 requests, paged (at max_len 1024 the
+   local layers' caches are pools beside the per-slot recurrent rows),
+   swap to host, on a 256-page pool that preempts (16 paged an iteration;
+   each admission's first MSB chunk a prefill, its later chunks in decode
+   mode); 9b: float32 at full width, phase 4's prompts as 8b, then over
+   wrapped rings (max_len 4096: rings of 2048 + 6 slots; batch 2,
+   2300-token prompts): parallel with the random drafter and with oracle
+   drafts (AL > 2) against none, the logits through the kernels against
+   the plain attention, and Scheduler.serve of a 2100- and a 2400-token
+   prompt in MSB chunks, parallel against none, launch counts stated.
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -273,6 +304,15 @@ PAGED_SHARED = "target verify phase 1, 20 shared pages"
 # gemma2-27b's attention (arXiv:2408.00118): query scale 144^-0.5, tanh
 # softcap 50 on every score, local layers' window 4096
 GEMMA2_SCALE, GEMMA2_CAP, GEMMA2_WINDOW = 144 ** -0.5, 50.0, 4096
+# recurrentgemma-2b's local attention (arXiv:2402.19427): MQA, 10 query
+# heads on 1 KV head of 256, query scale 256^-0.5, window 2048
+RGEMMA_WINDOW = 2048
+# depth cuts of earlier paths (widths stay the published ones), made when
+# phase 9 came in: the whole script took 895.5 s, and 1267.8 s on a slow
+# host, against the 1200 s the script may take (H100 80GB HBM3, 700.00 W)
+MAMBA2_LAYERS = 24          # phase 8 / 8b: mamba2-780m, of 48
+GEMMA7B_LAYERS = 14         # phase 7 / 7b: gemma-7b, of 28
+POLICY_F32_LAYERS = 14      # phase 4c: qwen2-1.5b in float32, of 28
 # Oracle drafts must lift the acceptance length above this (a fifth of the
 # drafts are spoiled, so about 3.7 is expected at K 5).
 ORACLE_MIN_AL = 2.0
@@ -676,6 +716,42 @@ def gemma7b_cases(dev, dtype, c):
     return out
 
 
+def rgemma_cases(dev, dtype, c):
+    """Phase 2's recurrentgemma-2b cases (its local layers: MQA 10/1 at
+    head dim 256, window 2048, no cap; 60 rows a KV head at the verify, so
+    four 16-row tiles re-read one KV head): (kernel, label, inputs,
+    keywords). Decode at verify phases 1 and 2, an admission chunk of 128
+    and a ring of 2048 + 6 slots after position 2600 (wrapped; the window's
+    edge inside a split chunk), its drafter's draft (20/20 heads of 128);
+    paged at verify phase 1; flash at the prefill (B 8 x 512) and the
+    admission bucket (B 1 x 512)."""
+    kw = dict(scale=256 ** -0.5, window=RGEMMA_WINDOW)
+    out = []
+    for label, (B, T, H, KV, hd, S, valid), extra in [
+            ("rgemma target verify phase 1", (8, 6, 10, 1, 256, 1024, c), kw),
+            ("rgemma target verify phase 2", (8, 6, 10, 1, 256, 6, 6), kw),
+            ("rgemma admission chunk 128 phase 1",
+             (1, 128, 10, 1, 256, 1024, 512), kw),
+            ("rgemma drafter draft phase 1",
+             (8, 5, 20, 20, 128, 1024, c - 1), dict(scale=128 ** -0.5))]:
+        out.append(("decode_attention", label,
+                    decode_case(dev, dtype, B, T, H, KV, hd, S, valid),
+                    extra))
+    out.append(("decode_attention", "rgemma local ring 2048 + 6, wrapped",
+                ring_case(dev, dtype, 8, 6, 10, 1, 256, RGEMMA_WINDOW + 6,
+                          2600, seed=7), kw))
+    out.append(("paged_decode_attention", "rgemma target verify phase 1",
+                paged_case(dev, dtype, 8, 6, 10, 1, 256, 16, 64, c,
+                           seed=50), kw))
+    g = torch.Generator(device=dev).manual_seed(6)
+    for label, B in [("rgemma target prefill", 8),
+                     ("rgemma admission bucket 512", 1)]:
+        out.append(("flash_attention", label,
+                    qkv(g, dev, dtype, (B, 512, 10, 256), (B, 512, 1, 256)),
+                    dict(kw, causal=True)))
+    return out
+
+
 def check_kernels(ops, dev):
     """Every kernel against its plain version; returns the per-kernel
     measurements of the main-path shapes (the MTP kernel's keyed by
@@ -686,7 +762,8 @@ def check_kernels(ops, dev):
     rows = {}
     row_kw = {}      # (kernel, label) -> the call's keywords, if not plain
     # (family, kernel) -> the worst bfloat16 error at that family's
-    # shapes: "gemma2" (softcap 50) and "gemma7b" (head dim 256)
+    # shapes: "gemma2" (softcap 50), "gemma7b" (head dim 256) and "rgemma"
+    # (recurrentgemma-2b: MQA 10/1 at head dim 256, window 2048)
     fam_worst = {}
 
     def compare(name, got, want, dtype, label):
@@ -895,9 +972,11 @@ def check_kernels(ops, dev):
         # 4096 + 6 slots after position 4700 (wrapped; the window's edge
         # falls inside a split chunk), the cap with scores 8x larger; flash
         # at the prefill and past the window. Then head dim 256 (gemma-7b's
-        # serving shapes and the edges of the hd-256 bodies)
+        # serving shapes and the edges of the hd-256 bodies), then
+        # recurrentgemma-2b's MQA 10/1 at head dim 256 with its window
         for name, label, inp, kw in (gemma2_cases(dev, dtype, c)
-                                     + gemma7b_cases(dev, dtype, c)):
+                                     + gemma7b_cases(dev, dtype, c)
+                                     + rgemma_cases(dev, dtype, c)):
             fn = getattr(ops, name)
             before = ops.launches[name]
             if name == "flash_attention":
@@ -916,7 +995,8 @@ def check_kernels(ops, dev):
                 fail(f"{name} {label}: a call moved the launch count by "
                      f"{ops.launches[name] - before}")
             fam = label.split()[0]
-            if dtype == "bfloat16" and fam in ("gemma2", "gemma7b"):
+            if dtype == "bfloat16" and fam in ("gemma2", "gemma7b",
+                                               "rgemma"):
                 fam_worst[(fam, name)] = max(fam_worst.get((fam, name), 0.0),
                                              err)
                 rows[(name, label)], row_kw[(name, label)] = inp, kw
@@ -1997,10 +2077,10 @@ def hit_against_cold(eng, prompt, reps=3):
             "hit_mean_ms": float(np.mean(hit))}
 
 
-def policy_engine(dev, dtype, on, build=None):
+def policy_engine(dev, dtype, on, build=None, n_layers=None):
     """Phase 3b's engine geometry, with the three policies on (prefix cache,
     swap to a 1 GiB host pool; the scheduler adds adaptive K) or off;
-    ``build`` shares its weights."""
+    ``build`` shares its weights; ``n_layers`` cuts the depth."""
     import dataclasses
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.engine import Engine
@@ -2010,7 +2090,7 @@ def policy_engine(dev, dtype, on, build=None):
         return build_engine(mode="parallel", dtype=dtype, K=5, max_new=192,
                             max_len=1024, batch=8, seed=0, device=dev,
                             kv_layout="paged", page_size=16,
-                            pool_pages=POLICY_POOL, **kw)
+                            pool_pages=POLICY_POOL, n_layers=n_layers, **kw)
     return Engine(build.tcfg, build.dcfg, build.tparams, build.dparams,
                   dataclasses.replace(build.ecfg, **kw), build.batch,
                   device=dev)
@@ -2137,14 +2217,16 @@ def policy_path(ops, dev, sched3b):
 
 
 def policy_losslessness(dev):
-    """Phase 4c: phase 3d's traffic twice in float32 at full width, the
-    three policies on and off; one request sampled and swapped."""
+    """Phase 4c: phase 3d's traffic twice in float32 at full width (depth
+    cut to POLICY_F32_LAYERS), the three policies on and off; one request
+    sampled and swapped."""
     from repro_torch.serving.margins import MarginLog
     from repro_torch.serving.scheduler import Scheduler
-    log("phase 4c: phase 3d's traffic in float32 at full width, prefix "
-        "cache + swap + adaptive K against cold prefill + recompute + "
-        f"fixed K; request {POLICY_SAMPLED} sampled ({SAMPLED}, seed 5)")
-    off = policy_engine(dev, "float32", False)
+    log(f"phase 4c: phase 3d's traffic in float32 at full width, "
+        f"{POLICY_F32_LAYERS} of 28 layers (cut for time), prefix cache + "
+        f"swap + adaptive K against cold prefill + recompute + fixed K; "
+        f"request {POLICY_SAMPLED} sampled ({SAMPLED}, seed 5)")
+    off = policy_engine(dev, "float32", False, n_layers=POLICY_F32_LAYERS)
     on = policy_engine(dev, "float32", True, build=off)
     V = off.tcfg.vocab_size
     runs = {}
@@ -2780,6 +2862,15 @@ def free_card(dev, what):
         f"allocated before loading")
 
 
+def drafter_bytes(tcfg, dcfg, dtype_bytes):
+    """The drafter's weights: its embedding and head over the target's
+    vocabulary, the tap projection, and its layers."""
+    d, V = tcfg.d_model, tcfg.vocab_size
+    dd, Hd, hdd = dcfg.d_model, dcfg.n_heads, dcfg.head_dim
+    return (2 * V * dd + 3 * d * dd + 2 * dd * dd + dcfg.n_layers * (
+        4 * dd * Hd * hdd + 3 * dd * dcfg.d_ff)) * dtype_bytes
+
+
 def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
     """The bytes a run will hold, reckoned from the configs: target and
     drafter weights, their contiguous KV caches at (B, max_len), and
@@ -2790,10 +2881,8 @@ def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
     gated = tcfg.mlp_variant in ("swiglu", "geglu")
     layer = 2 * d * H * hd + 2 * d * KV * hd + (3 if gated else 2) * d * tcfg.d_ff
     target = (V * d * (1 if tcfg.tie_embeddings else 2) + L * layer) * dtype_bytes
-    dd, Hd, hdd = dcfg.d_model, dcfg.n_heads, dcfg.head_dim
-    drafter = (2 * V * dd + 3 * d * dd + 2 * dd * dd + dcfg.n_layers * (
-        4 * dd * Hd * hdd + 3 * dd * dcfg.d_ff)) * dtype_bytes
-    kv = (L * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * hdd) \
+    drafter = drafter_bytes(tcfg, dcfg, dtype_bytes)
+    kv = (L * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim) \
         * 2 * B * max_len * dtype_bytes
     tmp = 2 * V * d * 4
     return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
@@ -2831,14 +2920,14 @@ def near_ties(ref_eng, toks, ref, start, what, dev, tie=NEAR_TIE):
 
 def dense_family_launches(cfg, n_d, iterations, chunk_lists, paged, n_ring):
     """Attention launches of a Scheduler.serve: each iteration runs phase 1
-    of every target layer (the paged kernel for a pool, the decode kernel
+    of every target attention layer (the paged kernel for a pool, the decode kernel
     for one of the ``n_ring`` rings) and phase 2 (decode), the drafter's
     draft and extend (phase 1 paged or not, phase 2 decode); each admission
     prefills its first chunk (flash per target layer, the drafter's extend:
     2 decode per drafter layer) and runs each further chunk in decode mode
     (2 per target and 2 per drafter layer). ``chunk_lists``: each
     admission's chunk sizes."""
-    L = cfg.n_layers
+    L = attention_layers(cfg)
     per_it_paged = (L - n_ring + 2 * n_d) if paged else 0
     per_it_decode = (L + 2 * n_d) + (n_ring if paged else L + 2 * n_d)
     extra = sum(len(c) - 1 for c in chunk_lists)
@@ -3083,12 +3172,10 @@ def ssm_memory_plan(tcfg, dcfg, B, max_len, K, dtype_bytes):
     layer = d * (2 * d_inner + 2 * N + H) + s.conv_width * conv_ch \
         + d_inner * d
     target = (V * d + L * layer) * dtype_bytes
-    dd, Hd, hdd = dcfg.d_model, dcfg.n_heads, dcfg.head_dim
-    drafter = (2 * V * dd + 3 * d * dd + 2 * dd * dd + dcfg.n_layers * (
-        4 * dd * Hd * hdd + 3 * dd * dcfg.d_ff)) * dtype_bytes
+    drafter = drafter_bytes(tcfg, dcfg, dtype_bytes)
     state = L * B * (H * s.head_dim * N * 4
                      + (s.conv_width - 1) * conv_ch * dtype_bytes)
-    kv = dcfg.n_layers * dcfg.n_kv_heads * hdd * 2 * B * max_len * dtype_bytes
+    kv = dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim * 2 * B * max_len * dtype_bytes
     snaps = (K + 1) * L * B * H * s.head_dim * N * 4
     return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
                 recurrent_state_gb=state / 1e9, drafter_kv_gb=kv / 1e9,
@@ -3109,30 +3196,45 @@ def admissions_logged(eng):
     return lens
 
 
+def attention_layers(cfg):
+    """The target's attention layers: all of a dense target's, none of an
+    SSM's, the attention slots of a hybrid's (8 of recurrentgemma-2b's
+    26)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import slot_kind
+        return sum(slot_kind(cfg, li) == "attention"
+                   for li in range(cfg.n_layers))
+    return cfg.n_layers
+
+
 def serve_launches_want(eng, iterations, admitted):
-    """Attention launches of a paged Scheduler.serve: each iteration runs
-    phase 1 of every target attention layer and of the drafter's draft and
-    extend (paged) and their phase 2 (decode); an admission prefill of a
-    P-token prompt runs, for a dense target, one flash per layer and the
-    drafter's extend (2 decode a drafter layer); for a recurrent target,
-    no target attention and the drafter's extend once per MSB chunk of
-    P."""
-    L_att = 0 if eng.model.recurrent else eng.tcfg.n_layers
+    """Attention launches of a paged Scheduler.serve over pools (no ring):
+    each iteration runs phase 1 of every target attention layer and of the
+    drafter's draft and extend (paged) and their phase 2 (decode); an
+    admission prefill of a P-token prompt runs its first chunk as a prefill
+    (one flash a target attention layer) and, for a chunk-only target (a
+    recurrent one), each further MSB chunk of P in decode mode (2 decode a
+    target attention layer), and the drafter's extend once a chunk (2
+    decode a drafter layer)."""
+    L_att = attention_layers(eng.tcfg)
     n_d = eng.dcfg.n_layers
     per_it = L_att + 2 * n_d
-    ext = sum(len(eng.prefill_buckets(n)) if eng.chunk_only else 1
-              for n in admitted)
+    chunks = [len(eng.prefill_buckets(n)) if eng.chunk_only else 1
+              for n in admitted]
     return {"paged_decode_attention": iterations * per_it,
-            "decode_attention": iterations * per_it + ext * 2 * n_d,
-            "flash_attention": 0 if eng.chunk_only else len(admitted) * L_att,
-            "mtp_attention": 0}
+            "decode_attention": iterations * per_it + sum(chunks) * 2 * n_d
+            + (sum(chunks) - len(chunks)) * 2 * L_att,
+            "flash_attention": len(admitted) * L_att, "mtp_attention": 0}
 
 
 def family_run(ops, dev, eng, prompts, NEW, K, tag):
     """Engine.run at phase 3's shapes after a cold run of 8 steps: the warm
-    run's numbers, its launch counts against the target's formula (a dense
-    target: one flash a layer at the prefill, 2 decode a layer a step; a
-    recurrent one: none), and the output's checks."""
+    run's numbers, its launch counts against the target's formula (one
+    flash a target attention layer at the prefill and 2 decode a step: every
+    layer of a dense target, none of an SSM, the hybrid's attention slots),
+    and the output's checks."""
     eng.run(prompts, max_iters=8)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
@@ -3146,7 +3248,7 @@ def family_run(ops, dev, eng, prompts, NEW, K, tag):
         f"{r['acceptance_length']:.4f}, new tokens {r['new_tokens']}, peak "
         f"memory {peak_gb:.2f} GB")
     log(f"  launches: {counts}")
-    L_att = 0 if eng.model.recurrent else eng.tcfg.n_layers
+    L_att = attention_layers(eng.tcfg)
     n_d = eng.dcfg.n_layers
     want = {"flash_attention": L_att,
             "decode_attention": 2 * n_d + steps * (2 * L_att + 4 * n_d),
@@ -3244,18 +3346,19 @@ def family_twin(eng, B, dev, **kw):
                   eng.dparams if use_d else None, ecfg, B, device=dev)
 
 
-def family_lossless(ops, dev, arch, tag):
-    """float32 at full width, phase 4's prompts (batch 4, 128 tokens, 32
-    new, K 5): parallel and ar against none, and a paged Scheduler.serve
-    under pool pressure (30 pages of 16, recompute preemption) against the
-    contiguous one, under phase 4's near-tie rule. Returns (the none
-    engine, its tokens, the prompts, the parallel engine)."""
+def family_lossless(ops, dev, arch, tag, n_layers=None):
+    """float32 at full width (``n_layers`` cuts the depth), phase 4's
+    prompts (batch 4, 128 tokens, 32 new, K 5): parallel and ar against
+    none, and a paged Scheduler.serve under pool pressure (30 pages of 16,
+    recompute preemption) against the contiguous one, under phase 4's
+    near-tie rule. Returns (the none engine, its tokens, the prompts, the
+    parallel engine)."""
     from repro_torch.launch.serve import build_engine, random_prompts
     from repro_torch.serving.scheduler import Request, Scheduler
     B, P, NEW, K, MAX_LEN = 4, 128, 32, 5, 256
-    eng = build_engine(arch=arch, mode="parallel", dtype="float32", K=K,
-                       max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
-                       device=dev)
+    eng = build_engine(arch=arch, n_layers=n_layers, mode="parallel",
+                       dtype="float32", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
     none = family_twin(eng, B, dev, drafter_mode="none", K=0)
     prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=1)
     toks = {}
@@ -3291,25 +3394,26 @@ def family_lossless(ops, dev, arch, tag):
 
 def gemma7b_path(ops, dev):
     """Phase 7: full-width gemma-7b (head dim 256 through the decode, paged
-    and flash kernels): bfloat16 Engine.run at phase 3's shapes and
-    Scheduler.serve of phase 3b's traffic on a paged twin; then float32
-    greedy losslessness."""
+    and flash kernels), its depth cut to GEMMA7B_LAYERS for time: bfloat16
+    Engine.run at phase 3's shapes and Scheduler.serve of phase 3b's
+    traffic on a paged twin; then float32 greedy losslessness."""
     from repro_torch.configs import DrafterConfig, get_config
     from repro_torch.launch.serve import build_engine, random_prompts
     B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 512, 128, 5, 1024, 16, 256
-    tcfg = get_config("gemma-7b")
+    tcfg = get_config("gemma-7b").replace(n_layers=GEMMA7B_LAYERS)
     dcfg = DrafterConfig().resolve(tcfg)
-    log(f"phase 7: full-width gemma-7b bfloat16 (28 layers, d 3072, 16/16 "
-        f"heads of 256, d_ff 24576 GeGLU, vocab 256000, embedding scale), "
-        f"4-layer parallel drafter (d {dcfg.d_model}, {dcfg.n_heads} heads of "
-        f"{dcfg.head_dim}), batch {B}, prompt {P}, max_new {NEW}, K {K}, "
-        f"max_len {MAX_LEN}")
+    log(f"phase 7: full-width gemma-7b bfloat16 ({GEMMA7B_LAYERS} of 28 "
+        f"layers, cut for time; d 3072, 16/16 heads of 256, d_ff 24576 "
+        f"GeGLU, vocab 256000, embedding scale), 4-layer parallel drafter (d "
+        f"{dcfg.d_model}, {dcfg.n_heads} heads of {dcfg.head_dim}), batch "
+        f"{B}, prompt {P}, max_new {NEW}, K {K}, max_len {MAX_LEN}")
     free_card(dev, "phase 7")
     plan = memory_plan(tcfg, dcfg, B, MAX_LEN, 2)
     log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
     t0 = time.perf_counter()
-    eng = build_engine(arch="gemma-7b", mode="parallel", K=K, max_new=NEW,
-                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    eng = build_engine(arch="gemma-7b", n_layers=GEMMA7B_LAYERS,
+                       mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
     torch.cuda.synchronize()
     log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
         f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
@@ -3319,18 +3423,20 @@ def gemma7b_path(ops, dev):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, "
-        f"incremental growth; phase 3b's 24 requests")
+        f"incremental growth; phase 3b's first 12 requests (cut from 24 for "
+        f"time)")
     peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
                        pool_pages=POOL, max_new_tokens=192)
     del eng
-    serve = family_serve(ops, dev, peng, sched3b_traffic(peng.tcfg.vocab_size), "7")
+    serve = family_serve(ops, dev, peng,
+                         sched3b_traffic(peng.tcfg.vocab_size, 12), "7")
     del peng
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 7b: gemma-7b float32 at full width (~34 GB of weights), "
-        "phase 4's prompts")
+    log(f"phase 7b: gemma-7b float32 at full width, {GEMMA7B_LAYERS} of 28 "
+        f"layers, phase 4's prompts")
     free_card(dev, "phase 7b")
-    lossless = family_lossless(ops, dev, "gemma-7b", "7b")
+    lossless = family_lossless(ops, dev, "gemma-7b", "7b", GEMMA7B_LAYERS)
     del lossless
     gc.collect()
     torch.cuda.empty_cache()
@@ -3339,25 +3445,26 @@ def gemma7b_path(ops, dev):
 
 def mamba2_path(ops, dev):
     """Phase 8: full-width mamba2-780m (SSD, attention-free; its drafter
-    through the decode and paged kernels): bfloat16 Engine.run at phase 3's
-    shapes and Scheduler.serve of phase 3b's traffic, paged (the drafter's
-    KV only) with swap to host on a pool that preempts; then the float32
-    checks."""
+    through the decode and paged kernels), its depth cut to MAMBA2_LAYERS
+    for time: bfloat16 Engine.run at phase 3's shapes and Scheduler.serve
+    of phase 3b's traffic, paged (the drafter's KV only) with swap to host
+    on a pool that preempts; then the float32 checks."""
     from repro_torch.configs import DrafterConfig, get_config
     from repro_torch.launch.serve import build_engine, random_prompts
     B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 512, 128, 5, 1024, 16, 256
-    tcfg = get_config("mamba2-780m")
+    tcfg = get_config("mamba2-780m").replace(n_layers=MAMBA2_LAYERS)
     dcfg = DrafterConfig().resolve(tcfg)
-    log(f"phase 8: full-width mamba2-780m bfloat16 (48 SSD layers, d 1536, "
-        f"d_inner 3072, 48 heads of 64, d_state 128, chunk 128, vocab "
-        f"50280), 4-layer parallel drafter (d {dcfg.d_model}, "
-        f"{dcfg.n_heads} heads of {dcfg.head_dim}), batch {B}, prompt {P}, "
-        f"max_new {NEW}, K {K}, max_len {MAX_LEN}")
+    log(f"phase 8: full-width mamba2-780m bfloat16 ({MAMBA2_LAYERS} of 48 "
+        f"SSD layers, cut for time; d 1536, d_inner 3072, 48 heads of 64, "
+        f"d_state 128, chunk 128, vocab 50280), 4-layer parallel drafter (d "
+        f"{dcfg.d_model}, {dcfg.n_heads} heads of {dcfg.head_dim}), batch "
+        f"{B}, prompt {P}, max_new {NEW}, K {K}, max_len {MAX_LEN}")
     free_card(dev, "phase 8")
     plan = ssm_memory_plan(tcfg, dcfg, B, MAX_LEN, K, 2)
     log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
-    eng = build_engine(arch="mamba2-780m", mode="parallel", K=K, max_new=NEW,
-                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    eng = build_engine(arch="mamba2-780m", n_layers=MAMBA2_LAYERS,
+                       mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
     if not (eng.model.recurrent and eng.chunk_only):
         fail("mamba2 did not build as a recurrent, chunk-only target")
     prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
@@ -3382,30 +3489,39 @@ def mamba2_path(ops, dev):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  Scheduler.serve: paged (the drafter's KV), page {PAGE}, pool "
-        f"{POOL} pages, swap to host, incremental growth; phase 3b's 24 "
-        f"requests")
+        f"{POOL} pages, swap to host, incremental growth; phase 3b's first "
+        f"12 requests (cut from 24 for time)")
     peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
                        pool_pages=POOL, max_new_tokens=192, swap="host")
     del eng
-    serve = family_serve(ops, dev, peng, sched3b_traffic(peng.tcfg.vocab_size), "8")
+    serve = family_serve(ops, dev, peng,
+                         sched3b_traffic(peng.tcfg.vocab_size, 12), "8")
     if not serve["preempt_swap"] > 0:
         fail("phase 8 serve: no request was swapped to the host")
     del peng
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 8b: mamba2-780m float32 at full width, phase 4's prompts")
-    checks = mamba2_float32(ops, dev)
+    log(f"phase 8b: mamba2-780m float32 at full width, {MAMBA2_LAYERS} of "
+        f"48 layers, phase 4's prompts")
+    checks, eng = recurrent_float32(ops, dev, "mamba2-780m", "8b",
+                                    MAMBA2_LAYERS)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"run": run, "serve": serve, "float32": checks}
 
 
-def mamba2_float32(ops, dev):
-    """Phase 8b: parallel, ar and none; paged against contiguous; a
-    recompute-preempted and a swapped request each equal to itself served
-    alone; a seeded sampled request alone equal to itself in a batch."""
+def recurrent_float32(ops, dev, arch, tag, n_layers=None):
+    """Phase 8b / 9b for a recurrent target (``n_layers`` cuts the depth,
+    as ``family_lossless``): parallel, ar and none;
+    paged against contiguous; a recompute-preempted and a swapped request
+    each equal to itself served alone; a seeded sampled request alone equal
+    to itself in a batch. Returns (the checks, the float32 parallel engine,
+    whose weights later checks share)."""
     from repro_torch.serving.margins import MarginLog
     from repro_torch.serving.sampling import SamplingParams
     from repro_torch.serving.scheduler import Request, Scheduler
-    none, ref, prompts, eng = family_lossless(ops, dev, "mamba2-780m", "8b")
+    none, ref, prompts, eng = family_lossless(ops, dev, arch, tag, n_layers)
     B, NEW = 4, 32
     sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5)
     out = {}
@@ -3423,24 +3539,213 @@ def mamba2_float32(ops, dev):
                 f"{rep['preemptions']} ({kind} {rep[kind]}), preempted "
                 f"requests {[x['rid'] for x in moved]}")
             if not (rep[kind] > 0 and moved):
-                fail(f"8b serve (swap {swap}): no request was preempted so")
+                fail(f"{tag} serve (swap {swap}): no request was preempted so")
             for x in moved + [rep["results"][0]]:
                 req = reqs[x["rid"]]
                 alone = Scheduler(e).serve([Request(
                     req.prompt, max_new_tokens=NEW, rid=req.rid,
                     sampling=req.sampling)])["results"][0]
-                streams_agree(f"8b swap {swap} alone vs batched", none,
+                streams_agree(f"{tag} swap {swap} alone vs batched", none,
                               margins, req, x["tokens"], alone["tokens"])
             out[swap] = {k: rep[k] for k in ("preemptions", "preempt_swap",
                                              "preempt_recompute")}
             if e.allocator.n_used or (e.host_pool is not None
                                       and len(e.host_pool)):
-                fail(f"8b serve (swap {swap}): a pool did not drain")
+                fail(f"{tag} serve (swap {swap}): a pool did not drain")
             del e
-    del none, eng
+    del none
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return out, eng
+
+
+def hybrid_memory_plan(tcfg, dcfg, B, max_len, K, dtype_bytes):
+    """The bytes a hybrid run holds, from the configs: target and drafter
+    weights, the recurrent layers' per-slot conv and h rows, the attention
+    layers' and the drafter's KV at (B, max_len), and the verify's peak of
+    per-token snapshots (the conv window and h after each of its K + 1
+    tokens, every recurrent layer: held from the forward to the commit)."""
+    d, V, L = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers
+    W, cw = tcfg.hybrid.lru_width or d, tcfg.hybrid.conv_width
+    H, KV, hd = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
+    L_att = attention_layers(tcfg)
+    L_rec = L - L_att
+    mlp = 3 * d * tcfg.d_ff
+    rec = 3 * d * W + 2 * W * W + (cw + 1) * W
+    att = 2 * d * H * hd + 2 * d * KV * hd
+    target = (V * d + L_rec * (rec + mlp) + L_att * (att + mlp)) * dtype_bytes
+    drafter = drafter_bytes(tcfg, dcfg, dtype_bytes)
+    row = W * 4 + (cw - 1) * W * dtype_bytes
+    state = L_rec * B * row
+    kv = (L_att * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim) \
+        * 2 * B * max_len * dtype_bytes
+    snaps = (K + 1) * L_rec * B * row
+    return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
+                recurrent_state_gb=state / 1e9, kv_gb=kv / 1e9,
+                verify_snapshots_gb=snaps / 1e9,
+                total_gb=(target + drafter + state + kv + snaps) / 1e9)
+
+
+def recurrentgemma_path(ops, dev):
+    """Phase 9: full-width recurrentgemma-2b (the hybrid family: RG-LRU
+    and causal conv per recurrent layer, MQA local attention at head dim
+    256 through the decode, paged and flash kernels): bfloat16 Engine.run
+    at phase 3's shapes, a verify step's peak beyond its state, and
+    Scheduler.serve of phase 3b's traffic, paged (at max_len 1024 < 2048 +
+    6 the local layers' caches are pools beside the per-slot recurrent
+    rows) with swap to host on a pool that preempts; then the float32
+    checks (9b)."""
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.launch.serve import build_engine, random_prompts
+    B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 512, 128, 5, 1024, 16, 256
+    tcfg = get_config("recurrentgemma-2b")
+    dcfg = DrafterConfig().resolve(tcfg)
+    log(f"phase 9: full-width recurrentgemma-2b bfloat16 (26 layers: 8 x "
+        f"(recurrent, recurrent, attention) + 2 recurrent; d 2560, lru 2560, "
+        f"conv 4, MQA 10/1 heads of 256, window {tcfg.window_size}, d_ff "
+        f"7680 GeGLU, vocab 256000, embedding scale), 4-layer parallel "
+        f"drafter (d {dcfg.d_model}, {dcfg.n_heads} heads of "
+        f"{dcfg.head_dim}), batch {B}, prompt {P}, max_new {NEW}, K {K}, "
+        f"max_len {MAX_LEN}")
+    free_card(dev, "phase 9")
+    plan = hybrid_memory_plan(tcfg, dcfg, B, MAX_LEN, K, 2)
+    log("  memory plan: " + ", ".join(f"{k} {v:.3f}" for k, v in plan.items()))
+    t0 = time.perf_counter()
+    eng = build_engine(arch="recurrentgemma-2b", mode="parallel", K=K,
+                       max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
+                       device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
+        f"{held / 1e9:.2f} GB allocated")
+    if not (eng.model.recurrent and eng.chunk_only and not eng.ring):
+        fail("recurrentgemma did not build as a recurrent, chunk-only "
+             "target without rings at max_len 1024")
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "9")
+    run.update(memory_plan=plan,
+               peak_over_weights_gb=run["peak_memory_gb"] - held / 1e9)
+    state = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(4):
+        state = eng.step(state)
+    torch.cuda.synchronize()
+    run["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+    log(f"  a verify step holds {run['step_peak_gb']:.3f} GB beyond its "
+        f"state (planned snapshots {plan['verify_snapshots_gb']:.3f} GB)")
+    if run["step_peak_gb"] < plan["verify_snapshots_gb"]:
+        fail("a verify step held less than its snapshots: were they built?")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  Scheduler.serve: paged (the local layers' KV and the drafter's),"
+        f" page {PAGE}, pool {POOL} pages, swap to host, incremental growth;"
+        f" phase 3b's 24 requests")
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192, swap="host")
+    del eng
+    serve = family_serve(ops, dev, peng,
+                         sched3b_traffic(peng.tcfg.vocab_size), "9")
+    if not serve["preempt_swap"] > 0:
+        fail("phase 9 serve: no request was swapped to the host")
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 9b: recurrentgemma-2b float32 at full width (~11.6 GB of "
+        "weights), phase 4's prompts")
+    free_card(dev, "phase 9b")
+    checks, eng = recurrent_float32(ops, dev, "recurrentgemma-2b", "9b")
+    checks["rings"] = rgemma_rings(ops, dev, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "serve": serve, "float32": checks}
+
+
+def rgemma_rings(ops, dev, eng):
+    """Phase 9b's wrapped rings, on the float32 weights of ``eng``: batch
+    2, max_len 4096 (the local layers' rings hold 2048 + 6 slots), K 5,
+    2300-token prompts: Engine.run prefills them (the rings wrap at the
+    prefill) and decodes 32 tokens, parallel with the random drafter (every
+    draft rejected) and with oracle drafts (a fifth spoiled, AL > 2)
+    against none under phase 4's near-tie rule; the logits through the
+    kernels against the plain attention over the wrapped rings; then
+    Scheduler.serve of a 2100- and a 2400-token prompt (MSB chunks: the
+    decode-mode chunks past 2048 wrap the rings), parallel against none,
+    launch counts by ``dense_family_launches``."""
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.models.transformer import ring_length
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW, K, MAX_LEN = 2, 2300, 32, 5, 4096
+    cfg, V = eng.tcfg, eng.tcfg.vocab_size
+    log(f"phase 9b: wrapped rings, float32, batch {B}, max_len {MAX_LEN}, "
+        f"prompt {P}, max_new {NEW}, K {K}")
+    kw = dict(max_len=MAX_LEN, max_new_tokens=NEW)
+    par = family_twin(eng, B, dev, **kw)
+    none = family_twin(eng, B, dev, drafter_mode="none", K=0, **kw)
+    n_ring = attention_layers(cfg)
+    slots = ring_length(cfg, 2, MAX_LEN, K + 1)
+    if slots != RGEMMA_WINDOW + K + 1 or not (par.ring and none.ring):
+        fail(f"recurrentgemma rings of {slots} slots at max_len {MAX_LEN}")
+    prompts = random_prompts(V, B, P, seed=2)
+    toks = {}
+    for name, e in (("none", none), ("parallel", par)):
+        r = e.run(prompts)
+        toks[name] = r["tokens"][:, :P + NEW]
+        log(f"  {name:8s} steps {r['steps']:3d} AL "
+            f"{r['acceptance_length']:.3f} prefill {r['prefill_s']:.3f} s "
+            f"decode {r['decode_s']:.3f} s")
+    kpos = r["state"]["tcache"]["blocks"][2]["positions"]
+    if not (kpos.shape[1] == slots and int(kpos.max()) >= P + NEW - 1
+            and bool((kpos[0].argsort() != torch.arange(
+                slots, device=dev)).any())):
+        fail("9b: the local layer's ring did not wrap")
+    del r
+    near_ties(none, toks["parallel"], toks["none"], P, "9b rings parallel",
+              dev)
+    ref = toks["none"]
+    bad = np.random.default_rng(2).random(ref.shape) < 0.2
+    table = np.where(bad, (ref + 1) % (V - 1), ref)
+    with oracle_drafts(torch.as_tensor(table, dtype=torch.int32, device=dev)):
+        r = par.run(prompts)
+    oracle_al = r["acceptance_length"]
+    log(f"  oracle   steps {r['steps']:3d} AL {oracle_al:.3f}")
+    if not oracle_al > ORACLE_MIN_AL:
+        fail(f"9b oracle drafts reached AL {oracle_al}")
+    near_ties(none, r["tokens"][:, :P + NEW], ref, P, "9b rings oracle", dev)
+    del r
+    kernel_logits_vs_plain(ops, none, torch.as_tensor(prompts, device=dev),
+                           torch.as_tensor(ref[:, P:P + K + 1], device=dev),
+                           MAX_LEN, last_only=True)
+    lens = (2100, 2400)
+    sp = [np.random.default_rng(5 + i).integers(0, V - 1, n).astype(np.int32)
+          for i, n in enumerate(lens)]
+    out = {}
+    for name, e in (("none", none), ("parallel", par)):
+        ops.reset_launches()
+        rep = Scheduler(e).serve([Request(p, max_new_tokens=NEW, rid=i)
+                                  for i, p in enumerate(sp)])
+        counts = dict(ops.launches)
+        chunks = [e.prefill_buckets(n) for n in lens]
+        want = dense_family_launches(cfg, e.dcfg.n_layers if e.dcfg else 0,
+                                     rep["iterations"], chunks, False, n_ring)
+        log(f"  Scheduler.serve {name}: iterations {rep['iterations']}, "
+            f"chunks {chunks}, launches {counts}")
+        if rep["preemptions"] or counts != want:
+            fail(f"9b {name} serve: {rep['preemptions']} preemptions, "
+                 f"launches {counts} != {want}")
+        out[name] = [np.concatenate([p, x["tokens"]])[None]
+                     for p, x in zip(sp, rep["results"])]
+    for i, n in enumerate(lens):
+        near_ties(none, out["parallel"][i], out["none"][i], n,
+                  f"9b rings serve, request {i}", dev)
+    del par, none
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ring_slots": slots, "oracle_al": oracle_al,
+            "serve_chunks": [list(c) for c in chunks]}
 
 
 def main() -> int:
@@ -3482,7 +3787,7 @@ def main() -> int:
 
 
 def run_phases(ops, dev) -> list:
-    """Phases 2-6c on ``dev``; returns the kernels' JSON rows."""
+    """Phases 2-9b on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def timed(fn, *a):
@@ -3508,6 +3813,7 @@ def run_phases(ops, dev) -> list:
     minitron = timed(minitron_path, ops, dev)
     gemma7b = timed(gemma7b_path, ops, dev)
     mamba2 = timed(mamba2_path, ops, dev)
+    rgemma = timed(recurrentgemma_path, ops, dev)
     timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -3545,12 +3851,21 @@ def run_phases(ops, dev) -> list:
     m2_launches = dict(mamba2["run"]["launches"],
                        paged_decode_attention=mamba2["serve"]["launches"][
                            "paged_decode_attention"])
+    # recurrentgemma-2b's from phase 9 (its 8 local layers and drafter),
+    # at its MQA 10/1 shapes
+    rg_shape = {"decode_attention": "rgemma target verify phase 1",
+                "paged_decode_attention": "rgemma target verify phase 1",
+                "flash_attention": "rgemma target prefill"}
+    rg_launches = dict(rgemma["run"]["launches"],
+                       paged_decode_attention=rgemma["serve"]["launches"][
+                           "paged_decode_attention"])
     kernels = []
     for name in ("decode_attention", "paged_decode_attention",
                  "flash_attention"):
         m = measured[(name, main_shape[name])]
         g2 = measured[(name, g2_shape[name])]
         g7 = measured[(name, g7_shape[name])]
+        rg = measured[(name, rg_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
@@ -3575,7 +3890,16 @@ def run_phases(ops, dev) -> list:
                         "library_ms": g7["library_ms"],
                         "library": g7.get("library",
                                           "scaled_dot_product_attention")},
-            "mamba2": {"launches": m2_launches[name]}})
+            "mamba2": {"launches": m2_launches[name]},
+            "recurrentgemma": {"shape": rg_shape[name], "head_dim": 256,
+                               "launches": rg_launches[name],
+                               "max_abs_err": fam_worst[("rgemma", name)],
+                               "ms": rg["ms"], "plain_ms": rg["plain_ms"],
+                               "bound_ms": rg["bound_ms"],
+                               "bound_by": rg["bound_by"],
+                               "library_ms": rg["library_ms"],
+                               "library": rg.get(
+                                   "library", "scaled_dot_product_attention")}})
     # the MTP kernel: timed at the training shape in float32, the dtype the
     # training path gives it; launches over both training paths of phase 5
     mtp_shape = ("training shape n 2048 K 8 r 0.8", "float32")
@@ -3606,9 +3930,11 @@ def run_phases(ops, dev) -> list:
     log(f"minitron-4b: {json.dumps(minitron)}")
     log(f"gemma-7b: {json.dumps(gemma7b)}")
     log(f"mamba2-780m: {json.dumps(mamba2)}")
-    log("gemma2 and gemma7b kernel timing: " + json.dumps(
+    log(f"recurrentgemma-2b: {json.dumps(rgemma)}")
+    log("gemma2, gemma7b and rgemma kernel timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured.items()
-         if isinstance(k, tuple) and k[1].startswith(("gemma2", "gemma7b"))}))
+         if isinstance(k, tuple)
+         and k[1].startswith(("gemma2", "gemma7b", "rgemma"))}))
     log("mtp_attention timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured["mtp_attention"].items()}))
     return kernels

@@ -4,7 +4,9 @@ of numpy arrays, into the port's tensors.
 The JAX target stacks its layers for ``lax.scan``: ``blocks`` holds one
 ``slot{i}`` subtree per position in a super-block of ``period`` layers,
 each leaf with a leading super-block axis, and ``tail`` holds the
-``n_layers % period`` remaining layers unstacked. The JAX drafter and the
+``n_layers % period`` remaining layers unstacked (a dense target's period
+is its attention pattern's, a hybrid target's its block pattern's: 3 for
+recurrentgemma, with a tail of 2). The JAX drafter and the
 JAX SSM target stack their blocks along a leading layer axis (``vmap``).
 Their caches are stacked the same way (an SSM target's ``conv`` and
 ``state`` leaves, and its verify's snapshots, too). The port keeps layers
@@ -40,11 +42,19 @@ def _layer(tree, i: int, device, dtype):
     return _map(tree, lambda a: tensor(np.asarray(a)[i], device, dtype))
 
 
+def _period(cfg: ModelConfig) -> int:
+    """Layers in one scanned super-block: a hybrid target's block pattern,
+    a dense target's attention pattern (MoE is not ported)."""
+    if cfg.family == "hybrid":
+        return len(cfg.hybrid.block_pattern)
+    return len(cfg.attn_pattern)
+
+
 def _scan_layers(tree: dict, cfg: ModelConfig):
-    """Yield one subtree per layer, in layer order, from a scan-stacked
-    ``{"blocks": {slot{i}: ...}, "tail": {slot{i}: ...}}`` tree. A dense
-    target's super-block spans its attention pattern (MoE is not ported)."""
-    period = len(cfg.attn_pattern)
+    """Yield (subtree, super-block index or None for a tail layer) per
+    layer, in layer order, from a scan-stacked ``{"blocks": {slot{i}: ...},
+    "tail": {slot{i}: ...}}`` tree."""
+    period = _period(cfg)
     n_sb = cfg.n_layers // period
     for sb in range(n_sb):
         for i in range(period):
@@ -68,9 +78,10 @@ _SSM_F32 = ("ln", "A_log", "dt_bias", "D", "gnorm")
 
 def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
                   dtype: Optional[torch.dtype] = None) -> dict:
-    """JAX ``models/transformer.init_params`` (or, for the SSM family,
-    ``models/ssm.init_params``) tree -> the port's layout. ``dtype`` casts
-    the weights (norms, post-norms and the SSD's A, dt and D stay
+    """JAX ``models/transformer.init_params`` (or, for the SSM and hybrid
+    families, ``models/ssm.init_params`` / ``models/hybrid.init_params``)
+    tree -> the port's layout. ``dtype`` casts the weights (norms,
+    post-norms, the SSD's A, dt and D and the RG-LRU's ``lam`` stay
     float32); an untied ``lm_head`` comes along."""
     def conv(a):
         return tensor(a, device, dtype)
@@ -93,6 +104,10 @@ def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
         for norm in ("ln1", "ln2", "pn1", "pn2"):
             if norm in layer:
                 layer[norm] = layer[norm].float()
+        if "rec" in layer:      # lam from the source: a cast would move a
+            lam = np.asarray(sub["rec"]["lam"])
+            layer["rec"]["lam"] = tensor(lam if sb is None else lam[sb],
+                                         device, torch.float32)
         blocks.append(layer)
     out = {"embed": conv(jparams["embed"]), "blocks": blocks,
            "final_norm": tensor(jparams["final_norm"], device, torch.float32)}
@@ -129,15 +144,30 @@ def _layer_cache(c: dict, i: Optional[int], device) -> dict:
             "ring": bool(pick(c["ring"]))}
 
 
+def _mixed_layer(sub, sb: Optional[int], device):
+    """One layer of a hybrid tree: a KV cache, recurrent leaves (``conv``,
+    ``h``: their dtype kept), or None (an attention layer's snapshots)."""
+    if sub is None:
+        return None
+    if "positions" in sub:
+        return _layer_cache(sub, sb, device)
+    return (_map(sub, lambda a: tensor(a, device)) if sb is None
+            else _layer(sub, sb, device, None))
+
+
 def target_cache(jcache: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     """JAX ``models/transformer.make_cache`` tree -> ``{"blocks": [...]}``.
     A ring keeps the JAX package's length (``window`` slots), not the
     port's ``window + block``; each layer keeps its own ring flag. An SSM
     target's (``models/ssm.make_cache``, or its verify's snapshots) keeps
-    its ``conv`` and ``state`` leaves, one layer each."""
+    its ``conv`` and ``state`` leaves, one layer each. A hybrid target's
+    (``models/hybrid.make_cache``, or its verify's ``aux["snapshots"]``,
+    whose recurrent leaves carry T on the axis after the batch and whose
+    attention layers are None) mixes KV caches and ``conv`` / ``h``
+    leaves in layer order."""
     if cfg.family == "ssm":
         return ssm_layers(jcache["blocks"], device=device)
-    return {"blocks": [_layer_cache(sub, sb, device)
+    return {"blocks": [_mixed_layer(sub, sb, device)
                        for sub, sb in _scan_layers(jcache, cfg)]}
 
 
@@ -161,8 +191,8 @@ def decode_state(jstate: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     port's. The ``"sampling"`` subtree keeps its leaves; its uint32 keys
     become int64 words. A paged state's pools (NP, page, ...) get the
     port's sink page appended (positions -1, K/V 0) and keep their
-    ``block_table``; an SSM target's recurrent leaves are per slot in both
-    layouts."""
+    ``block_table``; an SSM or hybrid target's recurrent leaves are per
+    slot in both layouts."""
     out = {k: tensor(v, device) for k, v in jstate.items()
            if k not in ("tcache", "dcache", "sampling")}
     if "sampling" in jstate:

@@ -33,6 +33,8 @@ bonus draws over V) and, with ``--draft-sampling``, the K draft draws.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch mamba2-780m [--kv-layout paged]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch recurrentgemma-2b [--kv-layout paged]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --temperature 0.8 --top-k 50 --top-p 0.95 [--draft-sampling]
 """
 from __future__ import annotations

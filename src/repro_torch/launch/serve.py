@@ -23,10 +23,13 @@ prompts, on a contiguous engine sharing the weights, under the engine's
 default policy) and reports its OTPS, rounds and AL beside the scheduler's.
 
 The target is ``--arch`` (default qwen2-1.5b; gemma-7b, gemma2-27b,
-minitron-4b and the SSM mamba2-780m too) at full width in bfloat16 with a
-4-layer parallel drafter, both with random weights drawn from ``--seed``
-(mamba2-780m keeps its conv and SSD state per slot, so only its drafter's
-KV is paged, and admits prompts in power-of-two chunks); prompts are random
+minitron-4b, the SSM mamba2-780m and the hybrid recurrentgemma-2b too) at
+full width in bfloat16 with a 4-layer parallel drafter, both with random
+weights drawn from ``--seed`` (mamba2-780m keeps its conv and SSD state
+per slot, so only its drafter's KV is paged; recurrentgemma-2b keeps its
+RG-LRU rows per slot beside its local layers' KV, pooled at a max_len not
+above 2048 + K + 1 and per-slot rings above; both admit prompts in
+power-of-two chunks); prompts are random
 tokens from the same seed and arrive with Exp(``--mean-gap``) gaps on the
 virtual clock (0: all at once). The KV cache is paged on the card and
 contiguous on the CPU unless ``--kv-layout`` says otherwise. The run is
@@ -51,6 +54,9 @@ repeated and the last (warm) run is reported.
         --requests 24 --mean-gap 1 --pool-pages 256   # head dim 256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --requests 24 --mean-gap 1 --pool-pages 256 --swap host   # SSM
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --requests 24 --mean-gap 1 \
+        --pool-pages 256 --swap host                  # hybrid
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """The ``Model`` facade (counterpart of the JAX package's
 ``models/registry.py``): one interface over the family modules, dispatched
-on ``cfg.family``. The port carries the dense family (``transformer.py``)
-and the SSM family (``ssm.py``); the others (moe, vlm, encdec, hybrid)
-raise, and so does, for a CUDA device, a head dim the attention kernels do
-not take."""
+on ``cfg.family``. The port carries the dense family (``transformer.py``),
+the SSM family (``ssm.py``) and the hybrid family (``hybrid.py``); the
+others (moe, vlm, encdec) raise, and so does, for a CUDA device, a head dim
+the attention kernels do not take."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -11,9 +11,9 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.models import hybrid, ssm, transformer
 
-_FAMILY_MODULE = {"dense": transformer, "ssm": ssm}
+_FAMILY_MODULE = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
@@ -43,8 +43,8 @@ class Model:
         """Whether the target carries per-slot recurrent state: pads would
         fold into it (admission chunks instead), the verify commits
         per-token snapshots, and cached pages cannot stand for it (no
-        prefix-cache hit)."""
-        return self.cfg.family == "ssm"
+        prefix-cache hit): the SSM and the hybrid families."""
+        return self.cfg.family in ("ssm", "hybrid")
 
     def init(self, generator: torch.Generator, *, device="cuda") -> dict:
         return self.module.init_params(self.cfg, generator, device=device)

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``serving/cache_ops.py``.
 
 Attention caches roll back by position invalidation: a slot holding a
 position beyond the last accepted token is marked empty (-1), and the next
-write reuses it. Recurrent caches (an SSM target's ``conv`` and ``state``)
+write reuses it. Recurrent caches (an SSM target's ``conv`` and ``state``,
+a hybrid target's ``conv`` and ``h``, beside its attention caches)
 roll back by snapshot selection: the verify returns the leaf after each
 token of its block, and ``commit`` writes the one at the last accepted
 token. They are per slot in both layouts (``paged_spec`` tags them

@@ -37,10 +37,13 @@ decode kernel), and a target with rings or recurrent state admits a
 prompt in power-of-two chunks instead of padding it (a pad would be
 evicting live entries of a ring, or be folded into the recurrence).
 
-A recurrent target (``models/ssm.py``) keeps its conv window and SSD state
-per slot in both layouts (only the drafter's KV is paged). Its verify
-returns the state after each token of the block, and the commit writes the
-one at the last accepted token (``cache_ops.commit``).
+A recurrent target (``models/ssm.py``, ``models/hybrid.py``) keeps its
+conv window and state per slot in both layouts (an SSM target's drafter KV
+is all that is paged; a hybrid's local layers are pooled beside it, or are
+per-slot rings). Its verify returns the state after each token of the
+block, and the commit writes the one at the last accepted token
+(``cache_ops.commit``), in the same call that invalidates the attention
+entries past it.
 
 Two policies ride on the paged layout. The prefix cache
 (``EngineConfig.prefix_cache``, ``serving/prefix_cache.py``) keeps the
@@ -50,11 +53,11 @@ whose prompt walks a cached chain maps those pages into its table row
 only the uncached suffix, in decode-mode chunks over a batch-1 view
 gathered from the row's pages: token for token a cold prefill's output.
 For a target with rings (local layers whose window is shorter than
-max_len) or with recurrent state (the SSM family) the cache stays idle, no
-match and no insert: a page does not hold the per-slot ring entries or the
-recurrent state a hit would need (for rings the JAX engine maps the pages
-anyway, and its hit streams part from its cold ones; for recurrent targets
-it stays idle too).
+max_len) or with recurrent state (the SSM and hybrid families) the cache
+stays idle, no match and no insert: a page does not hold the per-slot ring
+entries or the recurrent state a hit would need (for rings the JAX engine
+maps the pages anyway, and its hit streams part from its cold ones; for
+recurrent targets it stays idle too).
 Swap-to-host (``EngineConfig.swap = "host"``) parks a preempted slot's
 exclusively owned pages and per-slot rows in pinned host memory
 (``cache_ops.HostPagePool``) and restores them bitwise; pages shared with

@@ -86,6 +86,11 @@ def _tol(dtype):
     (2, 40, 4, 2, 256, 1000, 600, 0),      # several row tiles, ragged S
     (2, 40, 4, 2, 256, 1024, 0, 0),        # every key empty: zeros, l 0
     (1, 128, 16, 16, 256, 1024, 512, 0),   # an admission chunk, phase 1
+    # recurrentgemma-2b: MQA, 10 query heads on 1 KV head of 256 (60 rows a
+    # KV head at the verify: four 16-row tiles re-read one KV head)
+    (8, 6, 10, 1, 256, 1024, 576, 0),      # target verify, phase 1
+    (8, 6, 10, 1, 256, 6, 6, 0),           # ... phase 2
+    (1, 128, 10, 1, 256, 1024, 512, 0),    # an admission chunk, phase 1
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
                                      window):
@@ -169,6 +174,9 @@ def test_decode_serving_shapes_split_and_count_once(card, T, H, KV, valid):
     (2, 160, 160, 4, 2, 256, True, 64, 50.0, 0),   # window and softcap
     (2, 100, 300, 4, 2, 256, True, 0, 0.0, 0),     # Sq < Skv
     (2, 200, 256, 4, 2, 256, False, 0, 0.0, 150),  # kv_len, non-causal
+    # recurrentgemma-2b's local layers: MQA 10/1 at 256, window 2048
+    (8, 512, 512, 10, 1, 256, True, 2048, 0.0, 0),  # its prefill
+    (2, 2400, 2400, 10, 1, 256, True, 2048, 0.0, 0),  # past the window
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, Sq, Skv, H, KV, hd,
                                     causal, window, cap, kv_len):
@@ -251,6 +259,32 @@ def test_softcap_paged_kernel_matches_plain(card, dtype, T, H, KV):
     torch.cuda.synchronize()
     po, pm, pl = ops.paged_decode_attention_plain(q, k, v, pos, table, qpos,
                                                   return_stats=True, **kw)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, pl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,last", [(6, 2600), (6, 4700), (128, 3000)])
+def test_mqa_hd256_ring_decode_matches_plain(card, dtype, T, last):
+    """recurrentgemma-2b's local layers on a ring of 2048 + 6 slots (K 5)
+    after position ``last`` (wrapped; the window's edge falls inside a
+    split chunk): MQA 10/1 at head dim 256, window 2048, a verify block and
+    a decode-mode admission chunk of 128."""
+    B, H, KV, hd, window = 8 if T == 6 else 1, 10, 1, 256, 2048
+    ring = window + 6
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = _qkv(g, (B, T, H, hd), (B, ring, KV, hd), dtype, card)
+    kpos = _ring_positions(B, ring, last, card)
+    qpos = (last + 1 + torch.arange(T, dtype=torch.int32, device=card)
+            )[None].repeat(B, 1).contiguous()
+    kw = dict(scale=hd ** -0.5, window=window)
+    out, m, l = ops.decode_attention(q, k, v, kpos, qpos, return_stats=True,
+                                     **kw)
+    torch.cuda.synchronize()
+    po, pm, pl = ops.decode_attention_plain(q, k, v, kpos, qpos,
+                                            return_stats=True, **kw)
     atol, rtol = _tol(dtype)
     torch.testing.assert_close(out.float(), po.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
@@ -363,6 +397,7 @@ def _paged_check(inp, dtype):
     (4, 200, 12, 2, 128, 160, 16, 40),  # row tiles fill the card (1)
     (8, 6, 16, 16, 256, 513, 16, 64),   # gemma-7b verify, hd 256
     (3, 4, 2, 1, 256, 16, 8, 6),        # the JAX sweep's layout at hd 256
+    (8, 6, 10, 1, 256, 513, 16, 64),    # recurrentgemma verify, MQA 10/1
 ])
 def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
                                     nb):

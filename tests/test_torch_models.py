@@ -130,23 +130,26 @@ def test_target_head_selection(setup, head):
 
 
 def test_unsupported_configs_raise():
-    """What stays unported raises: MoE layers, NoPE, sinusoidal positions,
-    the hybrid family (and moe, vlm, encdec); the rest of the dense family
+    """What stays unported raises: MoE layers, NoPE, sinusoidal positions
+    (and the moe, vlm, encdec families); the rest of the dense family
     (softcaps, local attention, post-norms, embedding scale, other MLPs, an
-    untied head) builds, and so does the SSM family."""
+    untied head) builds, and so do the SSM and the hybrid families, both
+    recurrent."""
     cfg = get_config("qwen2-1.5b").reduced()
     moe = dataclasses.replace(cfg.moe, n_experts=4, top_k=2)
     for bad in (dict(moe=moe), dict(nope_on_global=True),
-                dict(positional="sinusoidal"), dict(family="hybrid")):
+                dict(positional="sinusoidal")):
         with pytest.raises(NotImplementedError):
             get_model(cfg.replace(**bad))
     for ok in (dict(logit_softcap=50.0, final_softcap=30.0),
                dict(attn_pattern=("local", "global")),
                dict(post_norms=True, embed_scale=True),
                dict(mlp_variant="relu2", tie_embeddings=False)):
-        get_model(cfg.replace(**ok))
+        assert not get_model(cfg.replace(**ok)).recurrent
     ssm = get_model(get_config("mamba2-780m").reduced())
     assert ssm.recurrent and ssm.module.__name__.endswith(".ssm")
+    hyb = get_model(cfg.replace(family="hybrid"))
+    assert hyb.recurrent and hyb.module.__name__.endswith(".hybrid")
 
 
 def _prefilled_drafter(s):

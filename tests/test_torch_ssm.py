@@ -51,11 +51,22 @@ NEAR_TIE = 1e-4
 K, MAX_LEN, PAGE = 2, 64, 8
 
 
+# the hybrid recurrentgemma-2b cut to one super-block and its 2-layer tail
+# (reduced() alone keeps no attention layer), for the pin of the stalled
+# slot that reaches both recurrent families
+HYBRID = "recurrentgemma-2b"
+
+
+def _reduced(get, arch):
+    cfg = get(arch).reduced()
+    return cfg.replace(n_layers=5) if arch == HYBRID else cfg
+
+
 @lru_cache(maxsize=None)
-def models():
+def models(arch=ARCH):
     """((jcfg, jdcfg, jparams, jdparams), (tcfg, dcfg, tparams, dparams)):
-    the reduced config and a 1-layer drafter, on both sides."""
-    jcfg, tcfg = jget_config(ARCH).reduced(), get_config(ARCH).reduced()
+    the reduced config of ``arch`` and a 1-layer drafter, on both sides."""
+    jcfg, tcfg = _reduced(jget_config, arch), _reduced(get_config, arch)
     jdcfg = JDrafterConfig(n_layers=1).resolve(jcfg)
     dcfg = DrafterConfig(n_layers=1).resolve(tcfg)
     jp = jget_model(jcfg).init(jax.random.PRNGKey(23))
@@ -256,16 +267,16 @@ def _ecfg(**kw):
     return base
 
 
-def _engine(layout="contiguous", batch=2, **kw):
-    (_, _, _, _), (tcfg, dcfg, tp, dp) = models()
+def _engine(layout="contiguous", batch=2, arch=ARCH, **kw):
+    (_, _, _, _), (tcfg, dcfg, tp, dp) = models(arch)
     cfg = _ecfg(kv_layout=layout, **kw)
     use_d = cfg["drafter_mode"] != "none"
     return Engine(tcfg, dcfg if use_d else None, tp, dp if use_d else None,
                   EngineConfig(**cfg), batch, device="cpu")
 
 
-def _jengine(layout="contiguous", batch=2, **kw):
-    (jcfg, jdcfg, jp, jdp), _ = models()
+def _jengine(layout="contiguous", batch=2, arch=ARCH, **kw):
+    (jcfg, jdcfg, jp, jdp), _ = models(arch)
     cfg = _ecfg(kv_layout=layout, **kw)
     use_d = cfg["drafter_mode"] != "none"
     if "sampling" in kw:
@@ -549,22 +560,27 @@ def test_sampled_swap_resume_bitwise():
     assert eng.allocator.n_used == 0 and len(eng.host_pool) == 0
 
 
-def test_reference_stalled_recurrent_slot_drifts():
-    """Pin of the JAX package's fault the port departs from. Without
-    preemption a slot that cannot grow stalls (masked out of the step); the
-    reference's commit still writes its recurrent state's snapshot at index
-    0 (the re-fed last token), so the stalled stream's next step feeds that
-    token twice and parts from the unstalled stream. The port's commit
-    keeps a masked row's state: its stalled stream equals the contiguous
-    serve's. Two requests (budgets 10 and 14) on a 5-page pool."""
+@pytest.mark.parametrize("arch", [ARCH, HYBRID])
+def test_reference_stalled_recurrent_slot_drifts(arch):
+    """Pin of the JAX package's fault the port departs from, in both
+    recurrent families (the hybrid's attention layer a pool at max_len 64).
+    Without preemption a slot that cannot grow stalls (masked out of the
+    step); the reference's commit still writes its recurrent state's
+    snapshot at index 0 (the re-fed last token), so the stalled stream's
+    next step feeds that token twice and parts from the unstalled stream.
+    The port's commit keeps a masked row's state: its stalled stream equals
+    the contiguous serve's. Two requests (budgets 10 and 14) on a 5-page
+    pool."""
     rng = np.random.default_rng(3)
     work = [(rng.integers(1, 200, size=6).astype(np.int32), b, 0.0)
             for b in (10, 14)]
-    ref = Scheduler(_engine(max_new_tokens=16)).serve(
+    ref = Scheduler(_engine(max_new_tokens=16, arch=arch)).serve(
         _requests(Request, work))
-    jr = JScheduler(_jengine("paged", pool_pages=5, max_new_tokens=16),
+    jr = JScheduler(_jengine("paged", pool_pages=5, max_new_tokens=16,
+                             arch=arch),
                     preempt=False).serve(_requests(JRequest, work))
-    tr = Scheduler(_engine("paged", pool_pages=5, max_new_tokens=16),
+    tr = Scheduler(_engine("paged", pool_pages=5, max_new_tokens=16,
+                           arch=arch),
                    preempt=False).serve(_requests(Request, work))
     assert tr["iterations"] == jr["iterations"] > ref["iterations"]
     for t, r in zip(tr["results"], ref["results"]):

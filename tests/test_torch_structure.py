@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs import DrafterConfig, get_config
 from repro_torch.launch import serve, serve_stream
 from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.scheduler import Scheduler
 import torch_threads  # noqa: F401  (torch threads per xdist worker)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -213,14 +214,15 @@ def test_head_dims_and_row_tiles():
 
 def test_card_admits_gemma7b_and_mamba2_and_refuses_other_families(
         card_claimed):
-    """On a CUDA device the registry admits gemma-7b and the SSM
-    mamba2-780m before any weight is made; the moe, vlm, encdec and hybrid
-    families still raise NotImplementedError."""
+    """On a CUDA device the registry admits gemma-7b, the SSM mamba2-780m
+    and the hybrid recurrentgemma-2b (head dim 256) before any weight is
+    made; the moe, vlm and encdec families still raise
+    NotImplementedError."""
     from repro_torch.models import registry
-    for arch in ("gemma-7b", "mamba2-780m"):
+    for arch in ("gemma-7b", "mamba2-780m", "recurrentgemma-2b"):
         assert registry.get_model(get_config(arch), "cuda").cfg.arch_id == arch
     cfg = get_config("qwen2-1.5b")
-    for family in ("moe", "vlm", "encdec", "hybrid"):
+    for family in ("moe", "vlm", "encdec"):
         with pytest.raises(NotImplementedError, match=family):
             registry.get_model(cfg.replace(family=family), "cuda")
 
@@ -239,6 +241,26 @@ def test_serve_rehearses_mamba2_on_cpu():
     assert r["arch"] == "mamba2-780m" and r["new_tokens"] == 32
     assert r["kv_layout"] == "paged" and r["preempt_swap"] > 0
     assert r["cache_hit_tokens"] == 0
+
+
+def test_serve_rehearses_recurrentgemma_on_cpu():
+    """``serve.build_engine(arch="recurrentgemma-2b", reduced=True,
+    n_layers=5)``: one super-block and the 2-layer tail, paged at max_len
+    64 (the attention layer's cache a pool beside the per-slot recurrent
+    rows), a 5-page pool that preempts to the host; 13-token prompts are
+    admitted in chunks (8 + 4 + 1), and every request reaches its budget
+    with both pools drained."""
+    eng = serve.build_engine(arch="recurrentgemma-2b", reduced=True,
+                             n_layers=5, device="cpu", batch=2, max_len=64,
+                             max_new=8, K=2, kv_layout="paged", page_size=8,
+                             pool_pages=5, swap="host")
+    assert eng.tcfg.n_layers == 5 and eng.chunk_only and not eng.ring
+    assert eng.prefill_buckets(13) == [8, 4, 1]
+    reqs = serve.make_requests(eng.tcfg.vocab_size, 4, 13, 8, 0.0, seed=0)
+    r = Scheduler(eng).serve(reqs)
+    assert r["total_new_tokens"] == 32 and r["preempt_swap"] > 0
+    assert all(x["n_new"] == 8 for x in r["results"])
+    assert eng.allocator.n_used == 0 and len(eng.host_pool) == 0
 
 
 def test_serve_rehearses_paged_arrivals_on_cpu():
