@@ -13,8 +13,10 @@ at full width (GeGLU, softcaps, alternating local/global attention over
 ring caches, post-norms, embedding scale), minitron-4b and gemma-7b (head
 dim 256 through the decode, paged and flash kernels), the SSM family:
 mamba2-780m at full width (chunked SSD, per-token recurrent snapshots
-selected at the commit), and the hybrid family: recurrentgemma-2b at full
-width (RG-LRU, causal conv, MQA local attention at head dim 256).
+selected at the commit), the hybrid family: recurrentgemma-2b at full
+width (RG-LRU, causal conv, MQA local attention at head dim 256), and the
+MoE family: dbrx-132b at full width on 8 of its 40 layers (sort-based
+capacity dispatch, top-4 of 16 experts on every layer).
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -93,7 +95,14 @@ Phases, in order; any failure exits non-zero:
    position 2600 (wrapped), its drafter's draft (20/20 heads of 128),
    paged at its verify phase 1, flash at its prefill (B 8 x 512) and an
    admission bucket (B 1 x 512); timed beside their bounds and SDPA
-   (flex_attention for paged);
+   (flex_attention for paged). The MoE family's attention (uncapped, hd
+   128): dbrx-132b's 48 query heads over 8 KV heads (its drafter 48/48) at
+   the verify phases, draft and extend, paged verify and draft, the
+   prefill and an admission bucket; llama4-maverick's 40 over 8 (its
+   drafter 40/40; window 8192) at the verify, a ring of 8192 + 6 slots
+   after position 9000 (wrapped), paged verify and draft, a local prefill
+   and one of 8400 tokens past the window (its library call
+   flex_attention, the window a block mask); both dtypes, timed;
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
    512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache,
    after a cold run of 8 steps; the warm run is reported (OTPS, prefill seconds, decode seconds
@@ -126,7 +135,8 @@ Phases, in order; any failure exits non-zero:
    temperature 0.8, top-k 50, top-p 0.95, seed 0 with draft sampling off
    and on, and Scheduler.serve of phase 3b's traffic with even requests
    greedy and odd ones sampled (seed = index): OTPS, ms/step or
-   ms/iteration and AL beside phase 3 / 3b's greedy numbers, and the
+   ms/iteration and AL beside phase 3 / 3b's greedy numbers (the bfloat16
+   runs on 14 of the 28 layers, cut for time), and the
    attention launch counts of the greedy path's formula (sampling adds no
    attention launch); then, float32 full width (phase 4's prompts): two
    seeded runs identical, each sampled request's stream the same served
@@ -153,7 +163,7 @@ Phases, in order; any failure exits non-zero:
    the host with its swap_out / swap_in events, every request to its
    budget, the attention launches of the stated formula (a hit's suffix
    chunks run the decode kernel), the allocator and the host pool empty
-   after a flush and reset_stats; then float32 (14 of the 28 layers, cut
+   after a flush and reset_stats; then float32 (7 of the 28 layers, cut
    for time), the same traffic served
    with the three policies on and off (cold prefill, recompute preemption,
    fixed K), one request sampled and swapped out: every stream equal
@@ -161,7 +171,8 @@ Phases, in order; any failure exits non-zero:
    the off run, a sampled one after a margin < 1e-4), and the sampled one
    equal to itself served alone;
 3e / 4d. the serving front end: phase 3b's engine geometry (bfloat16,
-   swap to a 1 GiB pinned host pool) under AsyncEngine, the first 16 of
+   14 of the 28 layers, cut for time; swap to a 1 GiB pinned host pool)
+   under AsyncEngine, the first 16 of
    phase 3b's requests (odd ones sampled, seed = index) submitted at wall-clock
    Exp(0.075 s) gaps, seed 0, twice: as they come, then with every fourth
    request aborted after its first chunk; each pass reports wall OTPS
@@ -175,8 +186,8 @@ Phases, in order; any failure exits non-zero:
    LLMEngine.generate of requests 0-7 with their budgets in a mixed list
    of SamplingParams (prompt order, budgets), and serve_round_based of
    phase 3b's prompts cut to their shortest length, 256 tokens, and
-   budgets on a contiguous twin (OTPS and rounds beside phase 3b's, 28
-   flash launches a round); then float32 (phase 4's prompts, greedy and
+   budgets on a contiguous twin (OTPS and rounds beside phase 3b's, one
+   flash launch a layer a round); then float32 (phase 4's prompts, greedy and
    again sampled, a 30-page pool that preempts): the streamed run with one
    mid-stream abort against virtual_twin_report on the same engine under
    the near-tie rules, and the NDJSON server on 127.0.0.1 (the demo
@@ -227,7 +238,7 @@ Phases, in order; any failure exits non-zero:
    prompts: parallel and ar
    against none, a paged serve under pool pressure against the contiguous
    one, under phase 4's near-tie rule;
-8. mamba2-780m at full width in bfloat16 (24 of its 48 SSD layers, cut
+8. mamba2-780m at full width in bfloat16 (12 of its 48 SSD layers, cut
    for time; d 1536, d_inner 3072, 48 heads of 64, d_state 128; the
    drafter 12 heads of 128): the
    memory plan with the verify's snapshot peak (the state after each of
@@ -241,24 +252,50 @@ Phases, in order; any failure exits non-zero:
    none, paged against contiguous, a recompute-preempted and a swapped
    request each equal to itself served alone, and a seeded sampled request
    alone equal to itself batched;
-9. recurrentgemma-2b at full width in bfloat16 (26 layers: 8 x (recurrent,
-   recurrent, attention) + 2 recurrent; d 2560, RG-LRU width 2560, conv
-   4, MQA 10/1 heads of 256, window 2048, d_ff 7680 GeGLU, vocab 256000;
-   the drafter 20 heads of 128): the memory plan with the verify's
-   snapshots (conv windows and h after each of K + 1 tokens, 18 recurrent
-   layers), Engine.run at phase 3's shapes (8 flash and 8 decode at the
-   prefill, 32 decode a step: the 8 attention layers' two phases and the
-   drafter's), a verify step's measured peak beyond its state, and
-   Scheduler.serve of phase 3b's 24 requests, paged (at max_len 1024 the
-   local layers' caches are pools beside the per-slot recurrent rows),
-   swap to host, on a 256-page pool that preempts (16 paged an iteration;
-   each admission's first MSB chunk a prefill, its later chunks in decode
-   mode); 9b: float32 at full width, phase 4's prompts as 8b, then over
+9. recurrentgemma-2b at full width in bfloat16 (14 of its 26 layers, cut
+   for time: 4 x (recurrent, recurrent, attention) + 2 recurrent, the
+   2-slot tail kept; d 2560, RG-LRU width 2560, conv 4, MQA 10/1 heads of
+   256, window 2048, d_ff 7680 GeGLU, vocab 256000; the drafter 20 heads
+   of 128): the memory plan with the verify's snapshots (conv windows and
+   h after each of K + 1 tokens, 10 recurrent layers), Engine.run at phase
+   3's shapes (4 flash and 8 decode at the prefill, 24 decode a step: the
+   4 attention layers' two phases and the drafter's), a verify step's
+   measured peak beyond its state, and Scheduler.serve of phase 3b's 24
+   requests, paged (at max_len 1024 the local layers' caches are pools
+   beside the per-slot recurrent rows), swap to host, on a 256-page pool
+   that preempts (12 paged an iteration; each admission's first MSB chunk
+   a prefill, its later chunks in decode mode); 9b: float32 at full width,
+   14 layers, phase 4's prompts as 8b, then over
    wrapped rings (max_len 4096: rings of 2048 + 6 slots; batch 2,
    2300-token prompts): parallel with the random drafter and with oracle
    drafts (AL > 2) against none, the logits through the kernels against
    the plain attention, and Scheduler.serve of a 2100- and a 2400-token
-   prompt in MSB chunks, parallel against none, launch counts stated.
+   prompt in MSB chunks, parallel against none, launch counts stated;
+10. dbrx-132b at full width in bfloat16 on 8 of its 40 layers (40 are ~263
+   GB; d 6144, 48/8 heads of 128, 16 experts of d_ff 10752 SwiGLU, top-4
+   on every layer, capacity factor 1.25, vocab 100352, untied head; the
+   drafter 48/48 heads of 128, d_ff 21504; ~62 GB with the weights drawn
+   on the card from a seed, the memory plan logged): Engine.run at phase
+   3's shapes after a cold run (8 flash and 8 decode at the prefill, 32
+   decode a step), the mean drop_frac of the prefill's and of a verify's
+   MoE calls and the smallest router top-4 margin seen, a verify step's
+   peak beyond its state, and Scheduler.serve of phase 3b's first 12
+   requests, paged, swap to host, on a 256-page pool that preempts (16
+   paged an iteration); the prefix cache is never built for an MoE target;
+10b. dbrx-132b in float32 at full width on 2 layers (~45 GB), phase 4's
+   prompts: the logits of a prefill and a verify through the kernels
+   against the plain attention (within 1e-3), the greedy streams of both
+   paths (their experts equal call by call, or first differing where a
+   router margin, a token's 4th less its 5th probability, is below 1e-5;
+   the streams equal under phase 4's rule up to that call: a flipped
+   expert moves other tokens' capacity), and, at capacity factor 16 (=
+   n_experts: nothing dropped, tokens do not interact), greedy parallel
+   and ar against none (a row compared up to the first call at which its
+   experts differ, the prefill's, or, where the calls' shapes differ, in
+   which a token of it had a router margin below 1e-5). (At capacity
+   factor 1.25 a verify of B x (K+1)
+   tokens and a decode of B drop other slots, so greedy speculation is
+   not lossless there, in the JAX package as in the port.)
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -307,12 +344,33 @@ GEMMA2_SCALE, GEMMA2_CAP, GEMMA2_WINDOW = 144 ** -0.5, 50.0, 4096
 # recurrentgemma-2b's local attention (arXiv:2402.19427): MQA, 10 query
 # heads on 1 KV head of 256, query scale 256^-0.5, window 2048
 RGEMMA_WINDOW = 2048
+# llama4-maverick's local layers (hf:meta-llama/Llama-4-Scout-17B-16E):
+# chunked local attention over 8192 positions
+LLAMA4_WINDOW = 8192
+# paged rows off every served path (llama4's model stays on the CPU): their
+# flex_attention library call, a compilation each, is not timed
+FLEX_UNTIMED = ("llama4 target verify phase 1", "llama4 drafter draft phase 1")
 # depth cuts of earlier paths (widths stay the published ones), made when
 # phase 9 came in: the whole script took 895.5 s, and 1267.8 s on a slow
 # host, against the 1200 s the script may take (H100 80GB HBM3, 700.00 W)
-MAMBA2_LAYERS = 24          # phase 8 / 8b: mamba2-780m, of 48
 GEMMA7B_LAYERS = 14         # phase 7 / 7b: gemma-7b, of 28
-POLICY_F32_LAYERS = 14      # phase 4c: qwen2-1.5b in float32, of 28
+# and when phase 10 came in (dbrx-132b; the script took 854.7 s on an
+# H100 80GB HBM3 at 700.00 W with the cuts below but mamba2's and 4c's at
+# 24 and 14 layers), at full width
+MAMBA2_LAYERS = 12          # phase 8 / 8b: mamba2-780m, of 48
+POLICY_F32_LAYERS = 7       # phase 4c: qwen2-1.5b in float32, of 28
+STREAM_LAYERS = 14          # phase 3e: qwen2-1.5b, of 28
+SAMPLED_LAYERS = 14         # phase 3c's bfloat16 runs: qwen2-1.5b, of 28
+RGEMMA_LAYERS = 14          # phase 9 / 9b: recurrentgemma-2b, of 26 (4
+                            # (recurrent, recurrent, attention) + 2)
+# dbrx-132b's layers in phase 10: 8 of 40 (~62 GB with its drafter in
+# bfloat16; 40 are ~263 GB)
+DBRX_LAYERS = 8
+# a router margin (a token's K-th less its (K+1)-th probability) below
+# this may flip an expert between two float32 runs whose sums differ in
+# order only (~1e-7 of a probability), and a flipped expert moves other
+# tokens' capacity
+ROUTER_NEAR_TIE = 1e-5
 # Oracle drafts must lift the acceptance length above this (a fifth of the
 # drafts are spoiled, so about 3.7 is expected at K 5).
 ORACLE_MIN_AL = 2.0
@@ -752,6 +810,53 @@ def rgemma_cases(dev, dtype, c):
     return out
 
 
+def moe_cases(dev, dtype, c):
+    """Phase 2's MoE-family cases (no cap, query scale 128^-0.5): dbrx-132b
+    (hf:databricks/dbrx-base: 48 query heads over 8 KV heads, its drafter
+    48/48) at the serving path's verify phases 1 and 2, draft and extend
+    phase 1, paged verify and draft phase 1, the prefill and an admission
+    bucket; llama4-maverick (40 over 8, a GQA ratio of 5; local window
+    8192; its drafter 40/40), whose model stays on the CPU, at its verify,
+    a local layer's ring of 8192 + 6 slots after position 9000 (wrapped),
+    its draft, paged verify and draft, a local prefill and one past the
+    window: (kernel, label, inputs, keywords)."""
+    kw = dict(scale=128 ** -0.5)
+    local = dict(kw, window=LLAMA4_WINDOW)
+    out = []
+    for label, (B, T, H, KV, S, valid), extra in [
+            ("dbrx target verify phase 1", (8, 6, 48, 8, 1024, c), kw),
+            ("dbrx target verify phase 2", (8, 6, 48, 8, 6, 6), kw),
+            ("dbrx drafter draft phase 1", (8, 5, 48, 48, 1024, c - 1), kw),
+            ("dbrx drafter extend phase 1", (8, 6, 48, 48, 1024, c), kw),
+            ("llama4 target verify phase 1", (8, 6, 40, 8, 1024, c), local),
+            ("llama4 drafter draft phase 1", (8, 5, 40, 40, 1024, c - 1),
+             kw)]:
+        out.append(("decode_attention", label,
+                    decode_case(dev, dtype, B, T, H, KV, 128, S, valid),
+                    extra))
+    out.append(("decode_attention", "llama4 local ring 8192 + 6, wrapped",
+                ring_case(dev, dtype, 2, 6, 40, 8, 128, LLAMA4_WINDOW + 6,
+                          9000, seed=8), local))
+    for i, (label, (T, H, KV, cc), extra) in enumerate([
+            ("dbrx target verify phase 1", (6, 48, 8, c), kw),
+            ("dbrx drafter draft phase 1", (5, 48, 48, c - 1), kw),
+            ("llama4 target verify phase 1", (6, 40, 8, c), local),
+            ("llama4 drafter draft phase 1", (5, 40, 40, c - 1), kw)]):
+        out.append(("paged_decode_attention", label,
+                    paged_case(dev, dtype, 8, T, H, KV, 128, 16, 64, cc,
+                               seed=60 + i), extra))
+    g = torch.Generator(device=dev).manual_seed(7)
+    for label, (B, S, H), extra in [
+            ("dbrx target prefill", (8, 512, 48), kw),
+            ("dbrx admission bucket 512", (1, 512, 48), kw),
+            ("llama4 local prefill", (8, 512, 40), local),
+            ("llama4 local prefill past the window", (1, 8400, 40), local)]:
+        out.append(("flash_attention", label,
+                    qkv(g, dev, dtype, (B, S, H, 128), (B, S, 8, 128)),
+                    dict(extra, causal=True)))
+    return out
+
+
 def check_kernels(ops, dev):
     """Every kernel against its plain version; returns the per-kernel
     measurements of the main-path shapes (the MTP kernel's keyed by
@@ -762,8 +867,9 @@ def check_kernels(ops, dev):
     rows = {}
     row_kw = {}      # (kernel, label) -> the call's keywords, if not plain
     # (family, kernel) -> the worst bfloat16 error at that family's
-    # shapes: "gemma2" (softcap 50), "gemma7b" (head dim 256) and "rgemma"
-    # (recurrentgemma-2b: MQA 10/1 at head dim 256, window 2048)
+    # shapes: "gemma2" (softcap 50), "gemma7b" (head dim 256), "rgemma"
+    # (recurrentgemma-2b: MQA 10/1 at head dim 256, window 2048), "dbrx"
+    # (48/8 and 48/48) and "llama4" (40/8 with window 8192, 40/40)
     fam_worst = {}
 
     def compare(name, got, want, dtype, label):
@@ -973,10 +1079,12 @@ def check_kernels(ops, dev):
         # falls inside a split chunk), the cap with scores 8x larger; flash
         # at the prefill and past the window. Then head dim 256 (gemma-7b's
         # serving shapes and the edges of the hd-256 bodies), then
-        # recurrentgemma-2b's MQA 10/1 at head dim 256 with its window
+        # recurrentgemma-2b's MQA 10/1 at head dim 256 with its window, then
+        # the MoE family's attention (dbrx, llama4)
         for name, label, inp, kw in (gemma2_cases(dev, dtype, c)
                                      + gemma7b_cases(dev, dtype, c)
-                                     + rgemma_cases(dev, dtype, c)):
+                                     + rgemma_cases(dev, dtype, c)
+                                     + moe_cases(dev, dtype, c)):
             fn = getattr(ops, name)
             before = ops.launches[name]
             if name == "flash_attention":
@@ -996,7 +1104,7 @@ def check_kernels(ops, dev):
                      f"{ops.launches[name] - before}")
             fam = label.split()[0]
             if dtype == "bfloat16" and fam in ("gemma2", "gemma7b",
-                                               "rgemma"):
+                                               "rgemma", "dbrx", "llama4"):
                 fam_worst[(fam, name)] = max(fam_worst.get((fam, name), 0.0),
                                              err)
                 rows[(name, label)], row_kw[(name, label)] = inp, kw
@@ -1007,10 +1115,11 @@ def check_kernels(ops, dev):
     for (name, label), inp in rows.items():
         kw = row_kw.get((name, label), dict(scale=inp[0].shape[-1] ** -0.5))
         window, cap = kw.get("window", 0), kw.get("softcap", 0.0)
-        # the capped and the paged cases: flex_attention, the one PyTorch
-        # call that computes them, timed after every phase (flex_library);
-        # the rest: SDPA
-        flex = cap > 0 or name == "paged_decode_attention"
+        # the capped, the paged and the windowed flash cases past their
+        # window: flex_attention, the one PyTorch call that computes them,
+        # timed after every phase (flex_library); the rest: SDPA
+        flex = (cap > 0 or name == "paged_decode_attention"
+                or (name == "flash_attention" and 0 < window < inp[0].shape[1]))
         if name == "decode_attention":
             q, k, v, kpos, qpos = inp
             nbytes, flops = decode_work(q, k, kpos, qpos, window)
@@ -1046,7 +1155,9 @@ def check_kernels(ops, dev):
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, bytes=nbytes,
                                        flops=flops)
-        if flex:
+        if flex and label in FLEX_UNTIMED:
+            lib_txt = "flex_attention: not timed"
+        elif flex:
             lib_txt = "flex_attention: see the end"
             measured[(name, label)]["library"] = "flex_attention"
             pending.append(((name, label), tuple(x.cpu() for x in inp), kw))
@@ -1709,9 +1820,10 @@ def sched_launches_want(cfg, n_d, iterations, admissions):
 
 
 def sampled_throughput(ops, dev, path, sched):
-    """bfloat16 full width: Engine.run under the sampled policy with draft
-    sampling off and on (phase 3's shapes), and a mixed Scheduler.serve
-    (phase 3b's traffic, odd requests sampled); launch counts as greedy."""
+    """bfloat16 full width, the depth cut to SAMPLED_LAYERS: Engine.run
+    under the sampled policy with draft sampling off and on (phase 3's
+    shapes), and a mixed Scheduler.serve (phase 3b's traffic, odd requests
+    sampled); launch counts as greedy."""
     import dataclasses
     from repro_torch.launch.serve import build_engine, random_prompts
     from repro_torch.serving.engine import Engine
@@ -1719,9 +1831,11 @@ def sampled_throughput(ops, dev, path, sched):
     from repro_torch.serving.scheduler import Request, Scheduler
     B, P, NEW, K, MAX_LEN = 8, 512, 128, 5, 1024
     sp = SamplingParams(seed=0, **SAMPLED)
-    log(f"  Engine.run, {SAMPLED}, seed 0, phase 3's shapes")
-    eng = build_engine(mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
-                       batch=B, seed=0, device=dev, sampling=sp)
+    log(f"  Engine.run, {SAMPLED}, seed 0, phase 3's shapes, "
+        f"{SAMPLED_LAYERS} of 28 layers (cut for time)")
+    eng = build_engine(mode="parallel", n_layers=SAMPLED_LAYERS, K=K,
+                       max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
+                       device=dev, sampling=sp)
     cfg, n_d = eng.tcfg, eng.dcfg.n_layers
     prompts = random_prompts(cfg.vocab_size, B, P, seed=0)
     out = {}
@@ -1753,7 +1867,7 @@ def sampled_throughput(ops, dev, path, sched):
         log(f"    draft_sampling {'on ' if ds else 'off'}: otps "
             f"{row['otps']:.1f} tok/s, {row['decode_ms_per_step']:.2f} ms/step"
             f" over {steps}, AL {row['acceptance_length']:.4f} (greedy, "
-            f"phase 3: {path['otps']:.1f} tok/s, "
+            f"phase 3 at 28 layers: {path['otps']:.1f} tok/s, "
             f"{path['decode_ms_per_step']:.2f} ms/step, AL "
             f"{path['acceptance_length']:.4f}); launches as greedy")
         del e, r
@@ -1762,10 +1876,12 @@ def sampled_throughput(ops, dev, path, sched):
 
     POOL, N = 256, 24
     log(f"  Scheduler.serve, paged, pool {POOL}, phase 3b's {N} requests, "
-        f"even greedy, odd sampled ({SAMPLED}, seed = index)")
-    eng = build_engine(mode="parallel", K=K, max_new=192, max_len=MAX_LEN,
-                       batch=B, seed=0, device=dev, kv_layout="paged",
-                       page_size=16, pool_pages=POOL)
+        f"even greedy, odd sampled ({SAMPLED}, seed = index), "
+        f"{SAMPLED_LAYERS} of 28 layers")
+    eng = build_engine(mode="parallel", n_layers=SAMPLED_LAYERS, K=K,
+                       max_new=192, max_len=MAX_LEN, batch=B, seed=0,
+                       device=dev, kv_layout="paged", page_size=16,
+                       pool_pages=POOL)
     rng = np.random.default_rng(0)
     lens = rng.integers(256, 641, N)
     budgets = rng.integers(64, 193, N)
@@ -1801,7 +1917,8 @@ def sampled_throughput(ops, dev, path, sched):
     out["scheduler_mixed"] = row
     log(f"    otps {rep['otps']:.1f} tok/s, {row['ms_per_iteration']:.2f} "
         f"ms/iteration over {it}, AL {rep['weighted_acceptance_length']:.4f}"
-        f", preemptions {pre} (greedy, phase 3b: {sched['otps']:.1f} tok/s, "
+        f", preemptions {pre} (greedy, phase 3b at 28 layers: "
+        f"{sched['otps']:.1f} tok/s, "
         f"{sched['ms_per_iteration']:.2f} ms/iteration over "
         f"{sched['iterations']}, preemptions {sched['preemptions']}); "
         f"launches as greedy")
@@ -2391,16 +2508,17 @@ def streaming_path(ops, dev, sched3b):
     from repro_torch.serving.scheduler import (LLMEngine, Request, Scheduler,
                                                serve_round_based)
     B, K, POOL = 8, 5, 256
-    log(f"phase 3e: AsyncEngine, full-width qwen2-1.5b bfloat16, parallel K "
+    log(f"phase 3e: AsyncEngine, full-width qwen2-1.5b bfloat16 "
+        f"({STREAM_LAYERS} of 28 layers, cut for time), parallel K "
         f"{K}, batch {B}, paged: page 16, pool {POOL} pages, swap to a "
         f"{HOST_POOL_BYTES} B host pool; the first {STREAM_REQUESTS} of phase "
         f"3b's requests, odd ones sampled ({SAMPLED}, seed = index), "
         f"submitted at wall-clock Exp gaps of mean {STREAM_MEAN_GAP_S} s, "
         f"seed 0")
-    eng = build_engine(mode="parallel", K=K, max_new=192, max_len=1024,
-                       batch=B, seed=0, device=dev, kv_layout="paged",
-                       page_size=16, pool_pages=POOL, swap="host",
-                       host_pool_bytes=HOST_POOL_BYTES)
+    eng = build_engine(mode="parallel", n_layers=STREAM_LAYERS, K=K,
+                       max_new=192, max_len=1024, batch=B, seed=0, device=dev,
+                       kv_layout="paged", page_size=16, pool_pages=POOL,
+                       swap="host", host_pool_bytes=HOST_POOL_BYTES)
     cfg, V, n_d = eng.tcfg, eng.tcfg.vocab_size, eng.dcfg.n_layers
     prompts, budgets, _ = sched3b_traffic(V)
     N = STREAM_REQUESTS
@@ -2437,7 +2555,7 @@ def streaming_path(ops, dev, sched3b):
         out[name] = row
         log(f"  {name}: wall otps {row['otps']:.1f} tok/s over "
             f"{row['wall_s']:.3f} s ({row['ms_per_iteration']:.2f} "
-            f"ms/iteration over {it}; phase 3b virtual arrivals: "
+            f"ms/iteration over {it}; phase 3b, 28 layers, virtual arrivals: "
             f"{sched3b['otps']:.1f} tok/s, {sched3b['ms_per_iteration']:.2f} "
             f"ms/iteration), TTFT p50/p99 {m['ttft_ms_p50']:.1f}/"
             f"{m['ttft_ms_p99']:.1f} ms, inter-token gap p50/p99 "
@@ -2525,7 +2643,8 @@ def streaming_path(ops, dev, sched3b):
     out["round_based"] = dict(rb, launches=counts)
     log(f"    otps {rb['otps']:.1f} tok/s, {rb['rounds']} rounds, "
         f"{rb['wall_s']:.3f} s, AL {rb['mean_acceptance_length']:.4f} "
-        f"(continuous, phase 3b: {sched3b['otps']:.1f} tok/s; streamed: "
+        f"(continuous, phase 3b at 28 layers: {sched3b['otps']:.1f} tok/s; "
+        f"streamed: "
         f"{out['stream']['otps']:.1f} tok/s); launches {counts}")
     del rb_eng
     torch.cuda.empty_cache()
@@ -2873,18 +2992,22 @@ def drafter_bytes(tcfg, dcfg, dtype_bytes):
 
 def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
     """The bytes a run will hold, reckoned from the configs: target and
-    drafter weights, their contiguous KV caches at (B, max_len), and
-    dense_init's float32 temporaries of the largest matrix (the
-    vocab x d embedding: the draw and its scaled copy)."""
+    drafter weights (an MoE layer's experts: w_gate, w_up and w_down each),
+    their contiguous KV caches at (B, max_len), and dense_init's float32
+    temporaries of the largest matrix (the vocab x d embedding, or an MoE
+    layer's stacked expert weight: the draw and its scaled copy)."""
     d, V, L, hd = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers, tcfg.head_dim
-    H, KV = tcfg.n_heads, tcfg.n_kv_heads
+    H, KV, E = tcfg.n_heads, tcfg.n_kv_heads, tcfg.moe.n_experts
     gated = tcfg.mlp_variant in ("swiglu", "geglu")
-    layer = 2 * d * H * hd + 2 * d * KV * hd + (3 if gated else 2) * d * tcfg.d_ff
-    target = (V * d * (1 if tcfg.tie_embeddings else 2) + L * layer) * dtype_bytes
+    mlp = (3 if gated else 2) * d * tcfg.d_ff
+    moe = E * (d + 3 * d * tcfg.d_ff) + tcfg.moe.n_shared_experts * mlp
+    ffn = sum(moe if tcfg.is_moe_layer(li) else mlp for li in range(L))
+    layers = L * (2 * d * H * hd + 2 * d * KV * hd) + ffn
+    target = (V * d * (1 if tcfg.tie_embeddings else 2) + layers) * dtype_bytes
     drafter = drafter_bytes(tcfg, dcfg, dtype_bytes)
     kv = (L * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim) \
         * 2 * B * max_len * dtype_bytes
-    tmp = 2 * V * d * 4
+    tmp = 2 * max(V * d, E * d * tcfg.d_ff) * 4
     return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
                 kv_gb=kv / 1e9, init_temporaries_gb=tmp / 1e9,
                 total_gb=(target + drafter + kv + tmp) / 1e9)
@@ -3598,10 +3721,12 @@ def recurrentgemma_path(ops, dev):
     from repro_torch.configs import DrafterConfig, get_config
     from repro_torch.launch.serve import build_engine, random_prompts
     B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 512, 128, 5, 1024, 16, 256
-    tcfg = get_config("recurrentgemma-2b")
+    tcfg = get_config("recurrentgemma-2b").replace(n_layers=RGEMMA_LAYERS)
     dcfg = DrafterConfig().resolve(tcfg)
-    log(f"phase 9: full-width recurrentgemma-2b bfloat16 (26 layers: 8 x "
-        f"(recurrent, recurrent, attention) + 2 recurrent; d 2560, lru 2560, "
+    n_att = attention_layers(tcfg)
+    log(f"phase 9: full-width recurrentgemma-2b bfloat16 ({RGEMMA_LAYERS} "
+        f"of 26 layers, cut for time: {n_att} x (recurrent, recurrent, "
+        f"attention) + 2 recurrent; d 2560, lru 2560, "
         f"conv 4, MQA 10/1 heads of 256, window {tcfg.window_size}, d_ff "
         f"7680 GeGLU, vocab 256000, embedding scale), 4-layer parallel "
         f"drafter (d {dcfg.d_model}, {dcfg.n_heads} heads of "
@@ -3611,9 +3736,9 @@ def recurrentgemma_path(ops, dev):
     plan = hybrid_memory_plan(tcfg, dcfg, B, MAX_LEN, K, 2)
     log("  memory plan: " + ", ".join(f"{k} {v:.3f}" for k, v in plan.items()))
     t0 = time.perf_counter()
-    eng = build_engine(arch="recurrentgemma-2b", mode="parallel", K=K,
-                       max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
-                       device=dev)
+    eng = build_engine(arch="recurrentgemma-2b", n_layers=RGEMMA_LAYERS,
+                       mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
@@ -3653,10 +3778,11 @@ def recurrentgemma_path(ops, dev):
     del peng
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 9b: recurrentgemma-2b float32 at full width (~11.6 GB of "
-        "weights), phase 4's prompts")
+    log(f"phase 9b: recurrentgemma-2b float32 at full width, "
+        f"{RGEMMA_LAYERS} of 26 layers, phase 4's prompts")
     free_card(dev, "phase 9b")
-    checks, eng = recurrent_float32(ops, dev, "recurrentgemma-2b", "9b")
+    checks, eng = recurrent_float32(ops, dev, "recurrentgemma-2b", "9b",
+                                    RGEMMA_LAYERS)
     checks["rings"] = rgemma_rings(ops, dev, eng)
     del eng
     gc.collect()
@@ -3748,6 +3874,268 @@ def rgemma_rings(ops, dev, eng):
             "serve_chunks": [list(c) for c in chunks]}
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 10b: the MoE family (dbrx-132b)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_probe():
+    """Record every MoE layer call of the port's target: its (B, S), its
+    drop_frac, its experts (the router's top-K ids, on the host) and its
+    router margins, the gap between a token's K-th and (K+1)-th router
+    probabilities (the smallest of the call, and each row's smallest),
+    read from the same router here, not an output of moe_apply. Each
+    record syncs the card: not for timed runs."""
+    from repro_torch.models import moe, transformer
+    records, inner = [], transformer.moe_apply
+
+    def probed(p, x, **kw):
+        out, aux = inner(p, x, **kw)
+        B, S, K = x.shape[0], x.shape[1], kw["top_k"]
+        _, probs, _, experts = moe.route(p, x.reshape(-1, x.shape[-1]), K)
+        top = probs.topk(K + 1, dim=-1).values
+        gap = (top[:, K - 1] - top[:, K]).view(B, S)
+        records.append(dict(shape=(B, S), drop_frac=float(aux["drop_frac"]),
+                            margin=float(gap.min()),
+                            row_margin=gap.amin(1).cpu().numpy(),
+                            experts=experts.cpu()))
+        return out, aux
+    transformer.moe_apply = probed
+    try:
+        yield records
+    finally:
+        transformer.moe_apply = inner
+
+
+def routing_parts(a, b, n_moe, what):
+    """The first target call (0: the prefill, s + 1: step s) at which two
+    probed runs of the same shapes route a token to other experts, or
+    None. Fails unless one of the runs had a router margin below
+    ROUTER_NEAR_TIE in that layer call: sums in another order move a
+    probability by ~1e-7, so only a near tie flips an expert."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x["shape"] == y["shape"] and torch.equal(x["experts"], y["experts"]):
+            continue
+        m = min(x["margin"], y["margin"])
+        log(f"  {what}: the experts differ at call {j // n_moe} (MoE layer "
+            f"{j % n_moe}), router margin {m:.3e}")
+        if not m < ROUTER_NEAR_TIE:
+            fail(f"{what}: the experts differ at call {j // n_moe} with a "
+                 f"router margin of {m} >= {ROUTER_NEAR_TIE}")
+        return j // n_moe
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} against {len(b)} MoE calls")
+    return None
+
+
+def row_router_ties(a, b, n_moe, B, what):
+    """Each row's first target call (as ``routing_parts``) from which two
+    probed runs may part for that row, or None: where both runs' layer
+    calls have one shape, the first at which the row's experts differ
+    (failing unless one run's router margin for the row is below
+    ROUTER_NEAR_TIE there); where the shapes differ (a verify against a
+    plain decode step) or one run made no such call, the first in which
+    either run had a token of the row with a margin below it."""
+    first = [None] * B
+    for j in range(max(len(a), len(b))):
+        x, y = (r[j] if j < len(r) else None for r in (a, b))
+        if x is not None and y is not None and x["shape"] == y["shape"]:
+            moved = (x["experts"].reshape(B, -1) != y["experts"].reshape(B, -1)
+                     ).any(1).numpy()
+            low = np.minimum(x["row_margin"], y["row_margin"])
+            for rb in np.flatnonzero(moved & ~(low < ROUTER_NEAR_TIE)):
+                fail(f"{what}: row {rb}'s experts differ at call "
+                     f"{j // n_moe} with a router margin of {low[rb]}")
+        else:
+            moved = np.minimum.reduce([r["row_margin"] for r in (x, y)
+                                       if r is not None]) < ROUTER_NEAR_TIE
+        for rb in np.flatnonzero(moved):
+            if first[rb] is None:
+                first[rb] = j // n_moe
+    return first
+
+
+def moe_streams_agree(ref_eng, toks, ref, P, what, dev, probes, coupled):
+    """phase 4's near-tie rule for two greedy MoE runs, with the router's:
+    a row may part where the reference's top-2 logit gap is below NEAR_TIE,
+    or from position P + i on, call i committing positions P + i and later
+    (0: the prefill, s + 1: step s). ``coupled`` (slots dropped: a flipped
+    expert moves other tokens' capacity, every row's): i is the first call
+    at which the two runs' experts differ (``routing_parts``), for every
+    row. Else (nothing dropped: tokens do not interact) i is the row's own
+    (``row_router_ties``)."""
+    n_moe = sum(ref_eng.tcfg.is_moe_layer(li)
+                for li in range(ref_eng.tcfg.n_layers))
+    B, W = toks.shape
+    if coupled:
+        i = routing_parts(*probes, n_moe, what)
+        firsts = [i] * B
+    else:
+        firsts = row_router_ties(*probes, n_moe, B, what)
+    toks = toks.copy()
+    for b, i in enumerate(firsts):
+        if i is not None and P + i < W:
+            end = P + i
+            same = bool((toks[b, end:] == ref[b, end:]).all())
+            log(f"  {what}: row {b} compared up to position {end} (a router "
+                f"near tie); past it {'equal all the same' if same else 'it parts'}")
+            toks[b, end:] = ref[b, end:]
+    return near_ties(ref_eng, toks, ref, P, what, dev)
+
+
+def dbrx_path(ops, dev):
+    """Phase 10: dbrx-132b at full width in bfloat16, its depth cut to
+    DBRX_LAYERS (every layer MoE: 16 experts, top-4, capacity factor 1.25;
+    its attention 48/8 heads through the flash and decode kernels):
+    Engine.run at phase 3's shapes, the routing of a prefill and a verify,
+    a step's memory beyond its state, and Scheduler.serve of phase 3b's
+    first 12 requests over paged KV with swap to host; then 10b."""
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.launch.serve import build_engine, random_prompts
+    B, P, NEW, K, MAX_LEN, PAGE, POOL, N = 8, 512, 128, 5, 1024, 16, 256, 12
+    tcfg = get_config("dbrx-132b").replace(n_layers=DBRX_LAYERS)
+    dcfg = DrafterConfig().resolve(tcfg)
+    m = tcfg.moe
+    log(f"phase 10: full-width dbrx-132b bfloat16 ({DBRX_LAYERS} of 40 "
+        f"layers: 40 do not fit one card; d 6144, 48/8 heads of 128, "
+        f"{m.n_experts} experts top-{m.top_k} of d_ff 10752 SwiGLU on every "
+        f"layer, capacity factor {m.capacity_factor}, vocab 100352, untied "
+        f"head), 4-layer parallel drafter (d {dcfg.d_model}, "
+        f"{dcfg.n_heads}/{dcfg.n_kv_heads} heads of {dcfg.head_dim}, d_ff "
+        f"{dcfg.d_ff}), batch {B}, prompt {P}, max_new {NEW}, K {K}, "
+        f"max_len {MAX_LEN}")
+    free_card(dev, "phase 10")
+    plan = memory_plan(tcfg, dcfg, B, MAX_LEN, 2)
+    log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = build_engine(arch="dbrx-132b", n_layers=DBRX_LAYERS,
+                       mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
+        f"{held / 1e9:.2f} GB allocated, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "10")
+    run.update(memory_plan=plan, weights_gb=held / 1e9)
+    with moe_probe() as probe, torch.no_grad():
+        state = eng.prefill(prompts)
+        n_pre = len(probe)
+        state = eng.step(state)
+    pre, ver = probe[:n_pre], probe[n_pre:]
+    if not ([r["shape"] for r in pre] == [(B, P)] * DBRX_LAYERS
+            and [r["shape"] for r in ver] == [(B, K + 1)] * DBRX_LAYERS):
+        fail(f"phase 10 MoE calls {[r['shape'] for r in probe]}: want "
+             f"{DBRX_LAYERS} at ({B}, {P}) then {DBRX_LAYERS} at ({B}, "
+             f"{K + 1})")
+    run.update(prefill_drop_frac=float(np.mean([r["drop_frac"] for r in pre])),
+               verify_drop_frac=float(np.mean([r["drop_frac"] for r in ver])),
+               router_min_margin=min(r["margin"] for r in probe))
+    log(f"  routing: mean drop_frac {run['prefill_drop_frac']:.4f} at the "
+        f"prefill ({B} x {P} tokens, capacity "
+        f"{int((B * P * m.top_k) / m.n_experts * m.capacity_factor) + 1}), "
+        f"{run['verify_drop_frac']:.4f} at a verify ({B} x {K + 1}, capacity "
+        f"{int((B * (K + 1) * m.top_k) / m.n_experts * m.capacity_factor) + 1}"
+        f"); smallest router top-{m.top_k} margin "
+        f"{run['router_min_margin']:.3e}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(4):
+        state = eng.step(state)
+    torch.cuda.synchronize()
+    run["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+    log(f"  a verify step holds {run['step_peak_gb']:.3f} GB beyond its "
+        f"state")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, swap to "
+        f"host, incremental growth; phase 3b's first {N} requests")
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192, swap="host")
+    del eng
+    serve = family_serve(ops, dev, peng,
+                         sched3b_traffic(peng.tcfg.vocab_size, N), "10")
+    if not serve["preempt_swap"] > 0:
+        fail("phase 10 serve: no request was swapped to the host")
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "serve": serve, "float32": dbrx_float32(ops, dev)}
+
+
+def dbrx_float32(ops, dev):
+    """Phase 10b: dbrx-132b in float32 at full width on 2 layers (~45 GB),
+    phase 4's prompts: (i) the target's logits through the kernels against
+    the plain attention (a prefill and a verify), and the greedy streams
+    of both paths; (ii) at capacity factor n_experts (no slot dropped, as
+    ``reduced()`` sets it) greedy parallel and ar against none. Streams
+    under ``moe_streams_agree``'s near-tie rules: (i) coupled (a flipped
+    expert moves every row's capacity), (ii) per row."""
+    import dataclasses
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    B, P, NEW, K, MAX_LEN = 4, 128, 32, 5, 256
+    log(f"phase 10b: dbrx-132b float32 at full width, 2 of 40 layers, batch "
+        f"{B}, prompt {P}, max_new {NEW}, K {K}")
+    free_card(dev, "phase 10b")
+    eng = build_engine(arch="dbrx-132b", n_layers=2, mode="parallel",
+                       dtype="float32", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
+    V = eng.tcfg.vocab_size
+    prompts = random_prompts(V, B, P, seed=1)
+    block = torch.as_tensor(random_prompts(V, B, K + 1, seed=2), device=dev)
+    kernel_logits_vs_plain(ops, eng, torch.as_tensor(prompts, device=dev),
+                           block, MAX_LEN)
+    none = family_twin(eng, B, dev, drafter_mode="none", K=0)
+    out = {}
+    runs, probes = {}, {}
+    for name, ctx in (("kernels", contextlib.nullcontext()),
+                      ("plain", plain_attention(ops))):
+        with ctx, moe_probe() as probe:
+            r = eng.run(prompts)
+        runs[name], probes[name] = r["tokens"][:, :P + NEW], probe
+        log(f"  {name:7s} steps {r['steps']:3d} AL "
+            f"{r['acceptance_length']:.3f}, mean drop_frac "
+            f"{np.mean([x['drop_frac'] for x in probe]):.4f}, smallest router "
+            f"margin {min(x['margin'] for x in probe):.3e}")
+    out["kernels_vs_plain_parted_rows"] = moe_streams_agree(
+        none, runs["kernels"], runs["plain"], P, "10b kernels vs plain", dev,
+        (probes["kernels"], probes["plain"]), coupled=True)
+    tcfg = eng.tcfg.replace(moe=dataclasses.replace(
+        eng.tcfg.moe, capacity_factor=float(eng.tcfg.moe.n_experts)))
+    runs, probes = {}, {}
+    for mode in ("none", "parallel", "ar"):
+        use_d = mode != "none"
+        e = Engine(tcfg, eng.dcfg if use_d else None, eng.tparams,
+                   eng.dparams if use_d else None,
+                   dataclasses.replace(eng.ecfg, drafter_mode=mode,
+                                       K=K if use_d else 0), B, device=dev)
+        with moe_probe() as probe:
+            r = e.run(prompts)
+        runs[mode], probes[mode] = r["tokens"][:, :P + NEW], probe
+        dropped = max(x["drop_frac"] for x in probe)
+        log(f"  capacity factor {tcfg.moe.capacity_factor:g}, {mode:8s} steps "
+            f"{r['steps']:3d}, largest drop_frac {dropped}")
+        if dropped != 0.0:
+            fail(f"10b {mode} at capacity factor n_experts dropped slots")
+        if mode == "none":
+            ref_eng = e
+        del e
+    for mode in ("parallel", "ar"):
+        out[f"no_drops_{mode}_vs_none_parted_rows"] = moe_streams_agree(
+            ref_eng, runs[mode], runs["none"], P,
+            f"10b capacity {tcfg.moe.capacity_factor:g} {mode} vs none", dev,
+            (probes[mode], probes["none"]), coupled=False)
+    del eng, none, ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3787,7 +4175,7 @@ def main() -> int:
 
 
 def run_phases(ops, dev) -> list:
-    """Phases 2-9b on ``dev``; returns the kernels' JSON rows."""
+    """Phases 2-10b on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def timed(fn, *a):
@@ -3814,6 +4202,7 @@ def run_phases(ops, dev) -> list:
     gemma7b = timed(gemma7b_path, ops, dev)
     mamba2 = timed(mamba2_path, ops, dev)
     rgemma = timed(recurrentgemma_path, ops, dev)
+    dbrx = timed(dbrx_path, ops, dev)
     timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -3859,6 +4248,13 @@ def run_phases(ops, dev) -> list:
     rg_launches = dict(rgemma["run"]["launches"],
                        paged_decode_attention=rgemma["serve"]["launches"][
                            "paged_decode_attention"])
+    # dbrx-132b's from phase 10, at its 48/8 shapes
+    db_shape = {"decode_attention": "dbrx target verify phase 1",
+                "paged_decode_attention": "dbrx target verify phase 1",
+                "flash_attention": "dbrx target prefill"}
+    db_launches = dict(dbrx["run"]["launches"],
+                       paged_decode_attention=dbrx["serve"]["launches"][
+                           "paged_decode_attention"])
     kernels = []
     for name in ("decode_attention", "paged_decode_attention",
                  "flash_attention"):
@@ -3866,6 +4262,7 @@ def run_phases(ops, dev) -> list:
         g2 = measured[(name, g2_shape[name])]
         g7 = measured[(name, g7_shape[name])]
         rg = measured[(name, rg_shape[name])]
+        db = measured[(name, db_shape[name])]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
@@ -3899,7 +4296,14 @@ def run_phases(ops, dev) -> list:
                                "bound_by": rg["bound_by"],
                                "library_ms": rg["library_ms"],
                                "library": rg.get(
-                                   "library", "scaled_dot_product_attention")}})
+                                   "library", "scaled_dot_product_attention")},
+            "dbrx": {"shape": db_shape[name], "launches": db_launches[name],
+                     "max_abs_err": fam_worst[("dbrx", name)],
+                     "ms": db["ms"], "plain_ms": db["plain_ms"],
+                     "bound_ms": db["bound_ms"], "bound_by": db["bound_by"],
+                     "library_ms": db["library_ms"],
+                     "library": db.get("library",
+                                       "scaled_dot_product_attention")}})
     # the MTP kernel: timed at the training shape in float32, the dtype the
     # training path gives it; launches over both training paths of phase 5
     mtp_shape = ("training shape n 2048 K 8 r 0.8", "float32")
@@ -3931,10 +4335,12 @@ def run_phases(ops, dev) -> list:
     log(f"gemma-7b: {json.dumps(gemma7b)}")
     log(f"mamba2-780m: {json.dumps(mamba2)}")
     log(f"recurrentgemma-2b: {json.dumps(rgemma)}")
-    log("gemma2, gemma7b and rgemma kernel timing: " + json.dumps(
-        {f"{k[0]} {k[1]}": v for k, v in measured.items()
-         if isinstance(k, tuple)
-         and k[1].startswith(("gemma2", "gemma7b", "rgemma"))}))
+    log(f"dbrx-132b: {json.dumps(dbrx)}")
+    log("gemma2, gemma7b, rgemma, dbrx and llama4 kernel timing: "
+        + json.dumps({f"{k[0]} {k[1]}": v for k, v in measured.items()
+                      if isinstance(k, tuple)
+                      and k[1].startswith(("gemma2", "gemma7b", "rgemma",
+                                           "dbrx", "llama4"))}))
     log("mtp_attention timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured["mtp_attention"].items()}))
     return kernels

@@ -99,6 +99,13 @@ class ModelConfig:
     def attn_kind(self, layer_idx: int) -> str:
         return self.attn_pattern[layer_idx % len(self.attn_pattern)]
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if self.moe.n_experts == 0:
+            return False
+        if self.moe.pattern == "all":
+            return True
+        return layer_idx % 2 == 1      # interleaved: odd layers are MoE
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

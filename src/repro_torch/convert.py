@@ -5,8 +5,9 @@ The JAX target stacks its layers for ``lax.scan``: ``blocks`` holds one
 ``slot{i}`` subtree per position in a super-block of ``period`` layers,
 each leaf with a leading super-block axis, and ``tail`` holds the
 ``n_layers % period`` remaining layers unstacked (a dense target's period
-is its attention pattern's, a hybrid target's its block pattern's: 3 for
-recurrentgemma, with a tail of 2). The JAX drafter and the
+is its attention pattern's, an interleaved MoE target's the lcm of that and
+2: 4 for llama4, so a 2-layer one is all tail; a hybrid target's its block
+pattern's: 3 for recurrentgemma, with a tail of 2). The JAX drafter and the
 JAX SSM target stack their blocks along a leading layer axis (``vmap``).
 Their caches are stacked the same way (an SSM target's ``conv`` and
 ``state`` leaves, and its verify's snapshots, too). The port keeps layers
@@ -14,6 +15,7 @@ as Python lists, so every converter here unstacks into layer order.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -44,9 +46,12 @@ def _layer(tree, i: int, device, dtype):
 
 def _period(cfg: ModelConfig) -> int:
     """Layers in one scanned super-block: a hybrid target's block pattern,
-    a dense target's attention pattern (MoE is not ported)."""
+    a dense or MoE target's attention pattern, and for interleaved MoE the
+    lcm of that and 2 (the JAX package's ``block_period``)."""
     if cfg.family == "hybrid":
         return len(cfg.hybrid.block_pattern)
+    if cfg.moe.n_experts and cfg.moe.pattern == "interleaved":
+        return math.lcm(len(cfg.attn_pattern), 2)
     return len(cfg.attn_pattern)
 
 
@@ -82,7 +87,8 @@ def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
     families, ``models/ssm.init_params`` / ``models/hybrid.init_params``)
     tree -> the port's layout. ``dtype`` casts the weights (norms,
     post-norms, the SSD's A, dt and D and the RG-LRU's ``lam`` stay
-    float32); an untied ``lm_head`` comes along."""
+    float32, and so does an MoE layer's router); an untied ``lm_head``
+    comes along."""
     def conv(a):
         return tensor(a, device, dtype)
 
@@ -104,10 +110,12 @@ def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
         for norm in ("ln1", "ln2", "pn1", "pn2"):
             if norm in layer:
                 layer[norm] = layer[norm].float()
-        if "rec" in layer:      # lam from the source: a cast would move a
-            lam = np.asarray(sub["rec"]["lam"])
-            layer["rec"]["lam"] = tensor(lam if sb is None else lam[sb],
-                                         device, torch.float32)
+        # lam and a router from the source: a cast would round them
+        for outer, name in (("rec", "lam"), ("moe", "router")):
+            if outer in layer:
+                a = np.asarray(sub[outer][name])
+                layer[outer][name] = tensor(a if sb is None else a[sb],
+                                            device, torch.float32)
         blocks.append(layer)
     out = {"embed": conv(jparams["embed"]), "blocks": blocks,
            "final_norm": tensor(jparams["final_norm"], device, torch.float32)}

@@ -3,7 +3,8 @@ decode steps of the full-width engine with ``torch.profiler``.
 
 Builds the engine as ``launch/serve.py`` does (``--arch``, default
 qwen2-1.5b, bfloat16, 4-layer parallel drafter, batch 8, 512-token
-prompts), prefills, runs warm-up steps, then times 16 unprofiled steps and
+prompts; ``--n-layers`` cuts the target's depth, its widths kept),
+prefills, runs warm-up steps, then times 16 unprofiled steps and
 profiles 16 more. With
 ``--kv-layout paged`` the cache is a page pool (page 16, pages reserved up
 front) and each prompt is admitted into its slot as the scheduler admits
@@ -15,7 +16,10 @@ copy the profiler recorded, the device's idle share
 (the port's attention kernels, matrix products, sorts, everything else)
 and the 15 largest one by one, and the memory a step holds beyond the
 state it starts from (its peak over the unprofiled window: a recurrent
-target's verify keeps each token's state until the commit).
+target's verify keeps each token's state until the commit), beside the
+weights' bytes and the time the card takes to read them once at 3.35 TB/s
+(the floor of a step that reads every weight, as a verify of an MoE
+target whose experts are all routed to does).
 
 With ``--temperature`` > 0 every slot samples under that policy (the flags
 of ``launch/serve.py``; slot i on the key stream of ``--seed + i``), so the
@@ -35,6 +39,8 @@ bonus draws over V) and, with ``--draft-sampling``, the K draft draws.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch recurrentgemma-2b [--kv-layout paged]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch dbrx-132b --n-layers 8        # 8 of 40 layers, ~62 GB
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --temperature 0.8 --top-k 50 --top-p 0.95 [--draft-sampling]
 """
 from __future__ import annotations
@@ -53,6 +59,15 @@ from repro_torch.launch.serve import (build_engine, random_prompts,
 from repro_torch.serving.sampling import batch_sampling_state, step_keys
 
 BATCH, PROMPT, WARMUP, STEPS = 8, 512, 8, 16
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+
+
+def _bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if tree is not None else 0
 
 
 def _group(name: str) -> str:
@@ -114,6 +129,8 @@ def sampled_lane_ms(eng, sp, draft_sampling: bool) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the target's depth (widths stay)")
     ap.add_argument("--mode", default="parallel", choices=("parallel", "ar", "none"))
     ap.add_argument("--kv-layout", default="contiguous",
                     choices=("contiguous", "paged"))
@@ -132,7 +149,8 @@ def main(argv=None):
                               seed=args.seed)
 
     max_new = WARMUP + 2 * steps + 2
-    eng = build_engine(arch=args.arch, mode=args.mode, batch=BATCH, seed=0,
+    eng = build_engine(arch=args.arch, n_layers=args.n_layers,
+                       mode=args.mode, batch=BATCH, seed=0,
                        max_new=max_new,
                        max_len=-(-(PROMPT + max_new + 6) // 16) * 16,
                        kv_layout=args.kv_layout,
@@ -181,9 +199,10 @@ def main(argv=None):
         g = groups.setdefault(_group(name), [0, 0.0])
         g[0] += count
         g[1] += us
+    weights = _bytes(eng.tparams) + _bytes(eng.dparams)
     report = {
         "device": torch.cuda.get_device_name(0), "arch": args.arch,
-        "mode": args.mode,
+        "n_layers": eng.tcfg.n_layers, "mode": args.mode,
         "kv_layout": args.kv_layout, "temperature": args.temperature,
         "top_k": args.top_k, "top_p": args.top_p,
         "draft_sampling": args.draft_sampling,
@@ -191,6 +210,8 @@ def main(argv=None):
         "device_ms_per_step": device_ms,
         "device_idle_share": (1 - device_ms / wall_ms) if wall_ms else None,
         "step_peak_gb": step_peak / 1e9, "state_gb": held / 1e9,
+        "weights_gb": weights / 1e9,
+        "weights_read_ms": weights / HBM_BYTES_PER_S * 1e3,
         "groups": {k: {"launches_per_step": v[0] / steps,
                        "ms_per_step": v[1] / 1e3 / steps}
                    for k, v in sorted(groups.items(), key=lambda kv: -kv[1][1])},

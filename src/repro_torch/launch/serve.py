@@ -23,13 +23,16 @@ prompts, on a contiguous engine sharing the weights, under the engine's
 default policy) and reports its OTPS, rounds and AL beside the scheduler's.
 
 The target is ``--arch`` (default qwen2-1.5b; gemma-7b, gemma2-27b,
-minitron-4b, the SSM mamba2-780m and the hybrid recurrentgemma-2b too) at
-full width in bfloat16 with a 4-layer parallel drafter, both with random
-weights drawn from ``--seed`` (mamba2-780m keeps its conv and SSD state
-per slot, so only its drafter's KV is paged; recurrentgemma-2b keeps its
-RG-LRU rows per slot beside its local layers' KV, pooled at a max_len not
-above 2048 + K + 1 and per-slot rings above; both admit prompts in
-power-of-two chunks); prompts are random
+minitron-4b, the SSM mamba2-780m, the hybrid recurrentgemma-2b and the
+MoE dbrx-132b and llama4-maverick too) at full width in bfloat16 with a
+4-layer parallel drafter, both with random weights drawn from ``--seed``;
+``--n-layers`` cuts the target's depth, its widths kept (dbrx-132b's 40
+layers do not fit one card; 8 do, ~62 GB). mamba2-780m keeps its conv and
+SSD state per slot, so only its drafter's KV is paged; recurrentgemma-2b
+keeps its RG-LRU rows per slot beside its local layers' KV, pooled at a
+max_len not above 2048 + K + 1 and per-slot rings above; both admit
+prompts in power-of-two chunks. An MoE target builds no prefix cache: its
+expert capacity couples the tokens of a call. Prompts are random
 tokens from the same seed and arrive with Exp(``--mean-gap``) gaps on the
 virtual clock (0: all at once). The KV cache is paged on the card and
 contiguous on the CPU unless ``--kv-layout`` says otherwise. The run is
@@ -57,6 +60,9 @@ repeated and the last (warm) run is reported.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --requests 24 --mean-gap 1 \
         --pool-pages 256 --swap host                  # hybrid
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+        --n-layers 8 --requests 12 --mean-gap 1 --pool-pages 256 \
+        --swap host                                   # MoE, 8 of 40 layers
 """
 from __future__ import annotations
 
@@ -177,6 +183,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS,
                     help="the target architecture")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the target's depth (widths stay)")
     ap.add_argument("--reduced", action="store_true",
                     help="the 2-layer CPU-test config instead of full width")
     ap.add_argument("--device", default="cuda")
@@ -247,7 +255,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     layout = args.kv_layout or ("paged" if dev.type == "cuda"
                                 else "contiguous")
-    eng = build_engine(arch=args.arch, reduced=args.reduced, mode=args.mode,
+    eng = build_engine(arch=args.arch, reduced=args.reduced,
+                       n_layers=args.n_layers, mode=args.mode,
                        K=args.k, max_new=args.max_new, max_len=args.max_len,
                        batch=args.batch, seed=args.seed, device=dev,
                        kv_layout=layout, page_size=args.page_size,
@@ -279,6 +288,7 @@ def main(argv=None):
         "device": (torch.cuda.get_device_name(eng.device)
                    if eng.device.type == "cuda" else "cpu"),
         "arch": eng.tcfg.arch_id, "reduced": args.reduced,
+        "n_layers": eng.tcfg.n_layers,
         "mode": args.mode, "kv_layout": layout, "batch": args.batch,
         "temperature": args.temperature, "top_k": args.top_k,
         "top_p": args.top_p, "mixed_sampling": args.mixed_sampling,

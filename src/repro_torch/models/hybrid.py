@@ -193,7 +193,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     blocks = []
     for li in range(cfg.n_layers):
         if slot_kind(cfg, li) == "attention":
-            blocks.append(T._layer_init(cfg, generator, device, dtype))
+            blocks.append(T._layer_init(cfg, li, generator, device, dtype))
             continue
         f32 = dict(dtype=torch.float32, device=device)
         blocks.append({

@@ -1,9 +1,9 @@
 """The ``Model`` facade (counterpart of the JAX package's
 ``models/registry.py``): one interface over the family modules, dispatched
-on ``cfg.family``. The port carries the dense family (``transformer.py``),
-the SSM family (``ssm.py``) and the hybrid family (``hybrid.py``); the
-others (moe, vlm, encdec) raise, and so does, for a CUDA device, a head dim
-the attention kernels do not take."""
+on ``cfg.family``. The port carries the dense and MoE families
+(``transformer.py``), the SSM family (``ssm.py``) and the hybrid family
+(``hybrid.py``); the others (vlm, encdec) raise, and so does, for a CUDA
+device, a head dim the attention kernels do not take."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,7 +13,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, ssm, transformer
 
-_FAMILY_MODULE = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+_FAMILY_MODULE = {"dense": transformer, "moe": transformer, "ssm": ssm,
+                  "hybrid": hybrid}
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:

@@ -1,14 +1,16 @@
-"""Decoder-only transformer, dense family (PyTorch).
+"""Decoder-only transformer, dense and MoE families (PyTorch).
 
 Counterpart of the JAX package's ``models/transformer.py`` for dense
-targets: qwen2, gemma, gemma2, minitron. The JAX model scans super-blocks;
-here the layers are a Python list and the forward is a loop. Parameters are
-plain dicts of tensors:
+targets (qwen2, gemma, gemma2, minitron) and MoE targets (dbrx, llama4).
+The JAX model scans super-blocks; here the layers are a Python list and the
+forward is a loop. Parameters are plain dicts of tensors:
 
     {"embed": (V, D), "final_norm": (D,)[, "lm_head": (D, V)],
      "blocks": [{"ln1", "ln2"[, "pn1", "pn2"],
                  "attn": {wq, wk, wv, wo[, bq, bk, bv]},
-                 "mlp": {[w_gate,] w_up, w_down}}, ...]}
+                 "mlp": {[w_gate,] w_up, w_down}
+                 | "moe": {router (D, E) float32, w_gate / w_up (E, D, F),
+                           w_down (E, F, D)[, shared: an MLP]}}, ...]}
 
 and the cache is ``{"blocks": [layer cache, ...]}`` with the layer caches
 of ``layers.make_kv_cache``. ``convert.py`` turns the JAX package's
@@ -18,15 +20,18 @@ Each layer's attention is global or local (``cfg.attn_kind``): a local
 layer sees the last ``cfg.window_size`` positions, and its cache is a ring
 of ``window + block`` slots when that is shorter than ``max_len`` (see
 ``make_cache``). ``cfg.logit_softcap`` caps every attention score,
-``cfg.final_softcap`` the logits.
+``cfg.final_softcap`` the logits. A layer with ``cfg.is_moe_layer``
+holds ``"moe"`` (``models/moe.py``) in place of ``"mlp"``, and the output's
+``aux`` sums the layers' ``lb_loss`` and ``z_loss``; with
+``cfg.nope_on_global`` a global layer takes no RoPE.
 
 Attention goes through ``kernels.ops``: the flash kernel for the prefill,
 the decode kernel for both phases of the two-phase decode. Given a block
 table, a decode reads paged caches (``layers.paged_view`` layout): phase 1
 of a layer whose cache is a pool goes through the paged decode kernel; a
-ring stays per slot and goes through the decode kernel. MoE layers, NoPE,
-sinusoidal positions raise ``NotImplementedError``, and so does, on the
-card, a head dim the kernels do not take.
+ring stays per slot and goes through the decode kernel. Sinusoidal
+positions raise ``NotImplementedError``, and so does, on the card, a head
+dim the kernels do not take.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply, moe_init
 
 Tensor = torch.Tensor
 
@@ -49,7 +55,8 @@ class ModelOutput:
     taps: Optional[Tensor]         # (B, S, num_taps * D)
     cache: Optional[dict]
     # {"snapshots": per-token recurrent states} of a recurrent target's
-    # verify (models/ssm.py); None for attention targets
+    # verify (models/ssm.py); {"lb_loss", "z_loss"} summed over the layers
+    # of an MoE target; None for the other attention targets
     aux: Optional[dict] = None
 
 
@@ -62,17 +69,13 @@ def tap_layers(n_layers: int, num_taps: int = 3):
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for what this port does not carry yet of
-    a dense target (``models/registry.py`` gates the family); on a CUDA
-    ``device`` also for a head dim the attention kernels do not take
-    (checked before any weight or cache is made)."""
-    missing = [name for name, unsupported in (
-        ("MoE layers", cfg.moe.n_experts > 0),
-        ("nope_on_global", cfg.nope_on_global),
-        (f"positional {cfg.positional!r}", cfg.positional != "rope"),
-    ) if unsupported]
-    if missing:
+    a dense or MoE target (``models/registry.py`` gates the family): other
+    positions than RoPE; on a CUDA ``device`` also for a head dim the
+    attention kernels do not take (checked before any weight or cache is
+    made)."""
+    if cfg.positional != "rope":
         raise NotImplementedError(
-            f"{cfg.arch_id}: not ported yet: {', '.join(missing)}")
+            f"{cfg.arch_id}: not ported yet: positional {cfg.positional!r}")
     if (device is not None and torch.device(device).type == "cuda"
             and cfg.head_dim not in ops.HEAD_DIMS):
         raise NotImplementedError(
@@ -99,10 +102,11 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    sin, cos = L.rope_sincos(positions, hd, cfg.rope_theta)
-    q = L.apply_rope(q.reshape(B, T, H, hd), sin, cos)
-    k = L.apply_rope(k.reshape(B, T, KV, hd), sin, cos)
-    v = v.reshape(B, T, KV, hd)
+    q, k, v = q.reshape(B, T, H, hd), k.reshape(B, T, KV, hd), \
+        v.reshape(B, T, KV, hd)
+    if not (kind == "global" and cfg.nope_on_global):
+        sin, cos = L.rope_sincos(positions, hd, cfg.rope_theta)
+        q, k = L.apply_rope(q, sin, cos), L.apply_rope(k, sin, cos)
     scale = cfg.q_scale()
     mask = dict(window=cfg.window_size if kind == "local" else 0,
                 softcap=cfg.logit_softcap)
@@ -159,7 +163,8 @@ def cache_phase(q: Tensor, cache: dict, positions: Tensor,
 # parameters and caches
 # ---------------------------------------------------------------------------
 
-def _layer_init(cfg: ModelConfig, g: torch.Generator, device, dtype) -> dict:
+def _layer_init(cfg: ModelConfig, layer_idx: int, g: torch.Generator, device,
+                dtype) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def dense(shape):
@@ -170,9 +175,14 @@ def _layer_init(cfg: ModelConfig, g: torch.Generator, device, dtype) -> dict:
     if cfg.qkv_bias:
         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             attn[name] = torch.zeros(n, dtype=dtype, device=device)
-    layer = {"attn": attn,
-             "mlp": L.mlp_init(d, cfg.d_ff, g, device=device, dtype=dtype,
-                               variant=cfg.mlp_variant)}
+    layer = {"attn": attn}
+    if cfg.is_moe_layer(layer_idx):
+        layer["moe"] = moe_init(d, cfg.d_ff, cfg.moe.n_experts,
+                                cfg.moe.n_shared_experts, cfg.mlp_variant, g,
+                                device=device, dtype=dtype)
+    else:
+        layer["mlp"] = L.mlp_init(d, cfg.d_ff, g, device=device, dtype=dtype,
+                                  variant=cfg.mlp_variant)
     for norm in ("ln1", "ln2") + (("pn1", "pn2") if cfg.post_norms else ()):
         layer[norm] = torch.ones(d, dtype=torch.float32, device=device)
     return layer
@@ -180,15 +190,15 @@ def _layer_init(cfg: ModelConfig, g: torch.Generator, device, dtype) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cuda") -> dict:
-    """Random weights in ``cfg.dtype`` (norms in float32), drawn from
-    ``generator`` (which must live on ``device``)."""
+    """Random weights in ``cfg.dtype`` (norms and routers in float32), drawn
+    from ``generator`` (which must live on ``device``)."""
     check_supported(cfg, device)
     dtype = getattr(torch, cfg.dtype)
     params = {
         "embed": L.embed_init(cfg.vocab_size, cfg.d_model, generator,
                               device=device, dtype=dtype),
-        "blocks": [_layer_init(cfg, generator, device, dtype)
-                   for _ in range(cfg.n_layers)],
+        "blocks": [_layer_init(cfg, li, generator, device, dtype)
+                   for li in range(cfg.n_layers)],
         "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
                                  device=device),
     }
@@ -258,6 +268,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     taps_idx = tap_layers(cfg.n_layers)
     taps = [None] * len(taps_idx)
     new_blocks = [] if cache is not None else None
+    aux = None
+    if cfg.moe.n_experts:
+        aux = {name: torch.zeros((), dtype=torch.float32, device=x.device)
+               for name in ("lb_loss", "z_loss")}
     for li, bp in enumerate(params["blocks"]):
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         a, lc = attn_apply(bp["attn"], h, cfg=cfg, kind=cfg.attn_kind(li),
@@ -268,7 +282,17 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
             a = L.rms_norm(a, bp["pn1"], cfg.norm_eps)
         x = x + a
         h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        f = L.mlp_apply(bp["mlp"], h, cfg.mlp_variant)
+        if "moe" in bp:
+            m = cfg.moe
+            f, layer_aux = moe_apply(bp["moe"], h, n_experts=m.n_experts,
+                                     top_k=m.top_k,
+                                     capacity_factor=m.capacity_factor,
+                                     variant=cfg.mlp_variant,
+                                     n_shared=m.n_shared_experts)
+            for name in aux:
+                aux[name] = aux[name] + layer_aux[name]
+        else:
+            f = L.mlp_apply(bp["mlp"], h, cfg.mlp_variant)
         if cfg.post_norms:
             f = L.rms_norm(f, bp["pn2"], cfg.norm_eps)
         x = x + f
@@ -290,4 +314,4 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     return ModelOutput(
         logits=logits,
         taps=torch.cat(taps, dim=-1) if collect_taps else None,
-        cache=None if cache is None else {"blocks": new_blocks})
+        cache=None if cache is None else {"blocks": new_blocks}, aux=aux)

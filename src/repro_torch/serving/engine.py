@@ -57,7 +57,9 @@ max_len) or with recurrent state (the SSM and hybrid families) the cache
 stays idle, no match and no insert: a page does not hold the per-slot ring
 entries or the recurrent state a hit would need (for rings the JAX engine
 maps the pages anyway, and its hit streams part from its cold ones; for
-recurrent targets it stays idle too).
+recurrent targets it stays idle too). So it does for an MoE target, as in
+the JAX engine: expert capacity couples the tokens of a forward, so a
+hit's suffix chunks would route other tokens than a cold prefill does.
 Swap-to-host (``EngineConfig.swap = "host"``) parks a preempted slot's
 exclusively owned pages and per-slot rows in pinned host memory
 (``cache_ops.HostPagePool``) and restores them bitwise; pages shared with
@@ -314,12 +316,14 @@ class Engine:
         # pad-unsafe (the JAX engine's _chunk_only): admission chunks
         # instead of padding, and no prefix cache is built (pages hold
         # neither a ring's per-slot entries nor the recurrent state, so a
-        # hit would lose them)
+        # hit would lose them); nor for an MoE target, whose expert
+        # capacity couples the tokens of a call (the JAX engine's
+        # _hits_ok admits the dense family alone)
         self.ring = cache_ops.has_ring_cache(template["tcache"])
         self.chunk_only = self.ring or self.model.recurrent
         self.prefix_cache = (PrefixCache(ecfg.page_size)
                              if ecfg.prefix_cache and not self.chunk_only
-                             else None)
+                             and tcfg.family == "dense" else None)
         self.swap_enabled = ecfg.swap == "host"
         self.host_pool = (cache_ops.HostPagePool(ecfg.host_pool_bytes)
                           if self.swap_enabled else None)

@@ -91,6 +91,15 @@ def _tol(dtype):
     (8, 6, 10, 1, 256, 1024, 576, 0),      # target verify, phase 1
     (8, 6, 10, 1, 256, 6, 6, 0),           # ... phase 2
     (1, 128, 10, 1, 256, 1024, 512, 0),    # an admission chunk, phase 1
+    # dbrx-132b: GQA 48/8 (6 query heads a KV head), its drafter 48/48
+    (8, 6, 48, 8, 128, 1024, 600, 0),      # target verify, phase 1
+    (8, 6, 48, 8, 128, 6, 6, 0),           # ... phase 2
+    (8, 5, 48, 48, 128, 1024, 600, 0),     # drafter draft, phase 1
+    # llama4-maverick: GQA 40/8 (a ratio of 5), local window 8192, its
+    # drafter 40/40
+    (8, 6, 40, 8, 128, 1024, 600, 0),      # target verify, phase 1
+    (2, 6, 40, 8, 128, 9000, 8800, 8192),  # a local layer past its window
+    (8, 5, 40, 40, 128, 1024, 600, 0),     # drafter draft, phase 1
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
                                      window):
@@ -177,6 +186,10 @@ def test_decode_serving_shapes_split_and_count_once(card, T, H, KV, valid):
     # recurrentgemma-2b's local layers: MQA 10/1 at 256, window 2048
     (8, 512, 512, 10, 1, 256, True, 2048, 0.0, 0),  # its prefill
     (2, 2400, 2400, 10, 1, 256, True, 2048, 0.0, 0),  # past the window
+    (8, 512, 512, 48, 8, 128, True, 0, 0.0, 0),    # dbrx-132b prefill
+    (8, 512, 512, 40, 8, 128, True, 8192, 0.0, 0),  # llama4 local prefill
+    (1, 8400, 8400, 40, 8, 128, True, 8192, 0.0, 0),  # ... past the window
+    (8, 512, 512, 40, 8, 128, True, 0, 0.0, 0),    # ... its global layer
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, Sq, Skv, H, KV, hd,
                                     causal, window, cap, kv_len):
@@ -398,6 +411,10 @@ def _paged_check(inp, dtype):
     (8, 6, 16, 16, 256, 513, 16, 64),   # gemma-7b verify, hd 256
     (3, 4, 2, 1, 256, 16, 8, 6),        # the JAX sweep's layout at hd 256
     (8, 6, 10, 1, 256, 513, 16, 64),    # recurrentgemma verify, MQA 10/1
+    (8, 6, 48, 8, 128, 513, 16, 64),    # dbrx-132b verify, GQA 48/8
+    (8, 5, 48, 48, 128, 513, 16, 64),   # ... its drafter's draft
+    (8, 6, 40, 8, 128, 513, 16, 64),    # llama4 verify, GQA 40/8
+    (8, 5, 40, 40, 128, 513, 16, 64),   # ... its drafter's draft
 ])
 def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
                                     nb):
@@ -568,6 +585,47 @@ def test_swap_round_trip_on_card_is_bitwise(card):
                 assert torch.equal(a[leaf], b[leaf]), (key, leaf)
     for key in ("tokens", "logprobs", "last", "taps_last"):
         assert torch.equal(after[key], before[key]), key
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_apply_on_card_equals_cpu(card, arch):
+    """``moe_apply`` at the published routing (dbrx 16 / top-4, llama4 128
+    / top-1 and its shared expert; 1.25 capacity) and a reduced width, in
+    float32, at a plain decode's (8 x 1), a verify's (8 x 6), a short
+    prefill's (2 x 6) and a prefill's (8 x 512) token counts:
+    the card's experts and dropped slots equal the CPU's, its output is
+    within 1e-4 of the CPU's relative to the output's scale, and two runs
+    on the card give the same bits (the combine uses no atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    full = get_config(arch)
+    m = full.moe
+    d, f = 512, 1024
+    g = torch.Generator().manual_seed(0)
+    p = moe.moe_init(d, f, m.n_experts, m.n_shared_experts, full.mlp_variant,
+                     g, device="cpu", dtype=torch.float32)
+    kw = dict(n_experts=m.n_experts, top_k=m.top_k,
+              capacity_factor=m.capacity_factor, variant=full.mlp_variant,
+              n_shared=m.n_shared_experts)
+    pc = {k: ({n: t.to(card) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(card)) for k, v in p.items()}
+    drops = []
+    for B, S in ((8, 1), (8, 6), (2, 6), (8, 512)):
+        x = torch.randn(B, S, d, generator=g)
+        want, waux = moe.moe_apply(p, x, **kw)
+        got, gaux = moe.moe_apply(pc, x.to(card), **kw)
+        again, _ = moe.moe_apply(pc, x.to(card), **kw)
+        xf = x.reshape(-1, d)
+        assert torch.equal(moe.route(pc, xf.to(card), m.top_k)[3].cpu(),
+                           moe.route(p, xf, m.top_k)[3])
+        slots = B * S * m.top_k
+        drops.append(round(float(waux["drop_frac"]) * slots))
+        assert round(float(gaux["drop_frac"]) * slots) == drops[-1]
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err <= 1e-4, err
+        assert torch.equal(got, again)
+    assert any(drops), "the published routing dropped nothing"
 
 
 def test_engine_lossless_through_kernels(card):

@@ -58,24 +58,36 @@ def _same_cache(tcache, jcache_port):
             _close(mine[name], theirs[name].numpy())
 
 
-def test_config_copy_matches_reference():
+# each config's drafter at full width: (d, heads, kv heads, head dim, d_ff)
+FULL_DRAFTERS = {"qwen2-1.5b": (1536, 12, 12, 128, 5376),
+                 "dbrx-132b": (6144, 48, 48, 128, 21504),
+                 "llama4-maverick-400b-a17b": (5120, 40, 40, 128, 17920)}
+
+
+@pytest.mark.parametrize("arch", list(FULL_DRAFTERS))
+def test_config_copy_matches_reference(arch):
     """The port's copied configs resolve to the JAX package's, field by
-    field, at full width and reduced."""
+    field (the MoE routing, attention pattern, window and NoPE among
+    them), at full width and reduced; so do their drafters."""
     for reduced in (False, True):
-        j, t = jget_config("qwen2-1.5b"), get_config("qwen2-1.5b")
+        j, t = jget_config(arch), get_config(arch)
         if reduced:
             j, t = j.reduced(), t.reduced()
         jd, td = JDrafterConfig().resolve(j), DrafterConfig().resolve(t)
-        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-                  "d_ff", "vocab_size", "rope_theta", "qkv_bias", "dtype",
-                  "norm_eps", "tie_embeddings"):
+        for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                  "head_dim", "d_ff", "vocab_size", "rope_theta", "qkv_bias",
+                  "dtype", "norm_eps", "tie_embeddings", "mlp_variant",
+                  "attn_pattern", "window_size", "nope_on_global"):
             assert getattr(j, f) == getattr(t, f), f
+        assert dataclasses.asdict(j.moe) == dataclasses.asdict(t.moe)
+        assert [j.is_moe_layer(li) for li in range(j.n_layers)] == \
+            [t.is_moe_layer(li) for li in range(t.n_layers)]
         for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
                   "d_ff", "rope_theta"):
             assert getattr(jd, f) == getattr(td, f), f
-    full = DrafterConfig().resolve(get_config("qwen2-1.5b"))
+    full = DrafterConfig().resolve(get_config(arch))
     assert (full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
-            full.d_ff) == (1536, 12, 12, 128, 5376)
+            full.d_ff) == FULL_DRAFTERS[arch]
 
 
 def test_target_prefill_then_decode(setup):
@@ -130,21 +142,23 @@ def test_target_head_selection(setup, head):
 
 
 def test_unsupported_configs_raise():
-    """What stays unported raises: MoE layers, NoPE, sinusoidal positions
-    (and the moe, vlm, encdec families); the rest of the dense family
-    (softcaps, local attention, post-norms, embedding scale, other MLPs, an
-    untied head) builds, and so do the SSM and the hybrid families, both
-    recurrent."""
+    """What stays unported raises: sinusoidal positions (and the vlm and
+    encdec families); the rest of the dense family (softcaps, local
+    attention, post-norms, embedding scale, other MLPs, an untied head),
+    MoE layers and NoPE build, and so do the SSM and the hybrid families,
+    both recurrent."""
     cfg = get_config("qwen2-1.5b").reduced()
     moe = dataclasses.replace(cfg.moe, n_experts=4, top_k=2)
-    for bad in (dict(moe=moe), dict(nope_on_global=True),
-                dict(positional="sinusoidal")):
+    for bad in (dict(positional="sinusoidal"),
+                dict(family="vlm"), dict(family="encdec")):
         with pytest.raises(NotImplementedError):
             get_model(cfg.replace(**bad))
     for ok in (dict(logit_softcap=50.0, final_softcap=30.0),
                dict(attn_pattern=("local", "global")),
                dict(post_norms=True, embed_scale=True),
-               dict(mlp_variant="relu2", tie_embeddings=False)):
+               dict(mlp_variant="relu2", tie_embeddings=False),
+               dict(moe=moe), dict(family="moe", moe=moe),
+               dict(attn_pattern=("local", "global"), nope_on_global=True)):
         assert not get_model(cfg.replace(**ok)).recurrent
     ssm = get_model(get_config("mamba2-780m").reduced())
     assert ssm.recurrent and ssm.module.__name__.endswith(".ssm")

@@ -214,15 +214,16 @@ def test_head_dims_and_row_tiles():
 
 def test_card_admits_gemma7b_and_mamba2_and_refuses_other_families(
         card_claimed):
-    """On a CUDA device the registry admits gemma-7b, the SSM mamba2-780m
-    and the hybrid recurrentgemma-2b (head dim 256) before any weight is
-    made; the moe, vlm and encdec families still raise
-    NotImplementedError."""
+    """On a CUDA device the registry admits gemma-7b, the SSM mamba2-780m,
+    the hybrid recurrentgemma-2b (head dim 256) and the MoE dbrx-132b and
+    llama4-maverick before any weight is made; the vlm and encdec families
+    still raise NotImplementedError."""
     from repro_torch.models import registry
-    for arch in ("gemma-7b", "mamba2-780m", "recurrentgemma-2b"):
+    for arch in ("gemma-7b", "mamba2-780m", "recurrentgemma-2b", "dbrx-132b",
+                 "llama4-maverick-400b-a17b"):
         assert registry.get_model(get_config(arch), "cuda").cfg.arch_id == arch
     cfg = get_config("qwen2-1.5b")
-    for family in ("moe", "vlm", "encdec"):
+    for family in ("vlm", "encdec"):
         with pytest.raises(NotImplementedError, match=family):
             registry.get_model(cfg.replace(family=family), "cuda")
 
@@ -261,6 +262,22 @@ def test_serve_rehearses_recurrentgemma_on_cpu():
     assert r["total_new_tokens"] == 32 and r["preempt_swap"] > 0
     assert all(x["n_new"] == 8 for x in r["results"])
     assert eng.allocator.n_used == 0 and len(eng.host_pool) == 0
+
+
+def test_serve_rehearses_dbrx_on_cpu():
+    """``--arch dbrx-132b --reduced --n-layers 2``, paged and preempting,
+    swap to the host: every layer MoE (4 experts, top-2 in the reduced
+    config), 13-token prompts padded to 16, a request swapped out, every
+    request to its budget; the prefix cache asked for stays idle."""
+    r = serve.main(["--arch", "dbrx-132b", "--reduced", "--n-layers", "2",
+                    "--device", "cpu", "--batch", "2", "--requests", "4",
+                    "--prompt-len", "13", "--max-new", "8", "--max-len", "64",
+                    "--kv-layout", "paged", "--page-size", "8",
+                    "--pool-pages", "7", "--swap", "host", "--prefix-cache",
+                    "--runs", "1"])
+    assert r["arch"] == "dbrx-132b" and r["new_tokens"] == 32
+    assert r["kv_layout"] == "paged" and r["preempt_swap"] > 0
+    assert r["cache_hit_tokens"] == 0
 
 
 def test_serve_rehearses_paged_arrivals_on_cpu():
