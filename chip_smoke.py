@@ -14,9 +14,13 @@ ring caches, post-norms, embedding scale), minitron-4b and gemma-7b (head
 dim 256 through the decode, paged and flash kernels), the SSM family:
 mamba2-780m at full width (chunked SSD, per-token recurrent snapshots
 selected at the commit), the hybrid family: recurrentgemma-2b at full
-width (RG-LRU, causal conv, MQA local attention at head dim 256), and the
+width (RG-LRU, causal conv, MQA local attention at head dim 256), the
 MoE family: dbrx-132b at full width on 8 of its 40 layers (sort-based
-capacity dispatch, top-4 of 16 experts on every layer).
+capacity dispatch, top-4 of 16 experts on every layer), the VLM family:
+internvl2-1b at full width (256 stub vision tokens early-fused before
+every prompt) and the encoder-decoder family: whisper-base at full width
+(a bidirectional encoder over 1500 stub frames, cross-attention through
+the flash and decode kernels).
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -102,7 +106,15 @@ Phases, in order; any failure exits non-zero:
    drafter 40/40; window 8192) at the verify, a ring of 8192 + 6 slots
    after position 9000 (wrapped), paged verify and draft, a local prefill
    and one of 8400 tokens past the window (its library call
-   flex_attention, the window a block mask); both dtypes, timed;
+   flex_attention, the window a block mask); both dtypes, timed.
+   whisper-base (8/8 heads of 64, not causal): flash over its encoder's
+   1500 frames (B 8; ragged query and key tiles), its prefill's
+   cross-attention (128 queries over 1500 frames) and a verify's (6
+   queries) both through flash and through the decode kernel with every
+   key at position 0 (the path's choice, logged beside flash's time);
+   internvl2-1b (14/2 heads of 64): its fused prefill (256 vision + 512
+   text positions, causal), its verify phase 1 (832 positions in) through
+   the decode and the paged kernels; both dtypes, timed beside SDPA;
 3. main path: Engine.run of full-width qwen2-1.5b in bfloat16, batch 8,
    512-token prompts, 128 new tokens, K 5, a 1024-slot bfloat16 cache,
    after a cold run of 8 steps; the warm run is reported (OTPS, prefill seconds, decode seconds
@@ -136,7 +148,7 @@ Phases, in order; any failure exits non-zero:
    and on, and Scheduler.serve of phase 3b's traffic with even requests
    greedy and odd ones sampled (seed = index): OTPS, ms/step or
    ms/iteration and AL beside phase 3 / 3b's greedy numbers (the bfloat16
-   runs on 14 of the 28 layers, cut for time), and the
+   runs on 7 of the 28 layers, cut for time), and the
    attention launch counts of the greedy path's formula (sampling adds no
    attention launch); then, float32 full width (phase 4's prompts): two
    seeded runs identical, each sampled request's stream the same served
@@ -171,7 +183,7 @@ Phases, in order; any failure exits non-zero:
    the off run, a sampled one after a margin < 1e-4), and the sampled one
    equal to itself served alone;
 3e / 4d. the serving front end: phase 3b's engine geometry (bfloat16,
-   14 of the 28 layers, cut for time; swap to a 1 GiB pinned host pool)
+   7 of the 28 layers, cut for time; swap to a 1 GiB pinned host pool)
    under AsyncEngine, the first 16 of
    phase 3b's requests (odd ones sampled, seed = index) submitted at wall-clock
    Exp(0.075 s) gaps, seed 0, twice: as they come, then with every fourth
@@ -296,6 +308,31 @@ Phases, in order; any failure exits non-zero:
    factor 1.25 a verify of B x (K+1)
    tokens and a decode of B drop other slots, so greedy speculation is
    not lossless there, in the JAX package as in the port.)
+11. internvl2-1b at full width in bfloat16 (24 layers, d 896, 14/2 heads
+   of 64, vocab 151655; 256 stub vision tokens of 1024 drawn on the card
+   with ``make_extras``, projected and prepended to every prompt; the
+   drafter 7/7 heads of 128): Engine.run at phase 3's shapes (a fused
+   prefill of 768 positions; 24 flash and 8 decode at the prefill, 64
+   decode a step at positions 256 past the token index), then
+   Scheduler.serve of phase 3b's 24 requests over paged KV (max_len 1280,
+   a 320-page pool: preempts) with swap to host, each request's vision
+   extras drawn at admission from its prompt's crc32, the prefix cache
+   asked for and never built (32 paged an iteration);
+11b. internvl2-1b in float32 at full width, batch 4, 128-token prompts
+   after the 256 vision positions: the target's logits of a prefill and a
+   verify through the kernels against the plain attention (within 1e-3),
+   greedy parallel and ar against none, and a paged serve that preempts
+   and resumes against the contiguous one, under phase 4's near-tie rule;
+12. whisper-base at full width in bfloat16 (6 encoder + 6 decoder layers,
+   d 512, 8/8 heads of 64, vocab 51865; 1500 stub frames): Engine.run of
+   batch 8, 128-token prompts, 128 new, K 5, max_len 448 (18 flash at the
+   prefill: 6 encoder, 6 self and 6 cross layers; 8 decode at the prefill
+   and 34 a step, the cross-attention one decode a layer), then
+   Scheduler.serve of 24 requests (prompts 32-192, budgets 64-192, Exp(1)
+   gaps) with paged self-attention (page 16, 28 pages a row, a 112-page
+   pool: 14 paged an iteration) and swap to host, a slot's 18.4 MB of
+   cross K/V swapped with it;
+12b. whisper-base in float32 at full width: 11b's checks.
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -359,13 +396,20 @@ GEMMA7B_LAYERS = 14         # phase 7 / 7b: gemma-7b, of 28
 # 24 and 14 layers), at full width
 MAMBA2_LAYERS = 12          # phase 8 / 8b: mamba2-780m, of 48
 POLICY_F32_LAYERS = 7       # phase 4c: qwen2-1.5b in float32, of 28
-STREAM_LAYERS = 14          # phase 3e: qwen2-1.5b, of 28
-SAMPLED_LAYERS = 14         # phase 3c's bfloat16 runs: qwen2-1.5b, of 28
+# and when phases 11 and 12 came in (internvl2-1b, whisper-base: the
+# script took 826.5 and 863.6 s on two H100 80GB HBM3 hosts at 700.00 W
+# with 3c's and 3e's at 14 layers)
+STREAM_LAYERS = 7           # phase 3e: qwen2-1.5b, of 28
+SAMPLED_LAYERS = 7          # phase 3c's bfloat16 runs: qwen2-1.5b, of 28
 RGEMMA_LAYERS = 14          # phase 9 / 9b: recurrentgemma-2b, of 26 (4
                             # (recurrent, recurrent, attention) + 2)
 # dbrx-132b's layers in phase 10: 8 of 40 (~62 GB with its drafter in
 # bfloat16; 40 are ~263 GB)
 DBRX_LAYERS = 8
+# internvl2-1b's stub vision tokens, prepended to every prompt, and phase
+# 11's page pool at max_len 1280: half of what 8 full rows need
+INTERNVL2_VISION = 256
+INTERNVL2_POOL = 320
 # a router margin (a token's K-th less its (K+1)-th probability) below
 # this may flip an expert between two float32 runs whose sums differ in
 # order only (~1e-7 of a probability), and a flipped expert moves other
@@ -497,13 +541,15 @@ def decode_work(q, k, kpos, qpos, window=0):
     return nbytes, flops
 
 
-def flash_work(q, k, window=0):
-    """Bytes and FLOPs of a causal flash call: q, k, v and out once, 4·hd
-    FLOPs per visible (query head, key) pair (within the window, if any)."""
+def flash_work(q, k, window=0, causal=True):
+    """Bytes and FLOPs of a flash call: q, k, v and out once, 4·hd FLOPs
+    per visible (query head, key) pair (causal: within the window, if any;
+    not causal: every key)."""
     B, Sq, H, hd = q.shape
     Skv, KV, es = k.shape[1], k.shape[2], q.element_size()
     nbytes = 2 * B * Sq * H * hd * es + 2 * B * Skv * KV * hd * es
-    pairs = sum(min(t + 1, Skv, window or Skv) for t in range(Sq))
+    pairs = (sum(min(t + 1, Skv, window or Skv) for t in range(Sq))
+             if causal else Sq * Skv)
     return nbytes, 4 * hd * H * B * pairs
 
 
@@ -519,9 +565,9 @@ def sdpa_decode(q, k, v, kpos, qpos, window=0):
         args[0], args[1], args[2], attn_mask=args[3], enable_gqa=True)
 
 
-def sdpa_flash(q, k, v):
+def sdpa_flash(q, k, v, causal=True):
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    return lambda: F.scaled_dot_product_attention(*args, is_causal=True,
+    return lambda: F.scaled_dot_product_attention(*args, is_causal=causal,
                                                   enable_gqa=True)
 
 
@@ -857,6 +903,78 @@ def moe_cases(dev, dtype, c):
     return out
 
 
+def modality_cases(dev, dtype):
+    """Phase 2's VLM and encoder-decoder cases (no cap, no window; query
+    scale 64^-0.5, the drafters' 128^-0.5): whisper-base (arXiv:2212.04356:
+    8/8 heads of 64, 1500 encoder frames) at its encoder's non-causal flash
+    over 1500 frames (ragged query and key tiles), its prefill's
+    cross-attention (128 decoder queries over the 1500 frames, non-causal
+    flash), its verify's cross-attention (K + 1 = 6 queries over the 1500
+    frames) both ways the path could run it: the decode kernel with every
+    key at position 0 (what the path runs) and flash without the causal
+    mask; its decoder's self-attention at verify phase 1 through the decode
+    kernel (448 slots) and the paged one (page 16, 28 entries), a row 320
+    positions in (phase 12's serve: prompts up to 192, budgets up to 192);
+    its drafter's (4/4 heads of 128) draft phase 1, both layouts;
+    internvl2-1b (arXiv:2404.16821: 14/2 heads of 64) at its fused prefill
+    (256 vision + 512 text tokens, causal) and its verify phase 1 (a row
+    256 + 576 positions in) through the decode and the paged kernels, and
+    its drafter's (7/7 heads of 128) draft phase 1 over the text region
+    (slots below 256 empty), both layouts: (kernel, label, inputs,
+    keywords)."""
+    kw = dict(scale=64 ** -0.5)
+    drafter = dict(scale=128 ** -0.5)
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = []
+    for label, (B, Sq, Skv) in [("whisper encoder", (8, 1500, 1500)),
+                                ("whisper cross prefill", (8, 128, 1500)),
+                                ("whisper cross verify flash", (8, 6, 1500))]:
+        out.append(("flash_attention", label,
+                    qkv(g, dev, dtype, (B, Sq, 8, 64), (B, Skv, 8, 64)),
+                    dict(kw, causal=False)))
+    q, k, v = qkv(g, dev, dtype, (8, 6, 8, 64), (8, 1500, 8, 64))
+    kpos = torch.zeros((8, 1500), dtype=torch.int32, device=dev)
+    qpos = (192 + torch.arange(6, dtype=torch.int32, device=dev))[
+        None].repeat(8, 1).contiguous()
+    out.append(("decode_attention", "whisper cross verify decode",
+                (q, k, v, kpos, qpos), kw))
+    cw = 320
+    out.append(("decode_attention", "whisper self verify phase 1",
+                decode_case(dev, dtype, 8, 6, 8, 8, 64, 448, cw), kw))
+    out.append(("decode_attention", "whisper drafter draft phase 1",
+                decode_case(dev, dtype, 8, 5, 4, 4, 128, 448, cw - 1),
+                drafter))
+    out.append(("paged_decode_attention", "whisper self verify phase 1",
+                paged_case(dev, dtype, 8, 6, 8, 8, 64, 16, 28, cw, seed=71),
+                kw))
+    out.append(("paged_decode_attention", "whisper drafter draft phase 1",
+                paged_case(dev, dtype, 8, 5, 4, 4, 128, 16, 28, cw - 1,
+                           seed=72), drafter))
+    c = INTERNVL2_VISION + 576
+    out.append(("flash_attention", "internvl2 target prefill",
+                qkv(g, dev, dtype, (8, 768, 14, 64), (8, 768, 2, 64)),
+                dict(kw, causal=True)))
+    out.append(("decode_attention", "internvl2 target verify phase 1",
+                decode_case(dev, dtype, 8, 6, 14, 2, 64, 1024, c), kw))
+    out.append(("paged_decode_attention", "internvl2 target verify phase 1",
+                paged_case(dev, dtype, 8, 6, 14, 2, 64, 16, 80, c, seed=70),
+                kw))
+
+    def text_only(inp):
+        # the drafter writes no key below the vision offset
+        inp = list(inp)
+        inp[3] = torch.where(inp[3] < INTERNVL2_VISION, -1,
+                             inp[3]).to(torch.int32).contiguous()
+        return tuple(inp)
+    out.append(("decode_attention", "internvl2 drafter draft phase 1",
+                text_only(decode_case(dev, dtype, 8, 5, 7, 7, 128, 1024,
+                                      c - 1)), drafter))
+    out.append(("paged_decode_attention", "internvl2 drafter draft phase 1",
+                text_only(paged_case(dev, dtype, 8, 5, 7, 7, 128, 16, 80,
+                                     c - 1, seed=73)), drafter))
+    return out
+
+
 def check_kernels(ops, dev):
     """Every kernel against its plain version; returns the per-kernel
     measurements of the main-path shapes (the MTP kernel's keyed by
@@ -1084,7 +1202,8 @@ def check_kernels(ops, dev):
         for name, label, inp, kw in (gemma2_cases(dev, dtype, c)
                                      + gemma7b_cases(dev, dtype, c)
                                      + rgemma_cases(dev, dtype, c)
-                                     + moe_cases(dev, dtype, c)):
+                                     + moe_cases(dev, dtype, c)
+                                     + modality_cases(dev, dtype)):
             fn = getattr(ops, name)
             before = ops.launches[name]
             if name == "flash_attention":
@@ -1104,7 +1223,8 @@ def check_kernels(ops, dev):
                      f"{ops.launches[name] - before}")
             fam = label.split()[0]
             if dtype == "bfloat16" and fam in ("gemma2", "gemma7b",
-                                               "rgemma", "dbrx", "llama4"):
+                                               "rgemma", "dbrx", "llama4",
+                                               "whisper", "internvl2"):
                 fam_worst[(fam, name)] = max(fam_worst.get((fam, name), 0.0),
                                              err)
                 rows[(name, label)], row_kw[(name, label)] = inp, kw
@@ -1142,13 +1262,14 @@ def check_kernels(ops, dev):
             lib = None
         else:
             q, k, v = inp
-            nbytes, flops = flash_work(q, k, window)
+            causal = kw.get("causal", True)
+            nbytes, flops = flash_work(q, k, window, causal)
             sets = [inp] + [tuple(x.clone() for x in inp)
                             for _ in range(n_sets(nbytes) - 1)]
             ms = time_ms(lambda *a: ops.flash_attention(*a, **kw), sets, 50)
             plain_ms = time_ms(lambda *a: ops.flash_attention_plain(*a, **kw),
                                sets[:2], 5, host_us=5000)
-            lib = None if flex else sdpa_flash(*inp)
+            lib = None if flex else sdpa_flash(*inp, causal=causal)
         lib_ms = None if flex else time_ms(lambda: lib(), [()], 100)
         bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
         measured[(name, label)] = dict(ms=ms, plain_ms=plain_ms,
@@ -1167,6 +1288,12 @@ def check_kernels(ops, dev):
             f"{plain_ms * 1e3:9.1f} us  {lib_txt}  bound "
             f"{bound_ms * 1e3:6.2f} us ({bound_by}; {nbytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.3f} GFLOP)")
+    dec = measured[("decode_attention", "whisper cross verify decode")]
+    fl = measured[("flash_attention", "whisper cross verify flash")]
+    log(f"phase 2: whisper's decode-mode cross-attention (B 8, 6 queries over "
+        f"1500 frames): the decode kernel (keys at position 0) "
+        f"{dec['ms'] * 1e3:.1f} us, flash without the causal mask "
+        f"{fl['ms'] * 1e3:.1f} us; the path runs the decode kernel")
     log("phase 2: the MTP kernel against its plain version")
     measured["mtp_attention"] = check_mtp(ops, dev, compare)
     log("phase 2: the worst share of the limit, per kernel: " + ", ".join(
@@ -1598,16 +1725,18 @@ def oracle_drafts(table):
 
 
 def kernel_logits_vs_plain(ops, eng, prompts, block, max_len,
-                           last_only=False):
+                           last_only=False, extras=None):
     """Full-width float32 target logits through the kernels against the same
     forward with the plain attention: a prefill into a fresh cache (flash)
-    and a verify block at the next positions read against it (decode, both
+    with the target's ``extras`` and a verify block at the next positions
+    (after a VLM target's vision positions) read against it (decode, both
     phases). ``last_only``: the prefill's logits at its last position only
-    (a long prompt's (B, P, V) logits would not fit twice)."""
+    (a long prompt's (B, P, V) logits would not fit twice). Returns the two
+    max abs errors."""
     B, P = prompts.shape
     T = block.shape[1]
-    positions = (P + torch.arange(T, dtype=torch.int32, device=block.device)
-                 )[None].repeat(B, 1)
+    positions = (P + eng.pos_offset + torch.arange(
+        T, dtype=torch.int32, device=block.device))[None].repeat(B, 1)
     logits = {}
     for name, ctx in (("kernels", contextlib.nullcontext()),
                       ("plain", plain_attention(ops))):
@@ -1616,22 +1745,26 @@ def kernel_logits_vs_plain(ops, eng, prompts, block, max_len,
                                          device=block.device)
             pre = eng.model.forward(eng.tparams, prompts, mode="prefill",
                                     cache=cache, collect_taps=False,
-                                    head_last_only=last_only)
+                                    head_last_only=last_only,
+                                    **(extras or {}))
             ver = eng.model.forward(eng.tparams, block, mode="decode",
                                     positions=positions, cache=pre.cache,
                                     collect_taps=False)
             logits[name] = (pre.logits, ver.logits)
             del cache, pre, ver
+    errs = []
     for i, what in enumerate((f"prefill {tuple(prompts.shape)} (flash)",
                               f"verify {tuple(block.shape)} against the "
                               f"cache (decode)")):
         got, want = logits["kernels"][i], logits["plain"][i]
         err = (got - want).abs().max().item()
+        errs.append(err)
         log(f"  float32 logits, {what}, kernels vs plain attention: max abs "
             f"err {err:.3e} (max |logit| {want.abs().max().item():.3f})")
         if not err <= REF_TOL:
             fail(f"{what} logits through the kernels differ from the plain "
                  f"reference by {err} > {REF_TOL}")
+    return errs
 
 
 def losslessness(ops, dev):
@@ -3013,21 +3146,28 @@ def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
                 total_gb=(target + drafter + kv + tmp) / 1e9)
 
 
-def near_ties(ref_eng, toks, ref, start, what, dev, tie=NEAR_TIE):
+def near_ties(ref_eng, toks, ref, start, what, dev, tie=NEAR_TIE,
+              extras=None):
     """Each row of ``toks`` equals ``ref`` (B, W) from ``start`` on, or
     first parts where ``ref_eng``'s top-2 logit gap over the reference
-    context is below ``tie`` (phase 4's rule). Returns the rows that part."""
+    context is below ``tie`` (phase 4's rule). Returns the rows that part.
+    ``extras`` (leading axis B): the target's modality inputs, row b's with
+    row b's context (a VLM target's context is its text after the vision
+    positions)."""
     parted = []
+    off = ref_eng.pos_offset
     for b in range(ref.shape[0]):
         where = np.flatnonzero(toks[b, start:] != ref[b, start:])
         if not len(where):
             continue
         pos = start + int(where[0])
-        ctx = torch.as_tensor(ref[b:b + 1, :pos], device=dev)
+        ctx = torch.as_tensor(ref[b:b + 1, off:pos], device=dev)
+        row = {k: v[b:b + 1] for k, v in (extras or {}).items()}
         with torch.no_grad():
             logits = ref_eng.model.forward(ref_eng.tparams, ctx,
                                            collect_taps=False,
-                                           head_last_only=True).logits[0, -1]
+                                           head_last_only=True,
+                                           **row).logits[0, -1]
         top2 = logits.topk(2).values
         gap = float(top2[0] - top2[1])
         log(f"  {what}: row {b} first differs at position {pos}; the "
@@ -3312,9 +3452,9 @@ def admissions_logged(eng):
     lens = []
     inner = eng._admission_prefill
 
-    def logged(prompt, sp):
+    def logged(prompt, sp, extras=None):
         lens.append(int(prompt.shape[1]))
-        return inner(prompt, sp)
+        return inner(prompt, sp, extras)
     eng._admission_prefill = logged
     return lens
 
@@ -3332,36 +3472,53 @@ def attention_layers(cfg):
     return cfg.n_layers
 
 
+def encoder_cross_layers(cfg):
+    """An encoder-decoder target's (encoder layers, cross-attention layers):
+    each encoder layer runs one flash (not causal) a prefill, each decoder
+    layer's cross-attention one flash a prefill and one decode (every key at
+    position 0) a verify; (0, 0) for the other families."""
+    if cfg.family != "encdec":
+        return 0, 0
+    return cfg.n_encoder_layers, cfg.n_layers
+
+
 def serve_launches_want(eng, iterations, admitted):
     """Attention launches of a paged Scheduler.serve over pools (no ring):
     each iteration runs phase 1 of every target attention layer and of the
-    drafter's draft and extend (paged) and their phase 2 (decode); an
-    admission prefill of a P-token prompt runs its first chunk as a prefill
-    (one flash a target attention layer) and, for a chunk-only target (a
-    recurrent one), each further MSB chunk of P in decode mode (2 decode a
-    target attention layer), and the drafter's extend once a chunk (2
-    decode a drafter layer)."""
+    drafter's draft and extend (paged) and their phase 2 (decode), and an
+    encoder-decoder target's cross-attention (decode); an admission prefill
+    of a P-token prompt runs its first chunk as a prefill (one flash a
+    target attention layer, and an encoder-decoder target's encoder and
+    cross-attention layers) and, for a chunk-only target (a recurrent one),
+    each further MSB chunk of P in decode mode (2 decode a target attention
+    layer), and the drafter's extend once a chunk (2 decode a drafter
+    layer)."""
     L_att = attention_layers(eng.tcfg)
+    n_enc, n_x = encoder_cross_layers(eng.tcfg)
     n_d = eng.dcfg.n_layers
     per_it = L_att + 2 * n_d
     chunks = [len(eng.prefill_buckets(n)) if eng.chunk_only else 1
               for n in admitted]
     return {"paged_decode_attention": iterations * per_it,
-            "decode_attention": iterations * per_it + sum(chunks) * 2 * n_d
-            + (sum(chunks) - len(chunks)) * 2 * L_att,
-            "flash_attention": len(admitted) * L_att, "mtp_attention": 0}
+            "decode_attention": iterations * (per_it + n_x)
+            + sum(chunks) * 2 * n_d + (sum(chunks) - len(chunks)) * 2 * L_att,
+            "flash_attention": len(admitted) * (L_att + n_enc + n_x),
+            "mtp_attention": 0}
 
 
-def family_run(ops, dev, eng, prompts, NEW, K, tag):
-    """Engine.run at phase 3's shapes after a cold run of 8 steps: the warm
-    run's numbers, its launch counts against the target's formula (one
-    flash a target attention layer at the prefill and 2 decode a step: every
-    layer of a dense target, none of an SSM, the hybrid's attention slots),
-    and the output's checks."""
-    eng.run(prompts, max_iters=8)
+def family_run(ops, dev, eng, prompts, NEW, K, tag, extras=None):
+    """Engine.run at phase 3's shapes after a cold run of 8 steps, with the
+    target's ``extras``: the warm run's numbers, its launch counts against
+    the target's formula (one flash a target attention layer at the prefill
+    and 2 decode a step: every layer of a dense target, none of an SSM, the
+    hybrid's attention slots; an encoder-decoder target's encoder and
+    cross-attention layers one flash each at the prefill and its
+    cross-attention one decode a step), and the output's checks (the
+    tokens after a VLM target's vision positions)."""
+    eng.run(prompts, extras, max_iters=8)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
-    r = eng.run(prompts)
+    r = eng.run(prompts, extras)
     counts = dict(ops.launches)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     steps = r["steps"]
@@ -3372,14 +3529,16 @@ def family_run(ops, dev, eng, prompts, NEW, K, tag):
         f"memory {peak_gb:.2f} GB")
     log(f"  launches: {counts}")
     L_att = attention_layers(eng.tcfg)
+    n_enc, n_x = encoder_cross_layers(eng.tcfg)
     n_d = eng.dcfg.n_layers
-    want = {"flash_attention": L_att,
-            "decode_attention": 2 * n_d + steps * (2 * L_att + 4 * n_d),
+    want = {"flash_attention": L_att + n_enc + n_x,
+            "decode_attention": 2 * n_d + steps * (2 * L_att + n_x
+                                                   + 4 * n_d),
             "paged_decode_attention": 0, "mtp_attention": 0}
     if counts != want:
         fail(f"{tag} launch counts {counts} != expected {want}")
     state = r["state"]
-    P, V = prompts.shape[1], eng.tcfg.vocab_size
+    P, V = prompts.shape[1] + eng.pos_offset, eng.tcfg.vocab_size
     if not bool((state["new_count"] == NEW).all()):
         fail(f"{tag} new_count {state['new_count'].tolist()} != {NEW}")
     gen = torch.as_tensor(r["tokens"])[:, P:P + NEW]
@@ -4136,6 +4295,206 @@ def dbrx_float32(ops, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 11 - 12b: the VLM (internvl2-1b) and encoder-decoder (whisper-base)
+# families, their stub frontends' extras through every entry point
+# ---------------------------------------------------------------------------
+
+def stub_extras(eng, batch, seed):
+    """``make_extras`` of ``eng``'s target at prefill, drawn on the card
+    from threefry key ``seed``."""
+    from repro_torch import prng
+    from repro_torch.models.registry import make_extras
+    return make_extras(eng.tcfg, batch, "prefill",
+                       prng.PRNGKey(seed, device=eng.device))
+
+
+def whisper_traffic(vocab, n=24):
+    """Phase 12's requests: decoder prompts of 32-192 tokens, budgets
+    64-192, Exp(1) virtual arrivals, seed 0: (prompts, budgets,
+    arrivals)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 193, n)
+    budgets = rng.integers(64, 193, n)
+    arrivals = np.cumsum(rng.exponential(1.0, n))
+    prompts = [rng.integers(0, vocab - 1, m).astype(np.int32) for m in lens]
+    return prompts, [int(b) for b in budgets], [float(a) for a in arrivals]
+
+
+def internvl2_path(ops, dev):
+    """Phase 11: internvl2-1b at full width in bfloat16 (all 24 layers;
+    256 stub vision tokens of 1024 early-fused before each prompt):
+    Engine.run at phase 3's shapes (a fused prefill of 768 positions; 24
+    flash and 8 decode at the prefill, 64 decode a step, every decode at
+    positions 256 past its token index), then Scheduler.serve of phase
+    3b's 24 requests over paged KV with swap to host, each request's
+    vision extras drawn from its prompt at admission, at max_len 1280 (256
+    + 640 + 192 + 6 exceeds 1024) on a pool of 320 pages (half of 8 full
+    rows), the prefix cache asked for and never built; then 11b."""
+    from repro_torch.launch.serve import build_engine, random_prompts
+    B, P, NEW, K, MAX_LEN, PAGE, POOL = (8, 512, 128, 5, 1024, 16,
+                                         INTERNVL2_POOL)
+    log(f"phase 11: full-width internvl2-1b bfloat16 (24 layers, d 896, 14/2 "
+        f"heads of 64, d_ff 4864 SwiGLU, vocab 151655; {INTERNVL2_VISION} "
+        f"stub vision tokens of 1024 through vis_proj), 4-layer parallel "
+        f"drafter, batch {B}, prompt {P} (fused {P + INTERNVL2_VISION}), "
+        f"max_new {NEW}, K {K}, max_len {MAX_LEN}")
+    free_card(dev, "phase 11")
+    eng = build_engine(arch="internvl2-1b", mode="parallel", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    if eng.pos_offset != INTERNVL2_VISION:
+        fail(f"phase 11: vision offset {eng.pos_offset}")
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    extras = stub_extras(eng, B, 0)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "11", extras)
+    log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, swap to "
+        f"host, max_len 1280, prefix cache asked for; phase 3b's 24 requests")
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192, max_len=1280,
+                       swap="host", prefix_cache=True)
+    del eng
+    serve = family_serve(ops, dev, peng,
+                         sched3b_traffic(peng.tcfg.vocab_size), "11")
+    if peng.prefix_cache is not None:
+        fail("phase 11: a prefix cache was built for a VLM target")
+    if not serve["preempt_swap"] > 0:
+        fail("phase 11 serve: no request was swapped to the host")
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "serve": serve,
+            "float32": modality_float32(ops, dev, "internvl2-1b", "11b")}
+
+
+def whisper_path(ops, dev):
+    """Phase 12: whisper-base at full width in bfloat16 (6 encoder and 6
+    decoder layers, d 512, 8/8 heads of 64; 1500 stub encoder frames):
+    Engine.run of batch 8, 128-token decoder prompts, 128 new, K 5, max_len
+    448 (18 flash at the prefill: 6 encoder layers, 6 decoder self and 6
+    cross layers; 8 decode at the prefill and 34 a step: the decoder's two
+    phases, its cross-attention through the decode kernel, the drafter's),
+    then Scheduler.serve of 24 requests (prompts 32-192, budgets 64-192,
+    Exp(1) gaps) over paged self-attention (page 16, 28 pages a row, a pool
+    of 112) with swap to host, the per-slot cross K/V (18.4 MB a slot)
+    swapped with the slot; then 12b."""
+    from repro_torch.launch.serve import build_engine, random_prompts
+    B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 128, 128, 5, 448, 16, 112
+    log(f"phase 12: full-width whisper-base bfloat16 (6 + 6 layers, d 512, "
+        f"8/8 heads of 64, d_ff 2048 GELU, vocab 51865, 1500 stub encoder "
+        f"frames, sinusoidal positions), 4-layer parallel drafter, batch {B}, "
+        f"prompt {P}, max_new {NEW}, K {K}, max_len {MAX_LEN}")
+    free_card(dev, "phase 12")
+    eng = build_engine(arch="whisper-base", mode="parallel", K=K, max_new=NEW,
+                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "12",
+                     stub_extras(eng, B, 0))
+    log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, swap to "
+        f"host; 24 requests, prompts 32-192, budgets 64-192")
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192, swap="host",
+                       prefix_cache=True)
+    del eng
+    row_bytes = peng._swap_layout()[0]
+    c = peng.tcfg
+    cross = (c.n_layers * 2 * c.encoder_seq * c.n_kv_heads * c.head_dim
+             * getattr(torch, peng.ecfg.cache_dtype).itemsize)
+    log(f"  a slot's per-slot rows {row_bytes / 1e6:.2f} MB (its cross K/V "
+        f"{cross / 1e6:.2f} MB)")
+    if row_bytes < cross:
+        fail(f"phase 12: a slot's swapped rows ({row_bytes} B) do not hold "
+             f"its cross K/V ({cross} B)")
+    serve = family_serve(ops, dev, peng,
+                         whisper_traffic(peng.tcfg.vocab_size), "12")
+    if peng.prefix_cache is not None:
+        fail("phase 12: a prefix cache was built for an encoder-decoder "
+             "target")
+    if not serve["preempt_swap"] > 0:
+        fail("phase 12 serve: no request was swapped to the host")
+    serve["slot_row_mb"] = row_bytes / 1e6
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "serve": serve,
+            "float32": modality_float32(ops, dev, "whisper-base", "12b")}
+
+
+def modality_float32(ops, dev, arch, tag):
+    """Phases 11b / 12b: ``arch`` in float32 at full width, batch 4,
+    128-token prompts, 32 new, K 5, stub extras from seed 1: the target's
+    logits through the kernels against the plain attention (a prefill with
+    the extras, a verify block against its cache) within 1e-3; greedy
+    parallel and ar against none; and a paged Scheduler.serve under pool
+    pressure (recompute preemption, each request with its row's extras)
+    against the contiguous one, whose requests run uninterrupted, and
+    against none: every stream equal under phase 4's near-tie rule, a
+    resumed one included."""
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.scheduler import Request, Scheduler
+    B, P, NEW, K = 4, 128, 32, 5
+    vision = INTERNVL2_VISION if arch == "internvl2-1b" else 0
+    MAX_LEN = -(-(256 + vision) // 16) * 16
+    # two requests' first claims fit, their whole lifetimes do not: the
+    # paged serve preempts and resumes
+    POOL = 2 * -(-(vision + P + NEW + K + 1) // 16) - 2
+    log(f"phase {tag}: {arch} float32 at full width, batch {B}, prompt {P}, "
+        f"max_new {NEW}, K {K}, max_len {MAX_LEN}")
+    free_card(dev, f"phase {tag}")
+    eng = build_engine(arch=arch, mode="parallel", dtype="float32", K=K,
+                       max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
+                       device=dev)
+    V, off = eng.tcfg.vocab_size, eng.pos_offset
+    prompts = random_prompts(V, B, P, seed=1)
+    extras = stub_extras(eng, B, 1)
+    block = torch.as_tensor(random_prompts(V, B, K + 1, seed=2), device=dev)
+    errs = kernel_logits_vs_plain(ops, eng, torch.as_tensor(prompts,
+                                                            device=dev),
+                                  block, MAX_LEN, extras=extras)
+    none = family_twin(eng, B, dev, drafter_mode="none", K=0)
+    W = P + off + NEW
+    toks = {}
+    for name, e in (("none", none), ("parallel", eng),
+                    ("ar", family_twin(eng, B, dev, drafter_mode="ar"))):
+        r = e.run(prompts, extras)
+        toks[name] = r["tokens"][:, :W]
+        log(f"  {name:8s} steps {r['steps']:3d} AL "
+            f"{r['acceptance_length']:.3f}")
+    out = {"kernels_vs_plain_logits": errs}
+    for mode in ("parallel", "ar"):
+        out[f"{mode}_vs_none_parted_rows"] = near_ties(
+            none, toks[mode], toks["none"], P + off, f"{tag} {mode}", dev,
+            extras=extras)
+    served = {}
+    for layout in ("contiguous", "paged"):
+        e = family_twin(eng, B, dev, kv_layout=layout, page_size=16,
+                        pool_pages=POOL if layout == "paged" else 0)
+        rep = Scheduler(e).serve([
+            Request(p, max_new_tokens=NEW,
+                    extras={k: v[i:i + 1] for k, v in extras.items()})
+            for i, p in enumerate(prompts)])
+        gen = np.stack([x["tokens"] for x in rep["results"]])
+        served[layout] = np.concatenate(
+            [np.zeros((B, off), np.int32), prompts, gen], 1)
+        log(f"  Scheduler.serve {layout}: iterations {rep['iterations']}, "
+            f"preemptions {rep['preemptions']} (resumed requests "
+            f"{[x['rid'] for x in rep['results'] if x['n_preempt']]})")
+        if layout == "paged" and not (rep["preemptions"] > 0
+                                      and e.allocator.n_used == 0):
+            fail(f"{tag} paged serve: {rep['preemptions']} preemptions, "
+                 f"{e.allocator.n_used} pages left allocated")
+        del e
+    out["paged_vs_contiguous_parted_rows"] = near_ties(
+        none, served["paged"], served["contiguous"], P + off,
+        f"{tag} paged (resumed) vs contiguous serve", dev, extras=extras)
+    out["contiguous_vs_none_parted_rows"] = near_ties(
+        none, served["contiguous"], toks["none"], P + off,
+        f"{tag} contiguous serve vs none", dev, extras=extras)
+    del eng, none
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4175,7 +4534,7 @@ def main() -> int:
 
 
 def run_phases(ops, dev) -> list:
-    """Phases 2-10b on ``dev``; returns the kernels' JSON rows."""
+    """Phases 2-12b on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def timed(fn, *a):
@@ -4203,6 +4562,8 @@ def run_phases(ops, dev) -> list:
     mamba2 = timed(mamba2_path, ops, dev)
     rgemma = timed(recurrentgemma_path, ops, dev)
     dbrx = timed(dbrx_path, ops, dev)
+    internvl2 = timed(internvl2_path, ops, dev)
+    whisper = timed(whisper_path, ops, dev)
     timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -4255,6 +4616,29 @@ def run_phases(ops, dev) -> list:
     db_launches = dict(dbrx["run"]["launches"],
                        paged_decode_attention=dbrx["serve"]["launches"][
                            "paged_decode_attention"])
+    # internvl2-1b's from phase 11 (14/2 heads of 64 over fused rows) and
+    # whisper-base's from phase 12 (its encoder, its cross-attention through
+    # the decode kernel and its paged self-attention)
+    iv_shape = {"decode_attention": "internvl2 target verify phase 1",
+                "paged_decode_attention": "internvl2 target verify phase 1",
+                "flash_attention": "internvl2 target prefill"}
+    iv_launches = dict(internvl2["run"]["launches"],
+                       paged_decode_attention=internvl2["serve"]["launches"][
+                           "paged_decode_attention"])
+    wh_shape = {"decode_attention": "whisper cross verify decode",
+                "paged_decode_attention": "whisper self verify phase 1",
+                "flash_attention": "whisper encoder"}
+    wh_launches = dict(whisper["run"]["launches"],
+                       paged_decode_attention=whisper["serve"]["launches"][
+                           "paged_decode_attention"])
+
+    def family_row(shape, launches, fam, name):
+        f = measured[(name, shape)]
+        return {"shape": shape, "launches": launches,
+                "max_abs_err": fam_worst[(fam, name)], "ms": f["ms"],
+                "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+                "library": f.get("library", "scaled_dot_product_attention")}
     kernels = []
     for name in ("decode_attention", "paged_decode_attention",
                  "flash_attention"):
@@ -4303,7 +4687,11 @@ def run_phases(ops, dev) -> list:
                      "bound_ms": db["bound_ms"], "bound_by": db["bound_by"],
                      "library_ms": db["library_ms"],
                      "library": db.get("library",
-                                       "scaled_dot_product_attention")}})
+                                       "scaled_dot_product_attention")},
+            "internvl2": family_row(iv_shape[name], iv_launches[name],
+                                    "internvl2", name),
+            "whisper": family_row(wh_shape[name], wh_launches[name],
+                                  "whisper", name)})
     # the MTP kernel: timed at the training shape in float32, the dtype the
     # training path gives it; launches over both training paths of phase 5
     mtp_shape = ("training shape n 2048 K 8 r 0.8", "float32")
@@ -4336,11 +4724,14 @@ def run_phases(ops, dev) -> list:
     log(f"mamba2-780m: {json.dumps(mamba2)}")
     log(f"recurrentgemma-2b: {json.dumps(rgemma)}")
     log(f"dbrx-132b: {json.dumps(dbrx)}")
-    log("gemma2, gemma7b, rgemma, dbrx and llama4 kernel timing: "
-        + json.dumps({f"{k[0]} {k[1]}": v for k, v in measured.items()
-                      if isinstance(k, tuple)
-                      and k[1].startswith(("gemma2", "gemma7b", "rgemma",
-                                           "dbrx", "llama4"))}))
+    log(f"internvl2-1b: {json.dumps(internvl2)}")
+    log(f"whisper-base: {json.dumps(whisper)}")
+    log("gemma2, gemma7b, rgemma, dbrx, llama4, internvl2 and whisper kernel "
+        "timing: " + json.dumps(
+            {f"{k[0]} {k[1]}": v for k, v in measured.items()
+             if isinstance(k, tuple)
+             and k[1].startswith(("gemma2", "gemma7b", "rgemma", "dbrx",
+                                  "llama4", "internvl2", "whisper"))}))
     log("mtp_attention timing: " + json.dumps(
         {f"{k[0]} {k[1]}": v for k, v in measured["mtp_attention"].items()}))
     return kernels

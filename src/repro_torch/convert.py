@@ -7,11 +7,13 @@ each leaf with a leading super-block axis, and ``tail`` holds the
 ``n_layers % period`` remaining layers unstacked (a dense target's period
 is its attention pattern's, an interleaved MoE target's the lcm of that and
 2: 4 for llama4, so a 2-layer one is all tail; a hybrid target's its block
-pattern's: 3 for recurrentgemma, with a tail of 2). The JAX drafter and the
-JAX SSM target stack their blocks along a leading layer axis (``vmap``).
+pattern's: 3 for recurrentgemma, with a tail of 2). The JAX drafter, the
+JAX SSM target and the JAX encoder-decoder target (``enc_blocks`` and
+``dec_blocks``) stack their blocks along a leading layer axis (``vmap``).
 Their caches are stacked the same way (an SSM target's ``conv`` and
-``state`` leaves, and its verify's snapshots, too). The port keeps layers
-as Python lists, so every converter here unstacks into layer order.
+``state`` leaves, and its verify's snapshots, too; an encoder-decoder
+target's ``self`` caches and ``cross`` K/V). The port keeps layers as
+Python lists, so every converter here unstacks into layer order.
 """
 from __future__ import annotations
 
@@ -87,10 +89,26 @@ def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
     families, ``models/ssm.init_params`` / ``models/hybrid.init_params``)
     tree -> the port's layout. ``dtype`` casts the weights (norms,
     post-norms, the SSD's A, dt and D and the RG-LRU's ``lam`` stay
-    float32, and so does an MoE layer's router); an untied ``lm_head``
-    comes along."""
+    float32, and so does an MoE layer's router); an untied ``lm_head`` and
+    a VLM target's ``vis_proj`` come along. An encoder-decoder target's
+    (``models/encdec.init_params``) ``enc_blocks`` and ``dec_blocks`` are
+    unstacked into layer lists."""
     def conv(a):
         return tensor(a, device, dtype)
+
+    if cfg.family == "encdec":
+        out = {"embed": conv(jparams["embed"])}
+        for name in ("enc_blocks", "dec_blocks"):
+            out[name] = []
+            for li in range(_stacked(jparams[name])):
+                layer = _layer(jparams[name], li, device, dtype)
+                for norm in ("ln1", "lnx", "ln2"):
+                    if norm in layer:
+                        layer[norm] = layer[norm].float()
+                out[name].append(layer)
+        for norm in ("enc_norm", "final_norm"):
+            out[norm] = tensor(jparams[norm], device, torch.float32)
+        return out
 
     if cfg.family == "ssm":
         blocks = []
@@ -121,6 +139,8 @@ def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
            "final_norm": tensor(jparams["final_norm"], device, torch.float32)}
     if "lm_head" in jparams:
         out["lm_head"] = conv(jparams["lm_head"])
+    if "vis_proj" in jparams:
+        out["vis_proj"] = _map(jparams["vis_proj"], conv)
     return out
 
 
@@ -172,9 +192,17 @@ def target_cache(jcache: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     (``models/hybrid.make_cache``, or its verify's ``aux["snapshots"]``,
     whose recurrent leaves carry T on the axis after the batch and whose
     attention layers are None) mixes KV caches and ``conv`` / ``h``
-    leaves in layer order."""
+    leaves in layer order. An encoder-decoder target's
+    (``models/encdec.make_cache``) gives each decoder layer its ``self``
+    KV cache and its ``cross`` K/V."""
     if cfg.family == "ssm":
         return ssm_layers(jcache["blocks"], device=device)
+    if cfg.family == "encdec":
+        c = jcache["blocks"]
+        return {"blocks": [
+            {"self": _layer_cache(c["self"], li, device),
+             "cross": _layer(c["cross"], li, device, None)}
+            for li in range(_stacked(c["cross"]))]}
     return {"blocks": [_mixed_layer(sub, sb, device)
                        for sub, sb in _scan_layers(jcache, cfg)]}
 
@@ -199,8 +227,8 @@ def decode_state(jstate: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     port's. The ``"sampling"`` subtree keeps its leaves; its uint32 keys
     become int64 words. A paged state's pools (NP, page, ...) get the
     port's sink page appended (positions -1, K/V 0) and keep their
-    ``block_table``; an SSM or hybrid target's recurrent leaves are per
-    slot in both layouts."""
+    ``block_table``; an SSM or hybrid target's recurrent leaves and an
+    encoder-decoder target's cross K/V are per slot in both layouts."""
     out = {k: tensor(v, device) for k, v in jstate.items()
            if k not in ("tcache", "dcache", "sampling")}
     if "sampling" in jstate:
@@ -214,7 +242,8 @@ def decode_state(jstate: dict, cfg: ModelConfig, *, device="cpu") -> dict:
     if "block_table" in jstate:
         for name in ("tcache", "dcache"):
             for c in out.get(name, {"blocks": []})["blocks"]:
-                if "k" not in c:     # recurrent leaves stay per slot
+                c = c.get("self", c)     # an encoder-decoder layer's pool
+                if "positions" not in c:  # recurrent leaves stay per slot
                     continue
                 c["k"] = torch.cat([c["k"], torch.zeros_like(c["k"][:1])])
                 c["v"] = torch.cat([c["v"], torch.zeros_like(c["v"][:1])])

@@ -60,11 +60,14 @@ def markov_corpus(seed: int, n_seqs: int, seq_len: int, vocab: int,
 
 def self_generated_corpus(model, params, *, seed: int, n_seqs: int,
                           seq_len: int, prompt_len: int = 4,
-                          batch: int = 8, device="cuda") -> np.ndarray:
+                          batch: int = 8, device="cuda",
+                          extras_fn=None) -> np.ndarray:
     """Greedy rollouts from the target model (the paper's data regime:
     drafters train on target-generated traces), through the port's
     ``Engine`` in "none" mode on ``device``. The KV cache takes the
-    target's dtype."""
+    target's dtype. ``extras_fn(batch)`` gives each rollout batch's
+    modality inputs (a VLM or encoder-decoder target); the sequences are
+    the text region."""
     from repro_torch.serving.engine import Engine, EngineConfig
 
     rng = np.random.default_rng(seed)
@@ -72,12 +75,14 @@ def self_generated_corpus(model, params, *, seed: int, n_seqs: int,
     vocab = model.cfg.vocab_size
     ecfg = EngineConfig(K=0, max_new_tokens=seq_len - prompt_len,
                         drafter_mode="none", cache_dtype=model.cfg.dtype,
-                        max_len=seq_len + 8)
+                        max_len=seq_len + model.cfg.vision_tokens + 8)
     eng = Engine(model.cfg, None, params, None, ecfg, batch, device=device)
     while len(out) * batch < n_seqs:
         prompts = rng.integers(0, vocab - 2,
                                size=(batch, prompt_len)).astype(np.int32)
-        out.append(eng.run(prompts)["tokens"][:, :seq_len])
+        extras = extras_fn(batch) if extras_fn else {}
+        off = eng.pos_offset
+        out.append(eng.run(prompts, extras)["tokens"][:, off:off + seq_len])
     return np.concatenate(out, axis=0)[:n_seqs].astype(np.int32)
 
 

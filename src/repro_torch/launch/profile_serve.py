@@ -2,8 +2,9 @@
 decode steps of the full-width engine with ``torch.profiler``.
 
 Builds the engine as ``launch/serve.py`` does (``--arch``, default
-qwen2-1.5b, bfloat16, 4-layer parallel drafter, batch 8, 512-token
-prompts; ``--n-layers`` cuts the target's depth, its widths kept),
+qwen2-1.5b, bfloat16, 4-layer parallel drafter, batch 8, ``--prompt-len``
+512-token prompts; ``--n-layers`` cuts the target's depth, its widths
+kept; a VLM or encoder-decoder target's stub extras drawn from the seed),
 prefills, runs warm-up steps, then times 16 unprofiled steps and
 profiles 16 more. With
 ``--kv-layout paged`` the cache is a page pool (page 16, pages reserved up
@@ -42,6 +43,10 @@ bonus draws over V) and, with ``--draft-sampling``, the K draft draws.
         --arch dbrx-132b --n-layers 8        # 8 of 40 layers, ~62 GB
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --temperature 0.8 --top-k 50 --top-p 0.95 [--draft-sampling]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch internvl2-1b                  # 256 vision tokens + 512
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch whisper-base --prompt-len 128  # 1500 encoder frames
 """
 from __future__ import annotations
 
@@ -52,13 +57,14 @@ import time
 import torch
 
 from repro_torch import prng
-from repro_torch.configs import ARCH_IDS
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import spec_decode as SD
 from repro_torch.launch.serve import (build_engine, random_prompts,
                                       request_policy)
+from repro_torch.models.registry import make_extras
 from repro_torch.serving.sampling import batch_sampling_state, step_keys
 
-BATCH, PROMPT, WARMUP, STEPS = 8, 512, 8, 16
+BATCH, WARMUP, STEPS = 8, 8, 16
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 
 
@@ -140,8 +146,10 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--draft-sampling", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=512)
     args = ap.parse_args(argv)
     steps = STEPS
+    prompt_len = args.prompt_len
 
     def policy(i):
         return request_policy(i, temperature=args.temperature,
@@ -149,26 +157,31 @@ def main(argv=None):
                               seed=args.seed)
 
     max_new = WARMUP + 2 * steps + 2
+    vision = get_config(args.arch).vision_tokens
     eng = build_engine(arch=args.arch, n_layers=args.n_layers,
                        mode=args.mode, batch=BATCH, seed=0,
                        max_new=max_new,
-                       max_len=-(-(PROMPT + max_new + 6) // 16) * 16,
+                       max_len=-(-(prompt_len + vision + max_new + 6)
+                                 // 16) * 16,
                        kv_layout=args.kv_layout,
                        kv_growth="upfront", sampling=policy(0),
                        draft_sampling=args.draft_sampling)
-    prompts = random_prompts(eng.tcfg.vocab_size, BATCH, PROMPT, 0)
+    prompts = random_prompts(eng.tcfg.vocab_size, BATCH, prompt_len, 0)
+    extras = make_extras(eng.tcfg, BATCH, "prefill",
+                         prng.PRNGKey(args.seed, device=eng.device))
     if eng.paged:
         state = eng.blank_state()
         for slot, p in enumerate(prompts):
-            state, _, _ = eng.prefill_into_slot(state, p, slot, max_new,
-                                                sampling=policy(slot))
+            state, _, _ = eng.prefill_into_slot(
+                state, p, slot, max_new, sampling=policy(slot),
+                extras={k: v[slot:slot + 1] for k, v in extras.items()})
         live = (torch.ones(BATCH, dtype=torch.bool, device=eng.device),
                 torch.full((BATCH,), max_new, dtype=torch.int32,
                            device=eng.device),
                 torch.full((BATCH,), eng.ecfg.K, dtype=torch.int32,
                            device=eng.device))
     else:
-        state, live = eng.prefill(prompts), ()
+        state, live = eng.prefill(prompts, extras), ()
     for _ in range(WARMUP):
         state = eng.step(state, *live)
     torch.cuda.synchronize()
@@ -203,7 +216,8 @@ def main(argv=None):
     report = {
         "device": torch.cuda.get_device_name(0), "arch": args.arch,
         "n_layers": eng.tcfg.n_layers, "mode": args.mode,
-        "kv_layout": args.kv_layout, "temperature": args.temperature,
+        "kv_layout": args.kv_layout, "prompt_len": prompt_len,
+        "temperature": args.temperature,
         "top_k": args.top_k, "top_p": args.top_p,
         "draft_sampling": args.draft_sampling,
         "steps": steps, "host_ms_per_step": wall_ms,

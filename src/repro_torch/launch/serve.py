@@ -32,7 +32,12 @@ SSD state per slot, so only its drafter's KV is paged; recurrentgemma-2b
 keeps its RG-LRU rows per slot beside its local layers' KV, pooled at a
 max_len not above 2048 + K + 1 and per-slot rings above; both admit
 prompts in power-of-two chunks. An MoE target builds no prefix cache: its
-expert capacity couples the tokens of a call. Prompts are random
+expert capacity couples the tokens of a call. The VLM internvl2-1b and the
+encoder-decoder whisper-base serve with stub frontend inputs (256 vision
+tokens of 1024, or 1500 encoder frames of 512), drawn per request from its
+prompt at admission (``Request.extras``); neither builds a prefix cache,
+and ``--round-based`` refuses them (whole rounds carry no per-request
+extras). Prompts are random
 tokens from the same seed and arrive with Exp(``--mean-gap``) gaps on the
 virtual clock (0: all at once). The KV cache is paged on the card and
 contiguous on the CPU unless ``--kv-layout`` says otherwise. The run is
@@ -63,6 +68,12 @@ repeated and the last (warm) run is reported.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
         --n-layers 8 --requests 12 --mean-gap 1 --pool-pages 256 \
         --swap host                                   # MoE, 8 of 40 layers
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
+        --requests 24 --mean-gap 1 --max-len 1280 --pool-pages 320 \
+        --swap host                                   # VLM, 256 vision tokens
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --requests 24 --mean-gap 1 --prompt-len 128 --max-len 448 \
+        --pool-pages 112 --swap host                  # encoder-decoder
 """
 from __future__ import annotations
 
@@ -75,7 +86,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, DrafterConfig, get_config
 from repro_torch.core import drafter as D
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import get_model, takes_extras
 from repro_torch.serving.engine import Engine, EngineConfig, resolve_device
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import (Request, Scheduler,
@@ -251,6 +262,9 @@ def main(argv=None):
     if args.round_based and args.shared_prefix > 0:
         ap.error("--round-based stacks equal-length prompts: not with "
                  "--shared-prefix")
+    if args.round_based and takes_extras(get_config(args.arch)):
+        ap.error(f"--round-based serves whole rounds without per-request "
+                 f"extras: serve {args.arch} through the scheduler")
 
     dev = resolve_device(args.device)
     layout = args.kv_layout or ("paged" if dev.type == "cuda"

@@ -7,6 +7,9 @@ as the JAX trainer keeps it; ``--reduced`` takes the 2-layer CPU-test
 config in float32. The data pipeline is the JAX package's: COD sampling,
 padding to the static expanded length and, with ``--segments S``,
 Algorithm-1 segments with gradient accumulation inside each sequence.
+A VLM or encoder-decoder target (``--arch internvl2-1b`` /
+``whisper-base``) takes stub extras (``make_extras`` from key 0) in its
+rollouts and in every training batch, as the JAX launcher does.
 
     PYTHONPATH=src python -m repro_torch.launch.train --data markov \
         --seq-len 2048 --batch 1 --n-seqs 4 --epochs 1      # on the card
@@ -20,10 +23,11 @@ import json
 
 import torch
 
+from repro_torch import prng
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import DrafterConfig, get_config
 from repro_torch.data import MTPPipeline, markov_corpus, self_generated_corpus
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import get_model, make_extras, takes_extras
 from repro_torch.serving.engine import resolve_device
 from repro_torch.training import TrainConfig, Trainer
 
@@ -59,10 +63,14 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     tparams = model.init(gen, device=dev)
 
+    key = prng.PRNGKey(0, device=dev)
+    modal = takes_extras(tcfg)
     if args.data == "self":
         corpus = self_generated_corpus(
             model, tparams, seed=1, n_seqs=args.n_seqs, seq_len=args.seq_len,
-            batch=min(16, args.n_seqs), device=dev)
+            batch=min(16, args.n_seqs), device=dev,
+            extras_fn=((lambda b: make_extras(tcfg, b, "prefill", key))
+                       if modal else None))
     else:
         corpus = markov_corpus(0, args.n_seqs, args.seq_len, tcfg.vocab_size)
 
@@ -73,8 +81,10 @@ def main(argv=None):
     pipe = MTPPipeline(corpus, k_train=dcfg.k_train, cod_rate=dcfg.cod_rate,
                        batch=args.batch, seed=0, segments=args.segments)
     steps = args.epochs * max(len(corpus) // args.batch, 1)
+    extras = make_extras(tcfg, args.batch, "train", key) if modal else {}
     tr = Trainer(tcfg, dcfg, tparams,
-                 TrainConfig(lr=args.lr, total_steps=steps), device=dev)
+                 TrainConfig(lr=args.lr, total_steps=steps), device=dev,
+                 extras=extras)
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

@@ -24,6 +24,7 @@ there (the JAX scatter's ``mode="drop"``, without a host sync).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional
 
@@ -86,6 +87,53 @@ def apply_rope(x: Tensor, sin: Tensor, cos: Tensor) -> Tensor:
     else:
         s, c = sin[:, :, None, :], cos[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
+
+
+
+# XLA's float32 exp on the CPU (Cephes): e^x = e^a * 2^n, n = floor(x /
+# ln 2 + 1/2), a = x - n ln 2 in two parts, e^a by a degree-6 polynomial
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _xla_exp(x: Tensor) -> Tensor:
+    """float32 exp of a host tensor as XLA's compiled graphs compute it,
+    one rounding per operation, so that a float32 angle built on it is the
+    JAX package's bit for bit (torch's exp differs by an ulp on some
+    inputs)."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32)
+    x = x.clamp(-104.0, 88.8)
+    n = torch.floor(x * c(1.44269504088896341) + c(0.5)).clamp(-126, 127)
+    a = x - n * c(0.693359375)
+    a = a - n * c(-2.12194440e-4)
+    z = a * c(_EXP_POLY[0]) + c(_EXP_POLY[1])
+    for p in _EXP_POLY[2:]:
+        z = z * a + c(p)
+    z = z * (a * a) + a
+    return torch.ldexp(z + c(1.0), n.to(torch.int32))
+
+
+def sinusoidal_positions(positions: Tensor, d: int) -> Tensor:
+    """Whisper-style absolute sinusoidal embeddings, (..., T) -> (..., T,
+    d) float32: the angle ``position * exp(-i * log(1e4) / (half - 1))``
+    in float32 as the JAX package's compiled forward forms it (the factor
+    rounded to float32 first, XLA's exp), then sin and cos
+    concatenated."""
+    ang = positions.float()[..., None] * _sinusoid_rates(d, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_rates(d: int, device: torch.device) -> Tensor:
+    """The (d // 2,) float32 rates of ``sinusoidal_positions``: they depend
+    on d alone, so each (d, device) is made once on the host and copied to
+    the device once."""
+    half = d // 2
+    rate = torch.tensor(math.log(10_000.0) / max(half - 1, 1),
+                        dtype=torch.float32)
+    return _xla_exp(-torch.arange(half, dtype=torch.float32)
+                    * rate).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +264,23 @@ def merge_attention(o1: Tensor, m1: Tensor, l1: Tensor,
     out = torch.where(rs(l) > 0, out, 0.0)
     return out.to(o1.dtype)
 
+
+
+def full_attention(q: Tensor, k: Tensor, v: Tensor, *, scale: float) -> Tensor:
+    """Unmasked attention in one pass (the JAX package's ``full_attention``
+    without mask or cap): q (B, Sq, H, hd) over every key of k/v (B, Skv,
+    KV, hd), GQA, scores and softmax in float32, the output in q's dtype.
+    The port's paths do not call it: ``models/encdec.py`` runs its unmasked
+    attention through ``kernels.ops`` (the kernels on the card, their plain
+    versions on the CPU). It is the reference the tests hold those paths
+    against."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qr = q.reshape(B, Sq, KV, H // KV, hd).float()
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qr, k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqj,bjkd->bkgqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 # ---------------------------------------------------------------------------
 # KV caches

@@ -1,11 +1,13 @@
-"""Decoder-only transformer, dense and MoE families (PyTorch).
+"""Decoder-only transformer, dense, MoE and VLM families (PyTorch).
 
 Counterpart of the JAX package's ``models/transformer.py`` for dense
-targets (qwen2, gemma, gemma2, minitron) and MoE targets (dbrx, llama4).
+targets (qwen2, gemma, gemma2, minitron), MoE targets (dbrx, llama4) and
+the VLM target (internvl2).
 The JAX model scans super-blocks; here the layers are a Python list and the
 forward is a loop. Parameters are plain dicts of tensors:
 
-    {"embed": (V, D), "final_norm": (D,)[, "lm_head": (D, V)],
+    {"embed": (V, D), "final_norm": (D,)[, "lm_head": (D, V)]
+     [, "vis_proj": {"w1": (vision_dim, D), "w2": (D, D)}],
      "blocks": [{"ln1", "ln2"[, "pn1", "pn2"],
                  "attn": {wq, wk, wv, wo[, bq, bk, bv]},
                  "mlp": {[w_gate,] w_up, w_down}
@@ -25,13 +27,22 @@ holds ``"moe"`` (``models/moe.py``) in place of ``"mlp"``, and the output's
 ``aux`` sums the layers' ``lb_loss`` and ``z_loss``; with
 ``cfg.nope_on_global`` a global layer takes no RoPE.
 
+A VLM target's train and prefill take ``vision_embeds`` (B, Tv,
+vision_dim), the stub vision encoder's output: projected by ``vis_proj``
+(``gelu(x @ w1) @ w2``) and prepended to the text embeddings (early
+fusion), so the sequence, its positions and its logits and taps cover Tv +
+S; a decode continues at positions past that. With ``cfg.positional ==
+"sinusoidal"`` absolute sinusoidal positions are added at the embedding and
+no RoPE is applied.
+
 Attention goes through ``kernels.ops``: the flash kernel for the prefill,
 the decode kernel for both phases of the two-phase decode. Given a block
 table, a decode reads paged caches (``layers.paged_view`` layout): phase 1
 of a layer whose cache is a pool goes through the paged decode kernel; a
-ring stays per slot and goes through the decode kernel. Sinusoidal
-positions raise ``NotImplementedError``, and so does, on the card, a head
-dim the kernels do not take.
+ring stays per slot and goes through the decode kernel. A layer of kind
+"full" (the encoder of ``models/encdec.py``) attends to every key: the
+flash kernel without the causal mask. On the card a head dim the kernels
+do not take raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -68,14 +80,13 @@ def tap_layers(n_layers: int, num_taps: int = 3):
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
-    """Raise NotImplementedError for what this port does not carry yet of
-    a dense or MoE target (``models/registry.py`` gates the family): other
-    positions than RoPE; on a CUDA ``device`` also for a head dim the
+    """Raise NotImplementedError, on a CUDA ``device``, for a head dim the
     attention kernels do not take (checked before any weight or cache is
-    made)."""
-    if cfg.positional != "rope":
+    made; ``models/registry.py`` gates the family). Positions are RoPE or
+    sinusoidal."""
+    if cfg.positional not in ("rope", "sinusoidal"):
         raise NotImplementedError(
-            f"{cfg.arch_id}: not ported yet: positional {cfg.positional!r}")
+            f"{cfg.arch_id}: unknown positional {cfg.positional!r}")
     if (device is not None and torch.device(device).type == "cuda"
             and cfg.head_dim not in ops.HEAD_DIMS):
         raise NotImplementedError(
@@ -92,9 +103,10 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
 def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
                positions: Tensor, cache: Optional[dict], mode: str,
                block_table: Optional[Tensor] = None):
-    """kind: global | local. mode: train | prefill | decode. Returns (out,
-    cache); a cache is updated in place. ``block_table`` (B, nb): a cache
-    that is not a ring is a page pool (decode only)."""
+    """kind: global | local | full (every key, train mode: the encoder's).
+    mode: train | prefill | decode. Returns (out, cache); a cache is
+    updated in place. ``block_table`` (B, nb): a cache that is not a ring
+    is a page pool (decode only)."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -104,7 +116,8 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q, k, v = q.reshape(B, T, H, hd), k.reshape(B, T, KV, hd), \
         v.reshape(B, T, KV, hd)
-    if not (kind == "global" and cfg.nope_on_global):
+    if cfg.positional == "rope" and not (kind == "global"
+                                         and cfg.nope_on_global):
         sin, cos = L.rope_sincos(positions, hd, cfg.rope_theta)
         q, k = L.apply_rope(q, sin, cos), L.apply_rope(k, sin, cos)
     scale = cfg.q_scale()
@@ -131,7 +144,8 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
             ins = min(T, cache["k"].shape[1])
             L.cache_update(cache, k[:, -ins:], v[:, -ins:],
                            positions[:, T - ins])
-        out = ops.flash_attention(q, k, v, scale=scale, causal=True, **mask)
+        out = ops.flash_attention(q, k, v, scale=scale,
+                                  causal=kind != "full", **mask)
     return out.reshape(B, T, H * hd) @ p["wo"], cache
 
 
@@ -163,8 +177,9 @@ def cache_phase(q: Tensor, cache: dict, positions: Tensor,
 # parameters and caches
 # ---------------------------------------------------------------------------
 
-def _layer_init(cfg: ModelConfig, layer_idx: int, g: torch.Generator, device,
-                dtype) -> dict:
+def attn_init(cfg: ModelConfig, g: torch.Generator, device, dtype,
+              qkv_bias: bool) -> dict:
+    """One attention layer's projections (and zero biases)."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def dense(shape):
@@ -172,10 +187,16 @@ def _layer_init(cfg: ModelConfig, layer_idx: int, g: torch.Generator, device,
 
     attn = {"wq": dense((d, H * hd)), "wk": dense((d, KV * hd)),
             "wv": dense((d, KV * hd)), "wo": dense((H * hd, d))}
-    if cfg.qkv_bias:
+    if qkv_bias:
         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             attn[name] = torch.zeros(n, dtype=dtype, device=device)
-    layer = {"attn": attn}
+    return attn
+
+
+def _layer_init(cfg: ModelConfig, layer_idx: int, g: torch.Generator, device,
+                dtype) -> dict:
+    d = cfg.d_model
+    layer = {"attn": attn_init(cfg, g, device, dtype, cfg.qkv_bias)}
     if cfg.is_moe_layer(layer_idx):
         layer["moe"] = moe_init(d, cfg.d_ff, cfg.moe.n_experts,
                                 cfg.moe.n_shared_experts, cfg.mlp_variant, g,
@@ -206,6 +227,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         params["lm_head"] = L.dense_init((cfg.d_model, cfg.vocab_size),
                                          generator, device=device,
                                          dtype=dtype)
+    if cfg.family == "vlm":     # drawn after the head, as in the JAX package
+        params["vis_proj"] = {
+            "w1": L.dense_init((cfg.vision_dim, cfg.d_model), generator,
+                               device=device, dtype=dtype),
+            "w2": L.dense_init((cfg.d_model, cfg.d_model), generator,
+                               device=device, dtype=dtype)}
     return params
 
 
@@ -244,27 +271,38 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
             mode: str = "train", collect_taps: bool = True,
             head_last_only: bool = False,
             head_positions: Optional[Tensor] = None,
-            block_table: Optional[Tensor] = None) -> ModelOutput:
+            block_table: Optional[Tensor] = None,
+            vision_embeds: Optional[Tensor] = None) -> ModelOutput:
     """tokens (B, S) int. ``positions`` (B, S) int32 is required in decode
     mode; train/prefill attend by index (the flash kernel's causal mask),
-    so they take the default positions 0..S-1 only. ``head_positions``
-    (B,) restricts the LM head to one sequence index per row,
-    ``head_last_only`` to the last one. ``block_table`` (B, nb) makes the
-    cache's layers that are not rings page pools (decode mode only)."""
+    so they take the default positions 0..S-1 only (0..Tv+S-1 with a VLM
+    target's ``vision_embeds`` (B, Tv, vision_dim) prepended).
+    ``head_positions`` (B,) restricts the LM head to one sequence index
+    per row (an index into the fused sequence), ``head_last_only`` to the
+    last one. ``block_table`` (B, nb) makes the cache's layers that are not
+    rings page pools (decode mode only)."""
     check_supported(cfg)
-    B, S = tokens.shape
-    if mode == "decode":
-        if positions is None or cache is None:
-            raise ValueError("decode mode needs positions and a cache")
-    elif positions is not None or block_table is not None:
+    B = tokens.shape[0]
+    if mode == "decode" and (positions is None or cache is None):
+        raise ValueError("decode mode needs positions and a cache")
+    if mode != "decode" and (positions is not None
+                             or block_table is not None):
         raise ValueError(f"{mode} attends by index: positions and "
                          f"block_table must be None")
-    else:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
     x = params["embed"][tokens]
     if cfg.embed_scale:   # sqrt(d) cast to the activation dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if cfg.family == "vlm" and vision_embeds is not None:
+        vp = params["vis_proj"]
+        vis = F.gelu(vision_embeds.to(x.dtype) @ vp["w1"],
+                     approximate="tanh") @ vp["w2"]
+        x = torch.cat([vis, x], dim=1)
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    if cfg.positional == "sinusoidal":
+        x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     taps_idx = tap_layers(cfg.n_layers)
     taps = [None] * len(taps_idx)
     new_blocks = [] if cache is not None else None

@@ -126,6 +126,49 @@ def uniform(keys: Tensor, shape: Sequence[int], minval: float = 0.0,
     return torch.maximum(lo, (floats.double() * span + lo.double()).float())
 
 
+# XLA's float32 erf_inv (M. Giles, "Approximating the erfinv function"):
+# a degree-8 polynomial in w = -log1p(-x^2), centred at 2.5 below w = 5 and
+# in sqrt(w) - 3 above
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: Tensor) -> Tensor:
+    """float32 inverse error function, XLA's polynomial in torch ops. Each
+    Horner step ``c + p * w`` is rounded once, as XLA's fused multiply-add
+    rounds it (the float64 product of two float32 values is exact);
+    erf_inv(+-1) is +-inf."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    # the square root in float64, rounded once to float32 (correctly
+    # rounded; torch's float32 sqrt on the CPU is not always, and varies
+    # between processes)
+    w = torch.where(lt, w - 2.5,
+                    torch.sqrt(w.double()).float() - 3.0).double()
+    lt5, ge5 = (torch.tensor(c, dtype=torch.float32, device=x.device)
+                for c in (_ERFINV_LT5, _ERFINV_GE5))
+    p = torch.where(lt, lt5[0], ge5[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        c = torch.where(lt, lt5[i], ge5[i])
+        p = (c.double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(keys: Tensor, shape: Sequence[int]) -> Tensor:
+    """(..., *shape) float32 standard normal, per key: ``sqrt(2) *
+    erf_inv(u)`` with u uniform in [nextafter(-1, 0), 1), as
+    ``jax.random.normal`` draws it."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(keys, shape, lo, 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32,
+                        device=keys.device) * erf_inv(u)
+
+
 def gumbel(keys: Tensor, shape: Sequence[int]) -> Tensor:
     """(..., *shape) float32 standard Gumbel noise, per key."""
     return -torch.log(-torch.log(uniform(keys, shape, TINY, 1.0)))

@@ -65,6 +65,18 @@ exclusively owned pages and per-slot rows in pinned host memory
 (``cache_ops.HostPagePool``) and restores them bitwise; pages shared with
 the prefix cache stay resident under the handle's reference. Sharding is
 not ported yet.
+
+A VLM or encoder-decoder target takes per-request modality inputs,
+``extras`` (``models/registry.make_extras``: ``vision_embeds`` or
+``encoder_embeds``, leading batch axis the prefill's), through ``prefill``,
+``run`` and ``prefill_into_slot`` into its prefill; no step reads them
+again (an encoder-decoder target's cross K/V sits in its cache). A VLM
+target's vision tokens take the first ``pos_offset`` (``vision_tokens``)
+positions of every row: the prompt's tokens sit at ``pos_offset..``, the
+first generated one at ``P + pos_offset``, the drafter extends over the
+text region only, and pages and the bucket guard count the offset. The
+prefix cache is built for the dense family alone, so neither of these
+ever hits.
 """
 from __future__ import annotations
 
@@ -80,7 +92,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import DrafterConfig, ModelConfig
 from repro_torch.core import drafter as D
 from repro_torch.core import spec_decode as SD
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import extras_on, get_model
 from repro_torch.serving import cache_ops
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import (SamplingParams,
@@ -294,6 +306,8 @@ class Engine:
         self.tcfg, self.dcfg, self.ecfg, self.batch = tcfg, dcfg, ecfg, batch
         # refuses, before any weight moves, what the device's kernels lack
         self.model = get_model(tcfg, self.device)
+        # a VLM target's vision tokens precede every row's prompt
+        self.pos_offset = tcfg.vision_tokens if tcfg.family == "vlm" else 0
         self.tparams = _to(tparams, self.device)
         self.dparams = _to(dparams, self.device)
         self.last_logprob = 0.0     # of the last admission's first token
@@ -348,81 +362,92 @@ class Engine:
     # prefill
     # ------------------------------------------------------------------
     def _prefill_rows(self, prompts: Tensor, true_len: int, samp: dict,
-                      greedy: bool) -> dict:
+                      greedy: bool, extras: Optional[dict] = None) -> dict:
         """A fresh contiguous state for ``prompts`` (B, Pb), whose first
         ``true_len`` tokens are real and the rest right-padding (Pb ==
-        true_len: none), under the policy rows ``samp``. Causal attention
-        leaves the real positions blind to the pads; the head reads
-        position true_len - 1, which commits the first generated token (the
+        true_len: none), under the policy rows ``samp``, with the target's
+        ``extras``. Causal attention leaves the real positions blind to the
+        pads; the head reads the last real position, which commits the
+        first generated token at ``fused = true_len + pos_offset`` (the
         argmax for greedy rows, a draw from the warped target keyed by
-        ``fold_in(seed, true_len)`` for sampled ones; ``greedy`` says every
+        ``fold_in(seed, fused)`` for sampled ones; ``greedy`` says every
         row is greedy and skips the warp), and the pads' cache entries are
         invalidated afterwards."""
         B, Pb = prompts.shape
-        P = true_len
+        off = self.pos_offset
+        fused = true_len + off         # positions 0..fused-1 are real
         state = self._state_template(B, device=self.device, sampling=samp)
-        hp = torch.full((B,), P - 1, dtype=torch.int32, device=self.device)
+        hp = torch.full((B,), fused - 1, dtype=torch.int32,
+                        device=self.device)
         out = self.model.forward(self.tparams, prompts, mode="prefill",
                                  cache=state["tcache"], collect_taps=True,
-                                 head_positions=hp)
+                                 head_positions=hp, **(extras or {}))
         head = out.logits[:, 0]
         if greedy:
             first = head.argmax(-1).to(torch.int32)
         else:
-            first = SD.sample_token(step_keys(samp, P), head,
+            first = SD.sample_token(step_keys(samp, fused), head,
                                     samp["temperature"], samp["top_k"],
                                     samp["top_p"])
-        state["tokens"][:, :Pb] = prompts
-        state["tokens"][:, P] = first
-        state["logprobs"][:, P] = _token_logprob(head, first)
-        state["last"].fill_(P)
-        state["taps_last"] = out.taps[:, P - 1].contiguous()
+        state["tokens"][:, off:off + Pb] = prompts
+        state["tokens"][:, fused] = first
+        state["logprobs"][:, fused] = _token_logprob(head, first)
+        state["last"].fill_(fused)
+        state["taps_last"] = out.taps[:, fused - 1].contiguous()
         state["tcache"] = out.cache
-        cp = torch.full((B,), P - 1, dtype=torch.int32, device=self.device)
-        if Pb > P:
+        cp = torch.full((B,), fused - 1, dtype=torch.int32,
+                        device=self.device)
+        if Pb > true_len:
             cache_ops.commit(state["tcache"], cp)
         if self.ecfg.drafter_mode != "none" and Pb > 1:
-            pos = torch.arange(Pb - 1, dtype=torch.int32,
-                               device=self.device)[None].repeat(B, 1)
-            # drafter position p pairs taps[p] with token p + 1
+            pos = off + torch.arange(Pb - 1, dtype=torch.int32,
+                                     device=self.device)[None].repeat(B, 1)
+            # drafter position p pairs taps[p] with token p + 1, over the
+            # text region
             D.extend(self.dcfg, self.tcfg, self.dparams, state["dcache"],
-                     prompts[:, 1:], out.taps[:, :Pb - 1], pos)
-            if Pb > P:
+                     prompts[:, 1:], out.taps[:, off:off + Pb - 1], pos)
+            if Pb > true_len:
                 cache_ops.commit(state["dcache"], cp - 1)
         return state
 
-    def prefill(self, prompts,
+    def prefill(self, prompts, extras: Optional[dict] = None,
                 sampling: Optional[SamplingParams] = None) -> dict:
-        """Whole-batch prefill of ``prompts`` (B, P): a fresh contiguous
-        decode state committing the first generated token per row, every
-        row under ``sampling`` (default ``ecfg.sampling``)."""
+        """Whole-batch prefill of ``prompts`` (B, P) with the target's
+        ``extras`` (leading axis B): a fresh contiguous decode state
+        committing the first generated token per row, every row under
+        ``sampling`` (default ``ecfg.sampling``)."""
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                   device=self.device)
         B, P = prompts.shape
         if B != self.batch:
             raise ValueError(f"{B} prompts for an engine of batch {self.batch}")
         K = self.ecfg.K if self.ecfg.drafter_mode != "none" else 0
-        if P + self.ecfg.max_new_tokens + K > self.ecfg.max_len:
+        if P + self.pos_offset + self.ecfg.max_new_tokens + K \
+                > self.ecfg.max_len:
             raise ValueError(
-                f"prompt {P} + max_new_tokens {self.ecfg.max_new_tokens} + "
-                f"K {K} exceeds max_len {self.ecfg.max_len}")
+                f"prompt {P} + offset {self.pos_offset} + max_new_tokens "
+                f"{self.ecfg.max_new_tokens} + K {K} exceeds max_len "
+                f"{self.ecfg.max_len}")
         sp = sampling or self.ecfg.sampling
         samp = batch_sampling_state(sp, B, device=self.device)
         with torch.no_grad():
-            return self._prefill_rows(prompts, P, samp, sp.is_greedy)
+            return self._prefill_rows(prompts, P, samp, sp.is_greedy,
+                                      extras_on(extras, self.device))
 
     def prefill_bucket(self, length: int) -> int:
         """Tokens the padded admission prefill of a ``length``-token prompt
         runs: the next power of two, or the exact length where bucketing is
-        off or the bucket would reach max_len. (A pad-unsafe target chunks
-        instead: ``_admission_prefill``.)"""
+        off or the bucket, after a VLM target's vision tokens, would reach
+        max_len. (A pad-unsafe target chunks instead:
+        ``_admission_prefill``.)"""
         pb = 1 << max(length - 1, 0).bit_length()
-        if not self.ecfg.bucket_prefill or pb >= self.ecfg.max_len:
+        if (not self.ecfg.bucket_prefill
+                or self.pos_offset + pb >= self.ecfg.max_len):
             return length
         return pb
 
-    def _admission_prefill(self, prompt: Tensor,
-                           sp: SamplingParams) -> dict:
+    def _admission_prefill(self, prompt: Tensor, sp: SamplingParams,
+                           extras: Optional[dict] = None) -> dict:
         """The batch-1 state of an admission. Bucketed: padded to
         ``prefill_bucket``, or, for a pad-unsafe target (a pad past a ring's
         window would evict live prompt entries; a recurrent target would
@@ -434,10 +459,10 @@ class Engine:
         samp = batch_sampling_state(sp, 1, device=self.device)
         if not (self.chunk_only and self.ecfg.bucket_prefill):
             padded = F.pad(prompt, (0, self.prefill_bucket(P) - P))
-            return self._prefill_rows(padded, P, samp, sp.is_greedy)
+            return self._prefill_rows(padded, P, samp, sp.is_greedy, extras)
         sizes = self.prefill_buckets(P)
         src = self._prefill_rows(prompt[:, :sizes[0]], sizes[0], samp,
-                                 sp.is_greedy)
+                                 sp.is_greedy, extras)
         start = sizes[0]
         for c in sizes[1:]:
             self._chunk(src, prompt[:, start:start + c], start, sp.is_greedy)
@@ -499,7 +524,8 @@ class Engine:
         if not self.paged:
             return 0
         budget = self.ecfg.max_new_tokens if max_new is None else max_new
-        return self.pages_for(prompt_len + budget + self.ecfg.K + 1)
+        return self.pages_for(prompt_len + self.pos_offset + budget
+                              + self.ecfg.K + 1)
 
     def initial_pages(self, prompt_len: int,
                       max_new: Optional[int] = None, *,
@@ -513,8 +539,8 @@ class Engine:
             return 0
         if not self.incremental:
             return self.pages_needed(prompt_len, max_new)
-        return self.pages_for(prompt_len + self.commit_stride
-                              - (1 if resume else 0))
+        return self.pages_for(prompt_len + self.pos_offset
+                              + self.commit_stride - (1 if resume else 0))
 
     def can_admit(self, prompt_len: int, max_new: Optional[int] = None,
                   full: bool = False, tokens=None,
@@ -591,10 +617,12 @@ class Engine:
     def prefill_into_slot(self, state: dict, prompt, slot: int,
                           max_new: Optional[int] = None,
                           sampling: Optional[SamplingParams] = None,
-                          resume: bool = False):
+                          resume: bool = False,
+                          extras: Optional[dict] = None):
         """Admit one request into slot ``slot`` of a live state: prefill
         ``prompt`` (1-D) as a batch-1 state (bucketed) under the request's
-        policy ``sampling`` (default ``ecfg.sampling``), then write its row,
+        policy ``sampling`` (default ``ecfg.sampling``) with the target's
+        ``extras`` (leading axis 1), then write its row,
         the policy row included, into the slot, in place; other slots are
         untouched. Paged: the slot first claims ``initial_pages`` pages
         (callers gate on ``can_admit``) and the prefilled caches are
@@ -624,9 +652,10 @@ class Engine:
         sp = sampling or self.ecfg.sampling
         self._slot_sampled[slot] = not sp.is_greedy
         self.last_hit_tokens = 0
+        extras = extras_on(extras, self.device)
         with torch.no_grad():
             if not self.paged:
-                src = self._admission_prefill(prompt, sp)
+                src = self._admission_prefill(prompt, sp, extras)
                 cache_ops.write_slot(state, _resume_fixup(src, res_tok), slot)
             else:
                 if self._slot_pages[slot]:
@@ -650,7 +679,7 @@ class Engine:
                             "can_admit")
                     self._slot_pages[slot] = pages
                     row = self._table_row(pages)
-                    src = self._admission_prefill(prompt, sp)
+                    src = self._admission_prefill(prompt, sp, extras)
                     cache_ops.admit_pages(self._core(state),
                                           _resume_fixup(src, res_tok), slot,
                                           row, self.pspec)
@@ -1085,10 +1114,12 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, prompts, sampling: Optional[SamplingParams] = None,
+    def run(self, prompts, extras: Optional[dict] = None,
+            sampling: Optional[SamplingParams] = None,
             max_iters: int = 10_000) -> Dict[str, Any]:
-        """Prefill, then step until every row has its ``max_new_tokens``
-        (checked every 8 steps, as the JAX engine does), every row under
+        """Prefill (with the target's ``extras``, leading axis B), then step
+        until every row has its ``max_new_tokens`` (checked every 8 steps,
+        as the JAX engine does), every row under
         ``sampling`` (default ``ecfg.sampling``; a greedy policy takes the
         greedy-only lane). ``steps`` counts the step calls, ``iterations``
         those in which some row was live. Contiguous only: a paged engine
@@ -1099,7 +1130,7 @@ class Engine:
                              "serving.scheduler.Scheduler")
         sp = sampling or self.ecfg.sampling
         t0 = time.perf_counter()
-        state = self.prefill(prompts, sampling=sp)
+        state = self.prefill(prompts, extras, sampling=sp)
         self._sync()
         t_prefill = time.perf_counter() - t0
 

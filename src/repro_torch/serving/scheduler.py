@@ -64,6 +64,7 @@ from __future__ import annotations
 import bisect
 import itertools
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -71,6 +72,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
+from repro_torch.models.registry import make_extras, takes_extras
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.speculation import (SpeculationConfig,
@@ -93,10 +96,15 @@ class Request:
     ``ecfg.sampling``). The budget is ``max_new_tokens``, else
     ``sampling.max_new_tokens``, else the engine's default.
     ``arrival_time`` is in virtual time units (wall seconds since the
-    session opened, under the streaming driver)."""
+    session opened, under ``AsyncEngine``). ``extras`` carries the
+    request's modality inputs (vision or encoder embeds, leading batch axis
+    1, as ``models.registry.make_extras(cfg, 1, "prefill", key)`` builds
+    them); a VLM or encoder-decoder request without them gets a
+    deterministic stub keyed by its prompt at its first admission."""
     prompt: Any
     max_new_tokens: Optional[int] = None
     arrival_time: float = 0.0
+    extras: Optional[dict] = None
     sampling: Optional[SamplingParams] = None
     rid: int = field(default_factory=lambda: next(_rid_counter))
     # lifecycle (managed by the scheduler)
@@ -272,8 +280,10 @@ class Scheduler:
             r.max_new_tokens = (r.sampling.max_new_tokens
                                 if r.sampling.max_new_tokens is not None
                                 else eng.ecfg.max_new_tokens)
-        # prompt + budget + the worst speculative overshoot must fit
-        if r.prompt.size + r.max_new_tokens + eng.ecfg.K + 1 > eng.ecfg.max_len:
+        # prompt (after a VLM target's vision tokens) + budget + the worst
+        # speculative overshoot must fit
+        if (r.prompt.size + eng.pos_offset + r.max_new_tokens + eng.ecfg.K
+                + 1 > eng.ecfg.max_len):
             raise ValueError(
                 f"request {r.rid}: prompt {r.prompt.size} + max_new_tokens "
                 f"{r.max_new_tokens} (+K overshoot) exceeds max_len "
@@ -506,10 +516,19 @@ class Scheduler:
         first_admission = req.vt_admit is None
         if first_admission:
             req.vt_admit = self._clock
+        if req.extras is None and takes_extras(eng.tcfg):
+            # deterministic stub frontend inputs keyed by the prompt (not
+            # the rid), so re-serving a workload with fresh Requests replays
+            # them; kept on the request, so a preemption's resume (a longer
+            # prompt) replays them too
+            seed = zlib.crc32(req.prompt.tobytes()) & 0x7FFFFFFF
+            req.extras = make_extras(
+                eng.tcfg, 1, "prefill",
+                prng.fold_in(prng.PRNGKey(0, device=eng.device), seed))
         self._event("admit", req.rid)
         self._state, first, last = eng.prefill_into_slot(
             self._state, prompt, s, max_new=remaining, sampling=req.sampling,
-            resume=resume)
+            resume=resume, extras=req.extras)
         if first_admission:
             # after the prefill's readback of its last position, so the
             # stamp marks a committed admission, not a queued launch
@@ -583,7 +602,8 @@ class Scheduler:
                 if not self._active[s]:      # already evicted this pass
                     continue
                 req = self._slot_req[s]
-                cap = req.prompt.size + req.max_new_tokens + eng.ecfg.K + 1
+                cap = (req.prompt.size + eng.pos_offset + req.max_new_tokens
+                       + eng.ecfg.K + 1)
                 # a step at position c writes KV c..c+stride-1 and moves c by
                 # at most stride, so sync_every steps need exactly
                 # last + sync_every * stride positions; under adaptive K the

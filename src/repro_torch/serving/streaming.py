@@ -175,10 +175,12 @@ class AsyncEngine:
     # client API
     # ------------------------------------------------------------------
     async def submit(self, prompt, sampling_params: Optional[SamplingParams]
-                     = None, max_new_tokens: Optional[int] = None
-                     ) -> StreamHandle:
+                     = None, max_new_tokens: Optional[int] = None,
+                     extras: Optional[dict] = None) -> StreamHandle:
         """Await a backpressure ticket, queue the request and return its
-        :class:`StreamHandle`. A request that could never be served
+        :class:`StreamHandle`. ``extras``: the request's modality inputs
+        (``Request.extras``; a VLM or encoder-decoder request without them
+        gets the prompt-keyed stub). A request that could never be served
         (budget past ``max_len`` or the pool) raises ValueError and gives
         its ticket back."""
         await self.start()
@@ -193,7 +195,8 @@ class AsyncEngine:
                 raise self._error
             sched._advance(0.0)          # read the wall clock
             req = Request(prompt, max_new_tokens=max_new_tokens,
-                          arrival_time=sched._clock, sampling=sampling_params)
+                          arrival_time=sched._clock, extras=extras,
+                          sampling=sampling_params)
             sched._prepare(req)
         except BaseException:
             self._sem.release()
@@ -208,11 +211,13 @@ class AsyncEngine:
 
     async def generate(self, prompt,
                        sampling_params: Optional[SamplingParams] = None,
-                       max_new_tokens: Optional[int] = None
+                       max_new_tokens: Optional[int] = None,
+                       extras: Optional[dict] = None
                        ) -> AsyncIterator[Tuple[int, float]]:
         """Stream one completion, ``(token, logprob)`` as each sync commits.
         Closing the iterator early aborts the request."""
-        handle = await self.submit(prompt, sampling_params, max_new_tokens)
+        handle = await self.submit(prompt, sampling_params, max_new_tokens,
+                                   extras)
         try:
             async for tok, lp in handle:
                 yield tok, lp

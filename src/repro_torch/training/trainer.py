@@ -18,6 +18,11 @@ its attention is the flash kernel on the card), ``loss`` (the drafter
 forward; its attention is the MTP kernel on the card), ``grads`` (the
 backward) and ``apply`` (AdamW). The drafter parameters stay float32.
 
+A VLM or encoder-decoder target's taps forward takes the trainer's
+``extras`` (its modality inputs, leading axis the batch's); a VLM
+target's taps cover [vision, text], and the drafter's positions index the
+text region, so they are sliced to it.
+
 The regularized variant's dropout keys are the JAX trainer's: the stream
 starts at ``fold_in(PRNGKey(seed), 7)`` and is split once per forward (a
 whole batch, or each segment), so its masks are the reference's.
@@ -36,7 +41,7 @@ from repro_torch.configs.base import DrafterConfig, ModelConfig
 from repro_torch.core import drafter as D
 from repro_torch.core import losses
 from repro_torch.data.pipeline import MTPBatch, MTPPipeline
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import extras_on, get_model
 from repro_torch.optim import (GradAccumulator, adamw_init, adamw_update,
                                apply_updates, linear_warmup_schedule)
 from repro_torch.serving.engine import resolve_device
@@ -68,15 +73,19 @@ class Trainer:
         regularized variant's dropout key stream.
       dparams: initial drafter parameters; drawn from ``seed`` if None.
       device: "cuda" (the default) or "cpu"; a missing card raises.
+      extras: the target's modality inputs for every batch (a VLM or
+        encoder-decoder target), leading axis the batch's.
     """
 
     def __init__(self, tcfg: ModelConfig, dcfg: DrafterConfig, tparams: dict,
                  tc: TrainConfig, *, seed: int = 0,
-                 dparams: Optional[dict] = None, device="cuda"):
+                 dparams: Optional[dict] = None, device="cuda",
+                 extras: Optional[dict] = None):
         self.device = resolve_device(device)
         self.tcfg, self.dcfg, self.tc = tcfg, dcfg, tc
         self.model = get_model(tcfg)
         self.tparams = tree_map(lambda t: t.to(self.device), tparams)
+        self.extras = extras_on(extras, self.device)
         if dparams is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             dparams = D.init_params(dcfg, tcfg, gen, device=self.device)
@@ -103,12 +112,14 @@ class Trainer:
     # -- the four stages of a step ------------------------------------------
 
     def taps(self, tokens: Tensor) -> Tensor:
-        """Target taps (B, n, 3·D_t), no gradient. Only the taps are used,
-        so the LM head runs on the last position alone."""
+        """Target taps (B, n, 3·D_t) of the text region, no gradient. Only
+        the taps are used, so the LM head runs on the last position
+        alone."""
         with torch.no_grad():
-            return self.model.forward(self.tparams, tokens, mode="train",
-                                      collect_taps=True,
-                                      head_last_only=True).taps
+            taps = self.model.forward(self.tparams, tokens, mode="train",
+                                      collect_taps=True, head_last_only=True,
+                                      **self.extras).taps
+        return taps[:, -tokens.shape[1]:]
 
     def loss(self, params: dict, tokens: Tensor, taps: Tensor, pos: Tensor,
              depth: Tensor, labels: Tensor, rng: Optional[Tensor] = None):

@@ -100,6 +100,15 @@ def _tol(dtype):
     (8, 6, 40, 8, 128, 1024, 600, 0),      # target verify, phase 1
     (2, 6, 40, 8, 128, 9000, 8800, 8192),  # a local layer past its window
     (8, 5, 40, 40, 128, 1024, 600, 0),     # drafter draft, phase 1
+    # internvl2-1b: GQA 14/2 at head dim 64, its rows 256 vision positions
+    # in; its drafter 7/7 of 128
+    (8, 6, 14, 2, 64, 1024, 832, 0),       # target verify, phase 1
+    (8, 6, 14, 2, 64, 6, 6, 0),            # ... phase 2
+    (8, 5, 7, 7, 128, 1024, 831, 0),       # drafter draft, phase 1
+    # whisper-base's decoder: MHA 8/8 at head dim 64 over 448 slots; its
+    # drafter 4/4 of 128
+    (8, 6, 8, 8, 64, 448, 320, 0),         # self-attention verify, phase 1
+    (8, 5, 4, 4, 128, 448, 319, 0),        # drafter draft, phase 1
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
                                      window):
@@ -124,6 +133,29 @@ def test_decode_kernel_matches_plain(card, dtype, B, T, H, KV, hd, S, valid,
     dead = (l == 0).permute(0, 3, 1, 2).reshape(B, T, H)   # rows seeing no key
     if dead.any():
         assert out[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,qpos0", [(8, 6, 192), (1, 128, 0), (2, 1, 447)])
+def test_decode_kernel_keys_at_position_zero(card, dtype, B, T, qpos0):
+    """whisper's decode-mode cross-attention: every one of 1500 encoder keys
+    at position 0 (8/8 heads of 64), so ``0 <= kp <= qp`` admits them all
+    (a verify's 6 queries, an admission chunk's 128, one query at the
+    decoder's last position): the kernel equals its plain version and the
+    unmasked attention (``layers.full_attention``)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = _qkv(g, (B, T, 8, 64), (B, 1500, 8, 64), dtype, card)
+    kpos = torch.zeros((B, 1500), dtype=torch.int32, device=card)
+    qpos = (qpos0 + torch.arange(T, dtype=torch.int32, device=card))[
+        None].repeat(B, 1).contiguous()
+    out = ops.decode_attention(q, k, v, kpos, qpos, scale=0.125)
+    torch.cuda.synchronize()
+    atol, rtol = _tol(dtype)
+    for want in (ops.decode_attention_plain(q, k, v, kpos, qpos, scale=0.125),
+                 L.full_attention(q, k, v, scale=0.125)):
+        torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                                   rtol=rtol)
 
 
 @pytest.mark.parametrize("T,H,KV,valid", [
@@ -190,6 +222,13 @@ def test_decode_serving_shapes_split_and_count_once(card, T, H, KV, valid):
     (8, 512, 512, 40, 8, 128, True, 8192, 0.0, 0),  # llama4 local prefill
     (1, 8400, 8400, 40, 8, 128, True, 8192, 0.0, 0),  # ... past the window
     (8, 512, 512, 40, 8, 128, True, 0, 0.0, 0),    # ... its global layer
+    # whisper-base, 8/8 heads of 64, not causal over its 1500 frames (a
+    # ragged query and key tile): the encoder, a prefill's cross-attention
+    # and a verify's 6 queries
+    (8, 1500, 1500, 8, 8, 64, False, 0, 0.0, 0),
+    (8, 128, 1500, 8, 8, 64, False, 0, 0.0, 0),
+    (8, 6, 1500, 8, 8, 64, False, 0, 0.0, 0),
+    (8, 768, 768, 14, 2, 64, True, 0, 0.0, 0),     # internvl2's fused prefill
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, Sq, Skv, H, KV, hd,
                                     causal, window, cap, kv_len):
@@ -415,6 +454,10 @@ def _paged_check(inp, dtype):
     (8, 5, 48, 48, 128, 513, 16, 64),   # ... its drafter's draft
     (8, 6, 40, 8, 128, 513, 16, 64),    # llama4 verify, GQA 40/8
     (8, 5, 40, 40, 128, 513, 16, 64),   # ... its drafter's draft
+    (8, 6, 14, 2, 64, 641, 16, 80),     # internvl2 verify at max_len 1280
+    (8, 5, 7, 7, 128, 641, 16, 80),     # ... its drafter's draft
+    (8, 6, 8, 8, 64, 225, 16, 28),      # whisper self-attention verify
+    (8, 5, 4, 4, 128, 225, 16, 28),     # ... its drafter's draft
 ])
 def test_paged_kernel_matches_plain(card, dtype, B, T, H, KV, hd, NP, page,
                                     nb):
@@ -626,6 +669,61 @@ def test_moe_apply_on_card_equals_cpu(card, arch):
         assert err <= 1e-4, err
         assert torch.equal(got, again)
     assert any(drops), "the published routing dropped nothing"
+
+
+def test_encdec_forward_on_card_equals_cpu(card):
+    """whisper-base at full width cut to 2 encoder and 2 decoder layers, in
+    float32, batch 2 over 1500 stub frames: train and prefill (the encoder
+    and the cross-attention through non-causal flash), then a verify block
+    against the prefill's cache (its cross-attention through the decode
+    kernel, keys at position 0) on the card equal the CPU's plain forward:
+    logits within 1e-3 (sums in another order), the cross K/V the prefill
+    cached within 1e-4, and the launches one flash an encoder, self and
+    cross layer at the prefill, 2 decode a self layer and one a cross
+    layer at the verify."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model, make_extras
+    cfg = get_config("whisper-base").replace(n_layers=2, n_encoder_layers=2,
+                                              dtype="float32")
+    model = get_model(cfg, card)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    on = {"cpu": params, "cuda": _to_card(params, card)}
+    ex = make_extras(cfg, 2, "prefill", prng.PRNGKey(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    blk = torch.randint(0, cfg.vocab_size, (2, 6),
+                        generator=torch.Generator().manual_seed(2))
+    pos = (20 + torch.arange(6, dtype=torch.int32))[None].repeat(2, 1)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        d = card if dev == "cuda" else torch.device("cpu")
+        exd = {k: v.to(d) for k, v in ex.items()}
+        ops.reset_launches()
+        with torch.no_grad():
+            train = model.forward(on[dev], toks.to(d), mode="train", **exd)
+            cache = model.make_cache(2, 64, dtype=torch.float32, device=d)
+            pre = model.forward(on[dev], toks.to(d), mode="prefill",
+                                cache=cache, **exd)
+            n_pre = dict(ops.launches)
+            ver = model.forward(on[dev], blk.to(d), mode="decode",
+                                positions=pos.to(d), cache=pre.cache)
+        outs[dev] = (train.logits.cpu(), pre.logits.cpu(), ver.logits.cpu(),
+                     pre.cache["blocks"][1]["cross"]["k"].cpu())
+        if dev == "cuda":
+            assert n_pre["flash_attention"] == 2 * 6      # train + prefill
+            assert ops.launches["decode_attention"] == 2 * 2 + 2
+    for i, got in enumerate(outs["cuda"]):
+        torch.testing.assert_close(got, outs["cpu"][i], rtol=0,
+                                   atol=1e-4 if i == 3 else 1e-3)
+
+
+def _to_card(tree, card):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, card) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v, card) for v in tree]
+    return tree.to(card)
 
 
 def test_engine_lossless_through_kernels(card):

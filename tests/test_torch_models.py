@@ -142,15 +142,16 @@ def test_target_head_selection(setup, head):
 
 
 def test_unsupported_configs_raise():
-    """What stays unported raises: sinusoidal positions (and the vlm and
-    encdec families); the rest of the dense family (softcaps, local
-    attention, post-norms, embedding scale, other MLPs, an untied head),
-    MoE layers and NoPE build, and so do the SSM and the hybrid families,
-    both recurrent."""
+    """What the port does not carry raises: a family it does not know and
+    a positional scheme it does not know. Every family of the JAX package
+    builds: the dense family's variants (softcaps, local attention,
+    post-norms, embedding scale, other MLPs, an untied head), MoE layers
+    and NoPE, sinusoidal positions, the vlm family (through the
+    transformer) and the encdec family, none recurrent; the SSM and the
+    hybrid families, both recurrent."""
     cfg = get_config("qwen2-1.5b").reduced()
     moe = dataclasses.replace(cfg.moe, n_experts=4, top_k=2)
-    for bad in (dict(positional="sinusoidal"),
-                dict(family="vlm"), dict(family="encdec")):
+    for bad in (dict(family="audio"), dict(positional="alibi")):
         with pytest.raises(NotImplementedError):
             get_model(cfg.replace(**bad))
     for ok in (dict(logit_softcap=50.0, final_softcap=30.0),
@@ -158,8 +159,13 @@ def test_unsupported_configs_raise():
                dict(post_norms=True, embed_scale=True),
                dict(mlp_variant="relu2", tie_embeddings=False),
                dict(moe=moe), dict(family="moe", moe=moe),
-               dict(attn_pattern=("local", "global"), nope_on_global=True)):
+               dict(attn_pattern=("local", "global"), nope_on_global=True),
+               dict(positional="sinusoidal")):
         assert not get_model(cfg.replace(**ok)).recurrent
+    for arch, module in (("internvl2-1b", ".transformer"),
+                         ("whisper-base", ".encdec")):
+        m = get_model(get_config(arch).reduced())
+        assert not m.recurrent and m.module.__name__.endswith(module)
     ssm = get_model(get_config("mamba2-780m").reduced())
     assert ssm.recurrent and ssm.module.__name__.endswith(".ssm")
     hyb = get_model(cfg.replace(family="hybrid"))

@@ -215,15 +215,17 @@ def test_head_dims_and_row_tiles():
 def test_card_admits_gemma7b_and_mamba2_and_refuses_other_families(
         card_claimed):
     """On a CUDA device the registry admits gemma-7b, the SSM mamba2-780m,
-    the hybrid recurrentgemma-2b (head dim 256) and the MoE dbrx-132b and
-    llama4-maverick before any weight is made; the vlm and encdec families
-    still raise NotImplementedError."""
+    the hybrid recurrentgemma-2b (head dim 256), the MoE dbrx-132b and
+    llama4-maverick, the VLM internvl2-1b and the encoder-decoder
+    whisper-base (head dim 64) before any weight is made; a family the
+    port does not know still raises NotImplementedError, naming it."""
     from repro_torch.models import registry
     for arch in ("gemma-7b", "mamba2-780m", "recurrentgemma-2b", "dbrx-132b",
-                 "llama4-maverick-400b-a17b"):
+                 "llama4-maverick-400b-a17b", "internvl2-1b",
+                 "whisper-base"):
         assert registry.get_model(get_config(arch), "cuda").cfg.arch_id == arch
     cfg = get_config("qwen2-1.5b")
-    for family in ("vlm", "encdec"):
+    for family in ("audio", "diffusion"):
         with pytest.raises(NotImplementedError, match=family):
             registry.get_model(cfg.replace(family=family), "cuda")
 
