@@ -20,7 +20,9 @@ capacity dispatch, top-4 of 16 experts on every layer), the VLM family:
 internvl2-1b at full width (256 stub vision tokens early-fused before
 every prompt) and the encoder-decoder family: whisper-base at full width
 (a bidirectional encoder over 1500 stub frames, cross-attention through
-the flash and decode kernels).
+the flash and decode kernels), and last the storage-sharded engine and
+the sharded drafter train step on a one-rank nccl group, bitwise the
+unsharded ones.
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -160,7 +162,7 @@ Phases, in order; any failure exits non-zero:
    (first committed token over 2^14 rows against the warped target, one-hot
    and sampled drafts, at the 0.999 quantile);
 3d / 4c. the serving policies: Scheduler.serve of phase 3b's engine
-   (bfloat16) with the prefix cache, swap to a 1 GiB pinned host pool and
+   (bfloat16, on 7 of its 28 layers) with the prefix cache, swap to a 1 GiB pinned host pool and
    adaptive K (the default SpeculationConfig) on shared-prefix traffic: 24
    requests in 3 groups, each group's own 320-token system prompt and a
    unique suffix of 16-256 tokens, then 4 requests repeating an earlier
@@ -332,7 +334,19 @@ Phases, in order; any failure exits non-zero:
    gaps) with paged self-attention (page 16, 28 pages a row, a 112-page
    pool: 14 paged an iteration) and swap to host, a slot's 18.4 MB of
    cross K/V swapped with it;
-12b. whisper-base in float32 at full width: 11b's checks.
+12b. whisper-base in float32 at full width: 11b's checks;
+13. storage-sharded serving and training (``EngineConfig(shard_model=
+   True)``, ``launch/steps.build_train_step``) on a one-rank nccl group the
+   script makes and destroys: full-width qwen2-1.5b in bfloat16 on 7 of 28
+   layers, the 4-layer drafter; Engine.run (batch 8, 512-token prompts, 64
+   new, K 5) bitwise the unsharded engine's, tokens and gathered state,
+   decode and flash launches equal; Scheduler.serve of phase 3b's first 12
+   requests over paged KV (3b's 256-page pool) with swap to host, every
+   stream equal, a swap at least; one train step on a (data 1, model 1)
+   mesh in float32 at n 2048 within atol 2e-5 rtol 2e-4 of the unsharded
+   one (loss, updated weights), the MTP kernel launched; resident bytes,
+   gathers a step and ms a step sharded and unsharded logged beside the
+   card's name and power limit.
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -401,6 +415,9 @@ POLICY_F32_LAYERS = 7       # phase 4c: qwen2-1.5b in float32, of 28
 # with 3c's and 3e's at 14 layers)
 STREAM_LAYERS = 7           # phase 3e: qwen2-1.5b, of 28
 SAMPLED_LAYERS = 7          # phase 3c's bfloat16 runs: qwen2-1.5b, of 28
+# and when phase 13 came in (the storage-sharded engine: the script took
+# 1013.0 s on an H100 80GB HBM3 at 700.00 W, phase 3d at full depth)
+POLICY_LAYERS = 7           # phase 3d: qwen2-1.5b in bfloat16, of 28
 RGEMMA_LAYERS = 14          # phase 9 / 9b: recurrentgemma-2b, of 26 (4
                             # (recurrent, recurrent, attention) + 2)
 # dbrx-132b's layers in phase 10: 8 of 40 (~62 GB with its drafter in
@@ -2350,12 +2367,13 @@ def policy_path(ops, dev, sched3b):
     """Phase 3d: the prefix cache, swap-to-host and adaptive K at full
     width, bfloat16, on shared-prefix traffic."""
     from repro_torch.serving.scheduler import Request, Scheduler
-    log(f"phase 3d: Scheduler.serve, full-width qwen2-1.5b bfloat16, "
+    log(f"phase 3d: Scheduler.serve, full-width qwen2-1.5b bfloat16 on "
+        f"{POLICY_LAYERS} of 28 layers (cut for time), "
         f"parallel K 5, batch 8, max_len 1024, paged: page 16, pool "
         f"{POLICY_POOL} pages; prefix cache, swap to a {HOST_POOL_BYTES} B "
         f"host pool, adaptive K (default SpeculationConfig); traffic "
         f"{POLICY_TRAFFIC}")
-    eng = policy_engine(dev, "bfloat16", True)
+    eng = policy_engine(dev, "bfloat16", True, n_layers=POLICY_LAYERS)
     cfg, V, n_d = eng.tcfg, eng.tcfg.vocab_size, eng.dcfg.n_layers
     # cold run: 8 requests of other prompts, 8-token budgets, all at once;
     # then the cache is flushed so that the measured serve starts cold
@@ -4495,6 +4513,233 @@ def modality_float32(ops, dev, arch, tag):
     return out
 
 
+def sharded_path(ops, dev):
+    """Phase 13: storage-sharded serving and training on a one-rank nccl
+    group (``EngineConfig(shard_model=True)``: weights and K/V rest as
+    slices, gathered a layer at a time before use; a one-rank mesh gathers
+    and writes slices all the same). Full-width qwen2-1.5b on 7 of its 28
+    layers in bfloat16 with the 4-layer drafter: (a) Engine.run, batch 8,
+    512-token prompts, 64 new, K 5, contiguous: tokens and the gathered
+    state bitwise the unsharded engine's on the same weights, decode and
+    flash launches equal; (b) Scheduler.serve over paged KV (phase 3b's
+    256-page pool) with swap to host of its first 12 requests: every stream
+    equal to the unsharded serve's, at least one swap, paged launches
+    equal; (c) one ``build_train_step`` step on a (data 1, model 1) mesh,
+    float32, n 2048: loss and updated drafter weights within atol 2e-5
+    rtol 2e-4 of the unsharded step, the MTP kernel launched."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.core import cod
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.launch.steps import build_train_step, shard_train_inputs
+    from repro_torch.optim import adamw_init
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    from repro_torch.sharding import utils as SH
+    from repro_torch.tree import leaves, leaves_with_paths
+    B, P, NEW, K, MAX_LEN, LAYERS, PAGE, POOL = 8, 512, 64, 5, 1024, 7, 16, 256
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    log(f"phase 13: storage-sharded serving and training on a one-rank nccl "
+        f"group; full-width qwen2-1.5b bfloat16 on {LAYERS} of 28 layers, "
+        f"4-layer drafter, batch {B}, prompt {P}, max_new {NEW}, K {K}")
+    free_card(dev, "phase 13")
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
+                            world_size=1)
+    out = {"card": card}
+    try:
+        mesh = SH.serving_mesh()
+
+        def sharded(eng, **kw):
+            ecfg = dataclasses.replace(eng.ecfg, shard_model=True, mesh=mesh,
+                                       **kw)
+            return Engine(eng.tcfg, eng.dcfg, eng.tparams, eng.dparams, ecfg,
+                          eng.batch, device=dev)
+
+        def resident(e):
+            return sum(t.local.numel() * t.local.element_size()
+                       if isinstance(t, SH.Shard) else
+                       t.numel() * t.element_size()
+                       for t in leaves(e.tparams) + leaves(e.dparams))
+
+        # (a) Engine.run
+        e0 = build_engine(mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                          batch=B, seed=0, device=dev, n_layers=LAYERS)
+        e1 = sharded(e0)
+        prompts = random_prompts(e0.tcfg.vocab_size, B, P, seed=0)
+        runs, counts = {}, {}
+        for name, e in (("unsharded", e0), ("sharded", e1)):
+            e.run(prompts, max_iters=4)                   # cold
+            ops.reset_launches()
+            SH.reset_counters()
+            runs[name] = e.run(prompts)
+            counts[name] = dict(ops.launches)
+            if name == "sharded":
+                gathers = SH.counters()
+        r0, r1 = runs["unsharded"], runs["sharded"]
+        if not np.array_equal(r0["tokens"], r1["tokens"]):
+            fail("phase 13a: sharded Engine.run tokens differ from unsharded")
+        full = e1.full_state(r1["state"])
+        for (path, a), (_, b) in zip(leaves_with_paths(full),
+                                     leaves_with_paths(r0["state"])):
+            if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+                fail(f"phase 13a: gathered state leaf {path} differs")
+        if counts["sharded"] != counts["unsharded"]:
+            fail(f"phase 13a: launches {counts['sharded']} != unsharded "
+                 f"{counts['unsharded']}")
+        for k in ("decode_attention", "flash_attention"):
+            if not counts["sharded"][k] > 0:
+                fail(f"phase 13a: {k} was not launched")
+        steps = r1["steps"]
+        ag = gathers["all_gather"]
+        ms = {n: r["decode_s"] / r["steps"] * 1e3 for n, r in runs.items()}
+        kv1 = sum(t.numel() * t.element_size() for p, t in
+                  leaves_with_paths(r1["state"])
+                  if p.rsplit("/", 1)[-1] in ("k", "v")
+                  and isinstance(t, torch.Tensor) and t.dim() >= 4)
+        out["run"] = dict(
+            steps=steps, ms_per_step=ms, launches=counts["sharded"],
+            gather_calls_per_step=ag["calls"] / (steps + 1),
+            gather_bytes_per_step=ag["bytes"] / (steps + 1),
+            use_max_bytes=gathers["use"]["max_bytes"],
+            resident_weight_bytes=resident(e1), resident_kv_bytes=kv1,
+            acceptance_length=r1["acceptance_length"])
+        log(f"  13a Engine.run: {steps} steps, tokens and gathered state "
+            f"bitwise the unsharded engine's; ms/step sharded "
+            f"{ms['sharded']:.2f} unsharded {ms['unsharded']:.2f}; gathers "
+            f"{ag['calls'] / (steps + 1):.1f} calls and "
+            f"{ag['bytes'] / (steps + 1) / 1e9:.4f} GB a step (prefill "
+            f"included), largest use() {gathers['use']['max_bytes'] / 1e6:.1f}"
+            f" MB; resident per rank: weights {resident(e1) / 1e9:.3f} GB, "
+            f"K/V {kv1 / 1e9:.3f} GB; launches {counts['sharded']} ({card})")
+        del runs, r0, r1, full, e1
+
+        # (b) Scheduler.serve, paged, swap to host
+        p0 = family_twin(e0, B, dev, kv_layout="paged", page_size=PAGE,
+                         pool_pages=POOL, max_new_tokens=192, swap="host")
+        p1 = sharded(p0)
+        del e0
+        traffic = sched3b_traffic(p0.tcfg.vocab_size, 12)
+        reps, counts = {}, {}
+        for name, e in (("unsharded", p0), ("sharded", p1)):
+            ops.reset_launches()
+            reps[name] = Scheduler(e, sync_every=1).serve(
+                [Request(p, max_new_tokens=b, arrival_time=a)
+                 for p, b, a in zip(*traffic)])
+            counts[name] = dict(ops.launches)
+        s0, s1 = reps["unsharded"], reps["sharded"]
+        for a, b in zip(s0["results"], s1["results"]):
+            if not np.array_equal(a["tokens"], b["tokens"]):
+                fail(f"phase 13b: request {a['rid']} differs sharded")
+        if not s1["preempt_swap"] > 0:
+            fail("phase 13b: no request was swapped to the host")
+        if counts["sharded"] != counts["unsharded"] or not \
+                counts["sharded"]["paged_decode_attention"] > 0:
+            fail(f"phase 13b: launches {counts}")
+        it = {n: r["iterations"] for n, r in reps.items()}
+        msi = {n: r["wall_s"] / r["iterations"] * 1e3 for n, r in reps.items()}
+        out["serve"] = dict(iterations=it["sharded"], ms_per_iteration=msi,
+                            preempt_swap=s1["preempt_swap"],
+                            preempt_recompute=s1["preempt_recompute"],
+                            host_peak_bytes={n: r["host_pool"]["peak_bytes"]
+                                             for n, r in reps.items()},
+                            launches=counts["sharded"])
+        log(f"  13b Scheduler.serve: 12 requests, {it['sharded']} iterations, "
+            f"streams equal; swaps {s1['preempt_swap']}, recompute "
+            f"{s1['preempt_recompute']}; ms/iteration sharded "
+            f"{msi['sharded']:.2f} unsharded {msi['unsharded']:.2f}; launches "
+            f"{counts['sharded']} ({card})")
+        del p0, p1, reps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the drafter train step, data 1 x model 1, float32, n 2048
+        from repro_torch.configs import DrafterConfig, get_config
+        from repro_torch.core import drafter as D
+        from repro_torch.models.registry import get_model
+        tcfg = get_config("qwen2-1.5b").replace(dtype="float32",
+                                                 n_layers=LAYERS)
+        dcfg = DrafterConfig().resolve(tcfg)
+        g = torch.Generator(device=dev).manual_seed(0)
+        tp = get_model(tcfg, dev).init(g, device=dev)
+        dp = D.init_params(dcfg, tcfg, g, device=dev)
+        n, rng = 2048, np.random.default_rng(0)
+        tokens = torch.as_tensor(rng.integers(0, tcfg.vocab_size - 1, (1, n))
+                                 .astype(np.int32), device=dev)
+        M = cod.expanded_length(n, dcfg.k_train, dcfg.cod_rate)
+        pos, depth = cod.pad_to(*cod.sample_cod(rng, n, dcfg.k_train,
+                                                dcfg.cod_rate), M)
+        tgt = pos + 2
+        lab = np.where(((pos >= 0) & (tgt < n))[None],
+                       tokens.cpu().numpy()[:, np.clip(tgt, 0, n - 1)], -1)
+        pos_t = torch.as_tensor(pos.astype(np.int32), device=dev)
+        dep_t = torch.as_tensor(depth.astype(np.int32), device=dev)
+        lab_t = torch.as_tensor(lab.astype(np.int32), device=dev)
+        rngk = torch.zeros(2, dtype=torch.int64, device=dev)
+        fn, _ = build_train_step(tcfg, dcfg, "train_4k", n_micro=1)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_d, _, ref_m = fn(tp, dp, adamw_init(dp), tokens, pos_t, dep_t,
+                             lab_t, rngk, {})
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        ref_d = {p: t.detach().clone() for p, t in leaves_with_paths(ref_d)}
+        mtp_ref = ops.launches["mtp_attention"]
+        tmesh = make_debug_mesh(1, 1)
+        tps, dps, opt, toks, labs, ex = shard_train_inputs(
+            tmesh, tp, dp, tokens, lab_t)
+        del tp
+        ops.reset_launches()
+        SH.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SH.mesh_scope(tmesh):
+            new_d, _, met = fn(tps, dps, opt, toks, pos_t, dep_t, labs, rngk,
+                               ex)
+            torch.cuda.synchronize()
+            t_sh = time.perf_counter() - t0
+            full_d = SH.full_tree(new_d)
+        mtp = ops.launches["mtp_attention"]
+        tc = SH.counters()
+        if not mtp > 0 or mtp != mtp_ref:
+            fail(f"phase 13c: mtp_attention launches {mtp} (unsharded "
+                 f"{mtp_ref})")
+        dl = abs(float(met["loss"]) - float(ref_m["loss"]))
+        if not dl <= 2e-5 + 2e-4 * abs(float(ref_m["loss"])):
+            fail(f"phase 13c: loss {float(met['loss'])} vs "
+                 f"{float(ref_m['loss'])}")
+        worst = 0.0
+        for p, a in leaves_with_paths(full_d):
+            b = ref_d[p]
+            err = float((a.float() - b.float()).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(a, b, atol=2e-5, rtol=2e-4):
+                fail(f"phase 13c: updated weight {p} differs by {err}")
+        out["train"] = dict(loss=float(met["loss"]), loss_diff=dl,
+                            weights_max_abs_diff=worst,
+                            mtp_launches=mtp, step_s={"sharded": t_sh,
+                                                      "unsharded": t_ref},
+                            collectives={k: v for k, v in tc.items()
+                                         if k != "use"})
+        log(f"  13c train step: loss {float(met['loss']):.6f} (|diff| {dl:.3g}"
+            f"), updated weights within {worst:.3g}, mtp launches {mtp}, "
+            f"step {t_sh * 1e3:.1f} ms sharded, {t_ref * 1e3:.1f} ms "
+            f"unsharded (the first, cold), gathers "
+            f"{tc['all_gather']['calls']} / "
+            f"{tc['all_gather']['bytes'] / 1e9:.3f} GB, reduces "
+            f"{tc['all_reduce']['calls']} ({card})")
+        del tps, dps, opt, new_d, full_d, ref_d
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4534,7 +4779,7 @@ def main() -> int:
 
 
 def run_phases(ops, dev) -> list:
-    """Phases 2-12b on ``dev``; returns the kernels' JSON rows."""
+    """Phases 2-13 on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def timed(fn, *a):
@@ -4564,6 +4809,7 @@ def run_phases(ops, dev) -> list:
     dbrx = timed(dbrx_path, ops, dev)
     internvl2 = timed(internvl2_path, ops, dev)
     whisper = timed(whisper_path, ops, dev)
+    sharded = timed(sharded_path, ops, dev)
     timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -4726,6 +4972,7 @@ def run_phases(ops, dev) -> list:
     log(f"dbrx-132b: {json.dumps(dbrx)}")
     log(f"internvl2-1b: {json.dumps(internvl2)}")
     log(f"whisper-base: {json.dumps(whisper)}")
+    log(f"sharded (phase 13): {json.dumps(sharded)}")
     log("gemma2, gemma7b, rgemma, dbrx, llama4, internvl2 and whisper kernel "
         "timing: " + json.dumps(
             {f"{k[0]} {k[1]}": v for k, v in measured.items()

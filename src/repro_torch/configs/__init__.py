@@ -2,7 +2,8 @@
 port serves."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (DrafterConfig, HybridConfig, ModelConfig,
+from repro_torch.configs.base import (INPUT_SHAPES, DrafterConfig,
+                                      HybridConfig, InputShape, ModelConfig,
                                       MoEConfig, SSMConfig)
 from repro_torch.configs.dbrx_132b import CONFIG as _DBRX_132B
 from repro_torch.configs.gemma2_27b import CONFIG as _GEMMA2_27B
@@ -29,5 +30,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return _CONFIGS[arch_id]
 
 
-__all__ = ["ARCH_IDS", "DrafterConfig", "HybridConfig", "ModelConfig",
-           "MoEConfig", "SSMConfig", "get_config"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "DrafterConfig", "HybridConfig",
+           "InputShape", "ModelConfig", "MoEConfig", "SSMConfig", "get_config"]

@@ -1,10 +1,12 @@
 """Configuration dataclasses for target architectures and drafters.
 
 A copy of the JAX package's ``configs/base.py`` (``ModelConfig``,
-``DrafterConfig`` and the family extensions they carry), kept here so the
-port imports nothing of the JAX package. Field names, defaults,
+``DrafterConfig``, the family extensions they carry, and the launch
+tooling's ``InputShape`` / ``INPUT_SHAPES``), kept here so the port imports
+nothing of the JAX package. Field names, defaults,
 ``reduced()`` and ``resolve()`` are unchanged, so one config describes the
-same model in both packages. The TPU hardware constants are not copied.
+same model in both packages. The TPU hardware constants are not copied:
+the port's H100 constants live in ``launch/roofline.py``.
 """
 from __future__ import annotations
 
@@ -167,3 +169,21 @@ class DrafterConfig:
         return dataclasses.replace(
             self, d_model=d, n_heads=heads, n_kv_heads=self.n_kv_heads or heads,
             head_dim=hd, d_ff=ff)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """A workload shape of the launch tooling (``launch/steps.py``,
+    ``launch/dryrun.py``): the JAX package's input shapes, copied."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",  524_288,    1, "decode"),
+}

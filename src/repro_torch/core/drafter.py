@@ -26,6 +26,11 @@ everywhere. On the CPU the JAX package's switch applies: the flash
 function when ``dcfg.flash_train`` and M >= 512, else autograd through the
 plain blocked attention under the predicate mask. ``dcfg.remat``
 recomputes each block in the backward (``torch.utils.checkpoint``).
+
+Under an active mesh (the storage-sharded engine) each entry point
+gathers the top-level weights once and each block's as it runs
+(``sharding.utils.use``); the caches hold K/V slices (see
+``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from repro_torch.core.flash_train import mtp_flash_attention
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import cache_phase
+from repro_torch.sharding import utils as SH
 
 Tensor = torch.Tensor
 
@@ -126,7 +132,7 @@ def _block_apply(dcfg: DrafterConfig, p: dict, x: Tensor, *,
         # two-phase: [old cache] + [current block], merged by LSE; the
         # block is a single chain, so causal-by-position masking applies
         o1, m1, l1 = cache_phase(q, cache, positions, block_table,
-                                 hd ** -0.5)
+                                 hd ** -0.5, n_kv=KV)
         o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
                                           scale=hd ** -0.5, return_stats=True)
         out = L.merge_attention(o1, m1, l1, o2, m2, l2)
@@ -148,6 +154,7 @@ def _run_blocks(dcfg, params, x, *, positions, cache, mode, meta=None,
     with ``dcfg.remat``, recomputes each block in the backward."""
     if mode == "train":
         for bp in params["blocks"]:
+            bp = SH.use(bp)
             if dcfg.remat:
                 x = checkpoint(_block_apply, dcfg, bp, x, positions=positions,
                                cache=None, mode=mode, meta=meta,
@@ -157,6 +164,7 @@ def _run_blocks(dcfg, params, x, *, positions, cache, mode, meta=None,
                                  mode=mode, meta=meta)
         return x
     for bp, bc in zip(params["blocks"], cache["blocks"]):
+        bp = SH.use(bp)          # this layer's weights, gathered under a mesh
         x = _block_apply(dcfg, bp, x, positions=positions, cache=bc,
                          mode=mode, block_table=block_table)
     return x
@@ -228,6 +236,7 @@ def mtp_forward(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
     (padding: -1). ``rng`` (2,) is the key of the regularized variant's
     dropout.
     Returns (logits (B,M,V) f32, hidden (B,M,D))."""
+    params = SH.use(params)
     B, n = tokens.shape
     if pos.dim() == 1:
         pos = pos[None].expand(B, pos.shape[0])
@@ -264,6 +273,7 @@ def extend(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict, cache: dict,
 
     tokens_next (B, T) = tokens p+1 aligned to taps (B, T, 3D_t);
     positions (B, T) int32; ``block_table`` (B, nb) for page-pool caches."""
+    params = SH.use(params)
     fc = taps.to(params["fc"].dtype) @ params["fc"]
     x = torch.cat([params["embed"][tokens_next], fc], dim=-1) @ params["fuse"]
     _run_blocks(dcfg, params, x, positions=positions, cache=cache,
@@ -311,6 +321,7 @@ def draft_parallel(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
     from the proposal the verifier is handed as q.
 
     Returns (draft_tokens (B,K) int32, draft_logits (B,K,V) f32, cache)."""
+    params = SH.use(params)
     x, positions = draft_block_inputs(dcfg, tcfg, params, token_next,
                                       taps_last, anchor_pos, K)
     x = _run_blocks(dcfg, params, x, positions=positions, cache=cache,
@@ -332,6 +343,7 @@ def draft_ar(dcfg: DrafterConfig, tcfg: ModelConfig, params: dict,
     ``policy`` as in :func:`draft_parallel`, drawn inside the loop: slot i
     is fed forward, so slot i+1's logits are conditioned on the slot
     actually drawn, and its warped distribution is the true proposal."""
+    params = SH.use(params)
     hid = taps_last.to(params["fc"].dtype) @ params["fc"]           # (B, D)
     tok = token_next
     toks, logits_all = [], []

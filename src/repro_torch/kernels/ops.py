@@ -22,6 +22,17 @@ combine pass included, counts once), so a run can show that the serving
 path went through the kernels; ``reset_launches`` zeroes it. The
 plain versions stay callable as ``*_plain`` for the card tests and the
 chip smoke test, which hold each kernel against its plain version.
+
+The wrappers take full tensors only, the boundary the JAX package's
+``paged_decode_attention(mesh=)`` pins. Under a storage-sharded engine
+K/V reach them only through ``sharding.utils.kv_full``
+(``models.transformer.cache_phase``), which gathers a layer's slices and
+refuses a tensor that is not this rank's slice; the wrappers' own shape
+checks refuse a head_dim slice (head_dim against q's).
+
+A meta tensor (the dry-run's) takes neither the kernel nor its plain
+version: the call returns the kernel's output shapes and counts its FLOPs
+(``meta_flops``), as a kernel that builds no score matrix would.
 """
 from __future__ import annotations
 
@@ -44,15 +55,44 @@ _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128, 256)
 
 
+# the FLOPs of the attention calls made on the meta device, per kernel
+meta_flops: Dict[str, float] = dict.fromkeys(launches, 0.0)
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        meta_flops[name] = 0.0
 
 
-def _device_kind(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"attention on {t.device} is not supported")
-    return t.device.type
+def _meta_attention(name: str, q, kv_heads: int, keys: float,
+                    return_stats: bool):
+    """An attention call on the meta device (the dry-run's): the output
+    (and f32 stats (B, KV, G, T)) as the kernel makes them, no scores, and
+    its FLOPs (QK and PV: 4 per query head, key and head-dim element, over
+    ``keys`` keys a query) added to ``meta_flops``."""
+    B, T, H, hd = q.shape
+    meta_flops[name] += 4.0 * B * T * H * hd * keys
+    out = torch.empty_like(q)
+    if not return_stats:
+        return out
+    st = (B, kv_heads, H // kv_heads, T)
+    return (out, torch.empty(st, dtype=torch.float32, device=q.device),
+            torch.empty(st, dtype=torch.float32, device=q.device))
+
+
+def _device_kind(q: torch.Tensor, k: torch.Tensor) -> str:
+    """"cuda" (the kernel), "cpu" (the plain version) or "meta" (the
+    dry-run's shapes and FLOPs, ``_meta_attention``). On every device K/V
+    must have q's head_dim and a head count that divides q's, so a head_dim
+    slice of a sharded engine's K/V is refused before any path runs."""
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"attention on {q.device} is not supported")
+    if k.shape[-1] != q.shape[-1] or q.shape[-2] % k.shape[-2]:
+        raise ValueError(f"K/V {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)}: head_dim must match and the "
+                         f"K/V heads divide q's")
+    return q.device.type
 
 
 def _check_operands(q, k, v, per_row=True):
@@ -173,7 +213,11 @@ def decode_attention(q, k, v, k_positions, q_positions, *, scale, window=0,
     """Decode attention (see ``decode_attention_plain``): the CUDA kernel of
     ``csrc/decode_attention.cu`` for CUDA tensors, split across the cache
     slots by ``decode_split`` in bfloat16."""
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q, k)
+    if kind == "meta":
+        return _meta_attention("decode_attention", q, k.shape[2], k.shape[1],
+                               return_stats)
+    if kind == "cpu":
         return decode_attention_plain(q, k, v, k_positions, q_positions,
                                       scale=scale, window=window,
                                       softcap=softcap,
@@ -228,7 +272,12 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
     which reads the pool through the table and builds no view, split
     across the nb * page slots a row addresses by ``decode_split`` in
     bfloat16, as ``decode_attention`` is."""
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q, k_pool)
+    if kind == "meta":
+        return _meta_attention("paged_decode_attention", q, k_pool.shape[2],
+                               block_table.shape[1] * k_pool.shape[1],
+                               return_stats)
+    if kind == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, pos_pool, block_table, q_positions,
             scale=scale, window=window, softcap=softcap,
@@ -285,7 +334,13 @@ def flash_attention(q, k, v, *, scale, causal=True, window=0, softcap=0.0,
                     kv_len=0):
     """Flash attention (see ``flash_attention_plain``): the CUDA kernel of
     ``csrc/flash_attention.cu`` for CUDA tensors."""
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q, k)
+    if kind == "meta":
+        Sq, Skv = q.shape[1], k.shape[1]
+        keys = Skv if not causal else (Skv - Sq) + (Sq + 1) / 2
+        return _meta_attention("flash_attention", q, k.shape[2],
+                               min(keys, window) if window else keys, False)
+    if kind == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window, softcap=softcap,
                                      kv_len=kv_len)
@@ -360,7 +415,11 @@ def mtp_attention(q, k, v, pos, depth, *, scale, return_stats=False):
     """MTP attention (see ``mtp_attention_plain``): the CUDA kernel of
     ``csrc/mtp_attention.cu`` for CUDA tensors, which walks the index lists
     of ``mtp_key_lists``."""
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q, k)
+    if kind == "meta":      # the predicate keeps about a causal half
+        return _meta_attention("mtp_attention", q, k.shape[2],
+                               (k.shape[1] + 1) / 2, return_stats)
+    if kind == "cpu":
         return mtp_attention_plain(q, k, v, pos, depth, scale=scale,
                                    return_stats=return_stats)
     _check_operands(q, k, v)

@@ -74,12 +74,22 @@ repeated and the last (warm) run is reported.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
         --requests 24 --mean-gap 1 --prompt-len 128 --max-len 448 \
         --pool-pages 112 --swap host                  # encoder-decoder
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --shard-model 4 --requests 24 --mean-gap 1    # model-sharded, 4 cards
+
+``--shard-model N`` serves storage-sharded (``EngineConfig(shard_model=
+True)``) over N ranks started by ``torchrun --nproc-per-node N``, one card
+each (``nccl``; ``gloo`` with ``--device cpu``): every rank builds the same
+seeded weights, keeps its slice and runs the same scheduler; rank 0 prints
+the report. N must be the world size. ``--round-based`` is not offered
+with it.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -98,13 +108,19 @@ def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
                  batch=8, seed=0, device="cuda", kv_layout="contiguous",
                  page_size=16, pool_pages=0, kv_growth="incremental",
                  sampling=None, draft_sampling=False, prefix_cache=False,
-                 swap="none", host_pool_bytes=0):
+                 swap="none", host_pool_bytes=0, shard_model=False):
     """The target ``arch`` + the 4-layer drafter with seeded random weights,
     wrapped in an Engine. ``n_layers`` cuts the target's depth (widths stay
     the published ones). ``dtype`` defaults to bfloat16 at full width and
     float32 reduced; ``sampling`` is the engine's default policy (None:
-    greedy). A target the device's kernels cannot serve raises before any
-    weight is made."""
+    greedy). ``shard_model`` shards the weights and KV over every rank of
+    the initialised process group (each rank draws the same weights and
+    keeps its slice). Each rank draws the whole model on its card first,
+    as the unsharded engine does, so the weights are the same for a seed
+    and a rank's peak at construction is the whole model plus its slices:
+    a model larger than one card needs weights drawn or loaded on the host
+    (``Engine`` then moves slices only). A target the device's kernels
+    cannot serve raises before any weight is made."""
     dev = resolve_device(device)
     tcfg = get_config(arch)
     if reduced:
@@ -125,7 +141,8 @@ def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
                         pool_pages=pool_pages, kv_growth=kv_growth,
                         sampling=sampling, draft_sampling=draft_sampling,
                         prefix_cache=prefix_cache, swap=swap,
-                        host_pool_bytes=host_pool_bytes)
+                        host_pool_bytes=host_pool_bytes,
+                        shard_model=shard_model)
     return Engine(tcfg, dcfg if mode != "none" else None, tparams, dparams,
                   ecfg, batch, device=dev)
 
@@ -254,6 +271,9 @@ def main(argv=None):
     ap.add_argument("--round-based", action="store_true",
                     help="also serve the same prompts and budgets with the "
                          "round-based baseline")
+    ap.add_argument("--shard-model", type=int, default=0, metavar="N",
+                    help="storage-shard weights and KV over the N ranks "
+                         "torchrun started (N = the world size)")
     args = ap.parse_args(argv)
     if args.mixed_sampling and args.temperature <= 0:
         ap.error("--mixed-sampling needs --temperature > 0")
@@ -266,7 +286,11 @@ def main(argv=None):
         ap.error(f"--round-based serves whole rounds without per-request "
                  f"extras: serve {args.arch} through the scheduler")
 
+    if args.shard_model and args.round_based:
+        ap.error("--round-based is not offered with --shard-model")
     dev = resolve_device(args.device)
+    if args.shard_model:
+        dev = init_ranks(args.shard_model, dev)
     layout = args.kv_layout or ("paged" if dev.type == "cuda"
                                 else "contiguous")
     eng = build_engine(arch=args.arch, reduced=args.reduced,
@@ -277,7 +301,8 @@ def main(argv=None):
                        pool_pages=args.pool_pages, kv_growth=args.kv_growth,
                        draft_sampling=args.draft_sampling,
                        prefix_cache=args.prefix_cache, swap=args.swap,
-                       host_pool_bytes=args.host_pool_bytes)
+                       host_pool_bytes=args.host_pool_bytes,
+                       shard_model=args.shard_model > 0)
     n_req = args.requests or args.batch
     sched = Scheduler(eng, eos_id=args.eos_id, sync_every=args.sync_every,
                       preempt=not args.no_preempt, adaptive_k=args.adaptive_k)
@@ -342,8 +367,33 @@ def main(argv=None):
             "new_tokens": rb["total_new_tokens"], "wall_s": rb["wall_s"]}
         report["continuous_over_round_based"] = (
             r["otps"] / max(rb["otps"], 1e-9))
+    if args.shard_model:
+        report["shard_model"] = args.shard_model
+        torch.distributed.destroy_process_group()
+        if int(os.environ["RANK"]) != 0:
+            return report
     print(json.dumps(report))
     return report
+
+
+def init_ranks(n: int, dev: torch.device) -> torch.device:
+    """Join the process group ``torchrun`` describes in the environment
+    (``nccl`` on the card, ``gloo`` on the CPU) and return this rank's
+    device (``cuda:LOCAL_RANK``). Refuses a world that is not ``n`` ranks
+    or a launch without ``torchrun``."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise SystemExit(f"--shard-model {n} runs under torchrun "
+                         f"--nproc-per-node {n}")
+    world = int(os.environ["WORLD_SIZE"])
+    if world != n:
+        raise SystemExit(f"--shard-model {n} over a world of {world} ranks: "
+                         f"they must be equal")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo")
+    return dev
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -283,6 +284,11 @@ def main(argv=None):
                                  args.seed))
         return
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "the NDJSON server over several ranks: AsyncEngine's wall-clock "
+            "admissions differ between ranks; rank 0 deciding and "
+            "broadcasting is an open item (ROADMAP.md, queue 1, item 5)")
     # the server's imports: the client stays free of torch
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.engine import resolve_device

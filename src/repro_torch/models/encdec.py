@@ -47,6 +47,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ModelOutput, tap_layers
+from repro_torch.sharding import utils as SH
 
 Tensor = torch.Tensor
 
@@ -69,6 +70,7 @@ def encode(cfg: ModelConfig, params: dict, frames: Tensor) -> Tensor:
                        device=frames.device)[None].expand(B, S)
     x = frames + L.sinusoidal_positions(pos, D).to(frames.dtype)
     for p in params["enc_blocks"]:
+        p = SH.use(p)            # this layer's weights, gathered under a mesh
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         a, _ = T.attn_apply(p["attn"], h, cfg=cfg, kind="full",
                             positions=pos, cache=None, mode="train")
@@ -164,8 +166,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     check_supported(cfg, device)
 
     def cross():
-        return torch.zeros((batch, cfg.encoder_seq, cfg.n_kv_heads,
-                            cfg.head_dim), dtype=dtype, device=device)
+        return SH.kv_zeros((batch, cfg.encoder_seq, cfg.n_kv_heads,
+                           cfg.head_dim), dtype=dtype, device=device)
     return {"blocks": [
         {"self": L.make_kv_cache(batch, max_len, cfg.n_kv_heads,
                                  cfg.head_dim, dtype=dtype, ring=False,
@@ -200,21 +202,25 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
-    x = params["embed"][tokens]
+    embed = SH.use(params["embed"])     # the lookup's and the head's
+    x = embed[tokens]
     x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     enc_out = (None if encoder_embeds is None
                else encode(cfg, params, encoder_embeds))
     taps_idx = tap_layers(cfg.n_layers)
     taps = [None] * len(taps_idx)
     for li, bp in enumerate(params["dec_blocks"]):
+        bp = SH.use(bp)          # this layer's weights, gathered under a mesh
         bc = None if cache is None else cache["blocks"][li]
         if enc_out is not None:
             ekv = _enc_kv(cfg, bp["cross_attn"], enc_out)
             if bc is not None:
                 for name in ("k", "v"):
-                    bc["cross"][name].copy_(ekv[name])
-        else:
-            ekv = bc["cross"]
+                    bc["cross"][name].copy_(SH.kv_local(ekv[name]))
+        else:   # the cross K/V slices, gathered under a mesh
+            ekv = dict(zip(("k", "v"), SH.kv_full(
+                [bc["cross"]["k"], bc["cross"]["v"]], cfg.n_kv_heads,
+                cfg.head_dim)))
         x = _dec_slot_apply(cfg, bp, x, positions=positions, cache=bc,
                             mode=mode, enc_kv=ekv, block_table=block_table)
         if collect_taps:
@@ -227,7 +233,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     elif head_last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["embed"].T.to(x.dtype)).float()
+    logits = (x @ embed.T.to(x.dtype)).float()
     return ModelOutput(logits=logits,
                        taps=torch.cat(taps, dim=-1) if collect_taps else None,
                        cache=cache, aux=None)

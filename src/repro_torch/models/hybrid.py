@@ -59,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ModelOutput, tap_layers
+from repro_torch.sharding import utils as SH
 
 Tensor = torch.Tensor
 _LRU_C = 8.0
@@ -258,13 +259,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
-    x = params["embed"][tokens]
+    embed = SH.use(params["embed"])     # the lookup's and the head's
+    x = embed[tokens]
     if cfg.embed_scale:   # sqrt(d) cast to the activation dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     taps_idx = tap_layers(cfg.n_layers)
     taps = [None] * len(taps_idx)
     snap_blocks = [] if snapshots else None
     for li, bp in enumerate(params["blocks"]):
+        bp = SH.use(bp)          # this layer's weights, gathered under a mesh
         lc = None if cache is None else cache["blocks"][li]
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         snaps = None
@@ -290,7 +293,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     elif head_last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["embed"].T.to(x.dtype)).float()
+    logits = (x @ embed.T.to(x.dtype)).float()
     return ModelOutput(
         logits=logits,
         taps=torch.cat(taps, dim=-1) if collect_taps else None,

@@ -31,6 +31,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import utils as SH
+
 Tensor = torch.Tensor
 NEG_INF = -1e30
 INT32_MAX = 2 ** 31 - 1
@@ -290,12 +292,13 @@ def make_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, *,
                   dtype=torch.bfloat16, ring: bool = False,
                   device="cuda") -> dict:
     """One layer's KV cache. ``positions`` holds the absolute position of
-    each slot (-1 = empty); ``ring`` is a Python bool."""
+    each slot (-1 = empty); ``ring`` is a Python bool. Under an active
+    mesh (``sharding.utils.mesh_scope``) K/V hold this rank's slice of
+    their trailing (KV, hd) axes."""
+    shape = (batch, max_len, n_kv, head_dim)
     return {
-        "k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
-                         device=device),
+        "k": SH.kv_zeros(shape, dtype=dtype, device=device),
+        "v": SH.kv_zeros(shape, dtype=dtype, device=device),
         "positions": torch.full((batch, max_len), -1, dtype=torch.int32,
                                 device=device),
         "ring": ring,
@@ -312,7 +315,10 @@ def cache_update(cache: dict, k_new: Tensor, v_new: Tensor,
     slot ``position % W``; a plain cache writes slot ``position``, which
     the caller keeps below W (the engine checks its length budget up
     front). A ring takes only the last W of a block longer than itself
-    (a long admission chunk), so no two entries share a slot."""
+    (a long admission chunk), so no two entries share a slot. Under an
+    active mesh the cache holds this rank's K/V slice, and takes its slice
+    of ``k_new`` / ``v_new``."""
+    k_new, v_new = SH.kv_local(k_new), SH.kv_local(v_new)
     B, T = k_new.shape[0], k_new.shape[1]
     W = cache["k"].shape[1]
     positions = cache["positions"]
@@ -371,7 +377,9 @@ def paged_cache_update(cache: dict, block_table: Tensor, k_new: Tensor,
 
     Unlike ``cache_update`` this does not invalidate entries >= pos: the
     decode step does that with ``paged_invalidate`` before it attends to
-    the pool, since the paged kernel takes no per-row bound."""
+    the pool, since the paged kernel takes no per-row bound. Under an
+    active mesh the pools take this rank's slice of the new K/V."""
+    k_new, v_new = SH.kv_local(k_new), SH.kv_local(v_new)
     positions = cache["positions"]
     NP, page = positions.shape
     B, T = k_new.shape[0], k_new.shape[1]

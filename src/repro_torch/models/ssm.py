@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ModelOutput, tap_layers
+from repro_torch.sharding import utils as SH
 
 Tensor = torch.Tensor
 
@@ -282,11 +283,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
         raise ValueError("decode mode needs a cache")
     if snapshots and mode != "decode":
         raise ValueError("snapshots are taken in decode mode only")
-    x = params["embed"][tokens]
+    embed = SH.use(params["embed"])     # the lookup's and the head's
+    x = embed[tokens]
     taps_idx = tap_layers(cfg.n_layers)
     taps = [None] * len(taps_idx)
     snap_blocks = [] if snapshots else None
     for li, bp in enumerate(params["blocks"]):
+        bp = SH.use(bp)          # this layer's weights, gathered under a mesh
         x, snaps = _mixer_apply(
             cfg, bp, x, cache=None if cache is None else cache["blocks"][li],
             mode=mode, snapshots=snapshots)
@@ -302,7 +305,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     elif head_last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["embed"].T.to(x.dtype)).float()
+    logits = (x @ embed.T.to(x.dtype)).float()
     return ModelOutput(
         logits=logits,
         taps=torch.cat(taps, dim=-1) if collect_taps else None,

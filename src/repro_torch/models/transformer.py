@@ -43,6 +43,13 @@ ring stays per slot and goes through the decode kernel. A layer of kind
 "full" (the encoder of ``models/encdec.py``) attends to every key: the
 flash kernel without the causal mask. On the card a head dim the kernels
 do not take raises ``NotImplementedError``.
+
+Under an active mesh (``sharding.utils``; the storage-sharded engine) the
+weights are :class:`~repro_torch.sharding.utils.Shard` s gathered a layer
+at a time (``use``: the embedding, each layer, the head) and the caches
+hold K/V slices, gathered before each kernel (``cache_phase``) and written
+slice by slice (``layers.cache_update``); without one both are the
+identity.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.sharding import utils as SH
 
 Tensor = torch.Tensor
 
@@ -130,7 +138,8 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
         # two-phase: attend [old cache] + [current block], merge by LSE,
         # THEN insert, so the cache is never copied (and a ring never
         # evicts a key the block's queries still see)
-        o1, m1, l1 = cache_phase(q, cache, positions, table, scale, **mask)
+        o1, m1, l1 = cache_phase(q, cache, positions, table, scale, n_kv=KV,
+                                 **mask)
         o2, m2, l2 = ops.decode_attention(q, k, v, positions, positions,
                                           scale=scale, return_stats=True,
                                           **mask)
@@ -150,26 +159,29 @@ def attn_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
 
 
 def cache_phase(q: Tensor, cache: dict, positions: Tensor,
-                block_table: Optional[Tensor], scale: float, *,
+                block_table: Optional[Tensor], scale: float, *, n_kv: int,
                 window: int = 0, softcap: float = 0.0):
     """Phase 1 of a two-phase decode: q at ``positions`` (B, T) against
     the cache entries older than the block (position < positions[:, 0]).
     Returns (out, m, l). A contiguous cache masks the newer entries; a paged
     one has them invalidated in the row's pages first (the paged kernel
     takes no per-row bound; the insert that follows invalidates them
-    anyway), then the pools are read through the table."""
+    anyway), then the pools are read through the table. Under an active
+    mesh the cache's K/V (or pools) are this rank's slices of ``n_kv``
+    heads: they are gathered here, so the kernel sees full tensors."""
     pos0 = positions[:, :1]
+    hd = q.shape[-1]
+    k, v = (t.to(q.dtype) for t in SH.kv_full([cache["k"], cache["v"]],
+                                              n_kv, hd))
     if block_table is None:
         old_kpos = torch.where(cache["positions"] >= pos0, -1,
                                cache["positions"])
         return ops.decode_attention(
-            q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), old_kpos,
-            positions, scale=scale, window=window, softcap=softcap,
-            return_stats=True)
+            q, k, v, old_kpos, positions, scale=scale, window=window,
+            softcap=softcap, return_stats=True)
     L.paged_invalidate(cache["positions"], block_table, pos0[:, 0] - 1)
     return ops.paged_decode_attention(
-        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-        cache["positions"], block_table, positions, scale=scale,
+        q, k, v, cache["positions"], block_table, positions, scale=scale,
         window=window, softcap=softcap, return_stats=True)
 
 
@@ -289,11 +301,16 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
                              or block_table is not None):
         raise ValueError(f"{mode} attends by index: positions and "
                          f"block_table must be None")
-    x = params["embed"][tokens]
+    head = params.get("lm_head")
+    # gathered once for the lookup and, tied, the head
+    embed = SH.use(params["embed"])
+    x = embed[tokens]
+    if head is not None:
+        embed = None
     if cfg.embed_scale:   # sqrt(d) cast to the activation dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.family == "vlm" and vision_embeds is not None:
-        vp = params["vis_proj"]
+        vp = SH.use(params["vis_proj"])
         vis = F.gelu(vision_embeds.to(x.dtype) @ vp["w1"],
                      approximate="tanh") @ vp["w2"]
         x = torch.cat([vis, x], dim=1)
@@ -311,6 +328,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
         aux = {name: torch.zeros((), dtype=torch.float32, device=x.device)
                for name in ("lb_loss", "z_loss")}
     for li, bp in enumerate(params["blocks"]):
+        bp = SH.use(bp)          # this layer's weights, gathered under a mesh
         h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         a, lc = attn_apply(bp["attn"], h, cfg=cfg, kind=cfg.attn_kind(li),
                            positions=positions,
@@ -346,8 +364,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor, *,
     elif head_last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params.get("lm_head")
-    logits = x @ (head if head is not None else params["embed"].T.to(x.dtype))
+    logits = x @ (SH.use(head) if head is not None
+                  else embed.T.to(x.dtype))
     logits = L.softcap(logits.float(), cfg.final_softcap)
     return ModelOutput(
         logits=logits,

@@ -40,6 +40,11 @@ The port's decode step reads and writes the pools through the table
 never builds a contiguous view; ``gather_state`` / ``scatter_state`` build
 and write back that view, as the JAX engine's paged step does, for the
 reference path of the tests.
+
+Every operation here indexes batch, sequence or page dims only, never the
+trailing (KV, hd) axes of a K/V leaf, so a storage-sharded engine's K/V
+slices (``sharding.utils``) run through them as they are: a swap moves
+each rank's slice of a slot's K/V.
 """
 from __future__ import annotations
 
@@ -329,7 +334,9 @@ def paged_spec(tree):
 
 def paged_pool(leaf: Tensor, tag: int, page: int, n_pages: int) -> Tensor:
     """The pool of one contiguous cache leaf (B, W, ...): (n_pages + 1,
-    page, ...), the last page being the sink; positions -1, K/V 0."""
+    page, ...), the last page being the sink; positions -1, K/V 0. A K/V
+    leaf's trailing axes are kept, so the pool of a K/V slice (a sharded
+    engine's) is a slice too."""
     fill = -1 if tag == PAGED_POS else 0
     return torch.full((n_pages + 1, page) + tuple(leaf.shape[2:]), fill,
                       dtype=leaf.dtype, device=leaf.device)

@@ -63,8 +63,28 @@ hit's suffix chunks would route other tokens than a cold prefill does.
 Swap-to-host (``EngineConfig.swap = "host"``) parks a preempted slot's
 exclusively owned pages and per-slot rows in pinned host memory
 (``cache_ops.HostPagePool``) and restores them bitwise; pages shared with
-the prefix cache stay resident under the handle's reference. Sharding is
-not ported yet.
+the prefix cache stay resident under the handle's reference.
+
+Model sharding (``EngineConfig(shard_model=True)``) shards *storage*, not
+compute, over a 1-D ("model",) mesh of ``torch.distributed`` ranks, one
+card each (``sharding.utils.serving_mesh``): weights rest as
+``sharding.utils.Shard`` s under ``serve_param_specs`` and are gathered a
+layer at a time on use; attention K/V (contiguous rows, page pools, rings,
+an encoder-decoder target's cross K/V) rest as this rank's slice of their
+trailing (KV, hd) axes under ``serve_state_specs``, each layer's gathered
+right before its kernel and its new entries written into the slice.
+Compute then runs at the unsharded engine's shapes on full tensors, so
+tokens and the gathered state are bitwise the unsharded engine's (the JAX
+package's ``docs/sharding.md``, "The serving profile"). Block tables,
+positions, recurrent state, tokens, counters and sampling rows replicate;
+every cache operation indexes batch, sequence or page dims only, so it
+runs on the slices as it is, and a swap moves 1/N of a slot's K/V per
+rank. Every rank runs the same calls in the same order (the scheduler's
+host decisions are deterministic on its virtual clock), so their
+collectives match. A one-rank mesh still gathers and writes slices.
+The engine cuts each weight where the caller's tree lies and moves only
+its slice, so trees given on the host cost each card its slices alone;
+trees given on the card are the caller's, whole.
 
 A VLM or encoder-decoder target takes per-request modality inputs,
 ``extras`` (``models/registry.make_extras``: ``vision_embeds`` or
@@ -80,6 +100,7 @@ ever hits.
 """
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from dataclasses import dataclass
@@ -95,6 +116,9 @@ from repro_torch.core import spec_decode as SD
 from repro_torch.models.registry import extras_on, get_model
 from repro_torch.serving import cache_ops
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.sharding import utils as SH
+from repro_torch.sharding.rules import serve_param_specs
+from repro_torch.sharding.utils import serving_mesh
 from repro_torch.serving.sampling import (SamplingParams,
                                           batch_sampling_state,
                                           blank_sampling_state, draft_keys,
@@ -115,6 +139,16 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def _in_mesh(method):
+    """Run an ``Engine`` method under the engine's mesh (nothing without
+    one): the K/V it allocates are slices, the weights it uses gathered."""
+    @functools.wraps(method)
+    def wrapped(self, *a, **kw):
+        with SH.mesh_scope(self.mesh):
+            return method(self, *a, **kw)
+    return wrapped
 
 
 @dataclass(frozen=True)
@@ -155,6 +189,12 @@ class EngineConfig:
         unbounded. A snapshot that does not fit falls back to recompute.
       greedy: deprecated alias (one ``DeprecationWarning``): True is
         ``SamplingParams.greedy()``, False a temperature-1.0 default.
+      shard_model: rest the weights and the attention K/V sharded over
+        ``mesh`` (storage sharding; compute gathers before use, so the
+        output is bitwise the unsharded engine's). Needs an initialised
+        process group; every rank of the mesh builds the same engine.
+      mesh: a 1-D ("model",) ``sharding.utils.Mesh``; None is
+        ``serving_mesh()`` over the whole world.
     """
     K: int = 5
     max_new_tokens: int = 64
@@ -172,6 +212,8 @@ class EngineConfig:
     swap: str = "none"
     host_pool_bytes: int = 0
     greedy: Optional[bool] = None
+    shard_model: bool = False
+    mesh: Any = None
 
     def __post_init__(self):
         if self.greedy is not None:
@@ -308,8 +350,23 @@ class Engine:
         self.model = get_model(tcfg, self.device)
         # a VLM target's vision tokens precede every row's prompt
         self.pos_offset = tcfg.vision_tokens if tcfg.family == "vlm" else 0
-        self.tparams = _to(tparams, self.device)
-        self.dparams = _to(dparams, self.device)
+        self.mesh = None
+        if ecfg.shard_model:
+            self.mesh = ecfg.mesh if ecfg.mesh is not None else serving_mesh()
+            if self.mesh.axis_names != ("model",) or self.mesh.groups is None:
+                raise ValueError(f"shard_model needs a 1-D ('model',) mesh "
+                                 f"with process groups, got {self.mesh!r}")
+            # each rank keeps its slice, cut where the caller's trees lie
+            # and then moved: given trees on the host, the card never holds
+            # a whole sharded weight
+            self.tparams, self.dparams = (
+                None if tree is None else SH.shard_tree(
+                    tree, serve_param_specs(tree, self.mesh), self.mesh,
+                    device=self.device)
+                for tree in (tparams, dparams))
+        else:
+            self.tparams = _to(tparams, self.device)
+            self.dparams = _to(dparams, self.device)
         self.last_logprob = 0.0     # of the last admission's first token
         # host-side mirror of which slots hold a sampled policy: a step with
         # none takes the greedy-only lane (the same tokens, fewer launches)
@@ -354,6 +411,7 @@ class Engine:
         # admission, and a slot's positions only grow
         self._slot_floor = [0] * batch
 
+    @_in_mesh
     def _state_template(self, batch: int, *, device, **kw) -> dict:
         return make_decode_state(self.model, self.tcfg, self.dcfg, self.ecfg,
                                  batch, device=device, **kw)
@@ -410,6 +468,7 @@ class Engine:
                 cache_ops.commit(state["dcache"], cp - 1)
         return state
 
+    @_in_mesh
     def prefill(self, prompts, extras: Optional[dict] = None,
                 sampling: Optional[SamplingParams] = None) -> dict:
         """Whole-batch prefill of ``prompts`` (B, P) with the target's
@@ -472,6 +531,7 @@ class Engine:
     # ------------------------------------------------------------------
     # per-slot lifecycle (continuous batching; serving/scheduler.py)
     # ------------------------------------------------------------------
+    @_in_mesh
     def blank_state(self) -> dict:
         """An all-idle state: empty caches (positions -1), zero tokens,
         every slot frozen (new_count == max_new_tokens). Paged: the caches
@@ -614,6 +674,7 @@ class Engine:
         state["block_table"][slot, have:need] = got_t
         return state, True
 
+    @_in_mesh
     def prefill_into_slot(self, state: dict, prompt, slot: int,
                           max_new: Optional[int] = None,
                           sampling: Optional[SamplingParams] = None,
@@ -932,6 +993,7 @@ class Engine:
             self._swap_sizes = tuple(sizes)
         return self._swap_sizes
 
+    @_in_mesh
     def swap_bytes_estimate(self, slot: int) -> int:
         """Host bytes swapping ``slot`` out would store now: its per-slot
         rows plus one page payload per page it alone owns (refcount 1;
@@ -940,6 +1002,7 @@ class Engine:
         return row_b + page_b * sum(1 for p in self._slot_pages[slot]
                                     if self.allocator.refcount(p) == 1)
 
+    @_in_mesh
     def swap_out_slot(self, state: dict, slot: int, rid):
         """Preempt ``slot`` by copying its state to the host pool under
         ``rid``. Returns ``(state, ok)``: on ``ok`` the slot is freed (its
@@ -1011,6 +1074,7 @@ class Engine:
             avail += self.prefix_cache.evictable(self.allocator, h.page_row)
         return need <= avail
 
+    @_in_mesh
     def swap_in_slot(self, state: dict, slot: int, rid):
         """Resume a swapped-out request into (empty) ``slot``: fresh pages
         for the host spans, the snapshot written back into them and into
@@ -1075,6 +1139,22 @@ class Engine:
         if self.host_pool is not None:
             self.host_pool.reset_stats()
 
+    @_in_mesh
+    def full_state(self, state: dict) -> dict:
+        """``state`` with every K/V leaf at its full trailing axes: the
+        slices gathered under a mesh (a collective: every rank calls it),
+        ``state`` itself without one. For checks, not for serving."""
+        if self.mesh is None:
+            return state
+
+        def full(path, leaf):
+            if (path.rsplit("/", 1)[-1] in ("k", "v")
+                    and isinstance(leaf, Tensor) and leaf.dim() >= 4):
+                cfg = self.dcfg if path.startswith("/dcache") else self.tcfg
+                return SH.kv_full([leaf], cfg.n_kv_heads, cfg.head_dim)[0]
+            return leaf
+        return cache_ops.map_tree(full, state)
+
     # ------------------------------------------------------------------
     # one speculative iteration
     # ------------------------------------------------------------------
@@ -1085,6 +1165,7 @@ class Engine:
         warp, sort or threefry launch."""
         return any(self._slot_sampled) or not self.ecfg.sampling.is_greedy
 
+    @_in_mesh
     def step(self, state: dict, active=None, max_new=None,
              k_row=None, greedy_only: Optional[bool] = None) -> dict:
         """One speculative iteration. The scheduler passes ``active`` (B,)

@@ -53,6 +53,14 @@ host pool is full or the bytes-moved cost model says recompute is cheaper.
 With a prefix cache a freed slot's committed stream is indexed, and an
 admission gates on its need after the hit.
 
+Under a storage-sharded engine (``EngineConfig(shard_model=True)``) every
+rank of the mesh runs this same host scheduler on the virtual clock over
+the same requests: admissions, page growth, preemptions, swaps, the prefix
+cache and the adaptive-K controller decide from replicated tokens and
+counters only, so every rank makes the same engine calls in the same
+order and their gathers match. The wall-clock ``AsyncEngine`` does not
+have that property and refuses a mesh of more than one rank.
+
 Termination is host-driven: after every ``sync_every`` iterations one
 readback brings the per-slot counters and committed tokens to the host;
 streams are trimmed at the first ``eos_id`` or stop token of the request's

@@ -112,6 +112,13 @@ class AsyncEngine:
                  free_on_finish: bool = True,
                  max_pending: Optional[int] = None,
                  adaptive_k: Any = None):
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"AsyncEngine over a mesh of {mesh.size} ranks: its wall-clock "
+                "admissions differ between ranks, whose gathers would then "
+                "deadlock; rank 0 deciding and broadcasting is an open item "
+                "(ROADMAP.md, queue 1, item 5)")
         self.engine = engine
         self.scheduler = Scheduler(engine, eos_id=eos_id,
                                    free_on_finish=free_on_finish,

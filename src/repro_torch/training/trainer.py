@@ -16,7 +16,10 @@ A step is four stages, each a method, in this order: ``taps`` (the target
 forward under ``torch.no_grad()``, the counterpart of ``stop_gradient``;
 its attention is the flash kernel on the card), ``loss`` (the drafter
 forward; its attention is the MTP kernel on the card), ``grads`` (the
-backward) and ``apply`` (AdamW). The drafter parameters stay float32.
+backward) and ``apply`` (AdamW). The first three are the module's free
+functions ``target_taps``, ``drafter_loss`` and ``param_grads``, which the
+sharded train step (``launch/steps.py``) runs too. The drafter parameters
+stay float32.
 
 A VLM or encoder-decoder target's taps forward takes the trainer's
 ``extras`` (its modality inputs, leading axis the batch's); a VLM
@@ -59,6 +62,43 @@ class TrainConfig:
     max_grad_norm: float = 1.0
     depth_weight_decay: float = 1.0
     hca_weight: float = 0.1
+
+
+# -- the stages of a step, shared with the sharded step (launch/steps.py) --
+
+def target_taps(model, tparams: dict, tokens: Tensor,
+                extras: Optional[dict] = None) -> Tensor:
+    """Target taps (B, n, 3·D_t) of the text region, no gradient. Only the
+    taps are used, so the LM head runs on the last position alone."""
+    with torch.no_grad():
+        taps = model.forward(tparams, tokens, mode="train",
+                             collect_taps=True, head_last_only=True,
+                             **(extras or {})).taps
+    return taps[:, -tokens.shape[1]:]
+
+
+def drafter_loss(dcfg: DrafterConfig, tcfg: ModelConfig, tc: TrainConfig,
+                 params: dict, tokens: Tensor, taps: Tensor, pos: Tensor,
+                 depth: Tensor, labels: Tensor,
+                 rng: Optional[Tensor] = None):
+    """The drafter forward and its loss: (loss, metrics); ``rng`` keys the
+    regularized variant's dropout."""
+    if dcfg.parallel:
+        logits, _ = D.mtp_forward(dcfg, tcfg, params, tokens, taps, pos,
+                                  depth, rng=rng)
+        return losses.mtp_loss(logits, labels, depth,
+                               depth_weight_decay=tc.depth_weight_decay)
+    return losses.ttt_forward_loss(dcfg, tcfg, params, tokens, taps,
+                                   hca_weight=tc.hca_weight)
+
+
+def param_grads(loss: Tensor, params: dict) -> dict:
+    """d loss / d params; a leaf the loss does not reach (a frozen
+    embedding) gets zeros."""
+    flat = leaves(params)
+    g = torch.autograd.grad(loss, flat, allow_unused=True)
+    return unflatten(params, [torch.zeros_like(p) if gi is None else gi
+                              for p, gi in zip(flat, g)])
 
 
 class Trainer:
@@ -112,35 +152,15 @@ class Trainer:
     # -- the four stages of a step ------------------------------------------
 
     def taps(self, tokens: Tensor) -> Tensor:
-        """Target taps (B, n, 3·D_t) of the text region, no gradient. Only
-        the taps are used, so the LM head runs on the last position
-        alone."""
-        with torch.no_grad():
-            taps = self.model.forward(self.tparams, tokens, mode="train",
-                                      collect_taps=True, head_last_only=True,
-                                      **self.extras).taps
-        return taps[:, -tokens.shape[1]:]
+        return target_taps(self.model, self.tparams, tokens, self.extras)
 
     def loss(self, params: dict, tokens: Tensor, taps: Tensor, pos: Tensor,
              depth: Tensor, labels: Tensor, rng: Optional[Tensor] = None):
-        """The drafter forward and its loss: (loss, metrics); ``rng`` keys
-        the regularized variant's dropout."""
-        if self.dcfg.parallel:
-            logits, _ = D.mtp_forward(self.dcfg, self.tcfg, params, tokens,
-                                      taps, pos, depth, rng=rng)
-            return losses.mtp_loss(
-                logits, labels, depth,
-                depth_weight_decay=self.tc.depth_weight_decay)
-        return losses.ttt_forward_loss(self.dcfg, self.tcfg, params, tokens,
-                                       taps, hca_weight=self.tc.hca_weight)
+        return drafter_loss(self.dcfg, self.tcfg, self.tc, params, tokens,
+                            taps, pos, depth, labels, rng=rng)
 
     def grads(self, loss: Tensor, params: dict) -> dict:
-        """d loss / d params; a leaf the loss does not reach (a frozen
-        embedding) gets zeros."""
-        flat = leaves(params)
-        g = torch.autograd.grad(loss, flat, allow_unused=True)
-        return unflatten(params, [torch.zeros_like(p) if gi is None else gi
-                                  for p, gi in zip(flat, g)])
+        return param_grads(loss, params)
 
     def apply(self, grads: dict) -> dict:
         """One AdamW step on the drafter; returns {"grad_norm", "lr"}."""

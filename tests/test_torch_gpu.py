@@ -11,7 +11,10 @@ losslessness of rejection verification on the card, gemma2's softcap in
 the decode and paged kernels at its shapes (a wrapped ring too) and flash
 with softcap and window past 4096, reduced gemma2's rings through the
 kernels, the flash training
-attention's gradients, and reduced training steps through the MTP kernel.
+attention's gradients, and reduced training steps through the MTP kernel;
+on a machine with 2 or 4 cards, storage-sharded serving and the sharded
+train step over ``nccl``, one card a rank (skipped where the card count
+does not reach the world size).
 
 Marked ``gpu``; each test decides inside the ``card`` fixture whether a
 card exists and skips without one. The card's machine has no JAX, which
@@ -1117,3 +1120,58 @@ def test_round_based_launches_flash_once_per_layer_per_round(card):
     assert rep["rounds"] == 3 and rep["total_new_tokens"] == 34
     assert ops.launches["flash_attention"] == 3 * eng.tcfg.n_layers
     assert ops.launches["paged_decode_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# storage-sharded serving and training over nccl, one card a rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cards(request):
+    """The world size, when this machine has a card for each rank."""
+    n = request.param
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards")
+    return n
+
+
+@pytest.mark.parametrize("cards", [2, 4], indirect=True)
+def test_sharded_serving_on_cards(cards, tmp_path):
+    """``shard_model=True`` over 2 / 4 cards (qwen2's 2 KV heads: the KV
+    axis, then head_dim): Engine.run and a paged serve with swap through
+    the kernels, tokens equal to the unsharded engine's."""
+    import torch_sharding_child as child
+    child.spawn(child.card_serving_child, cards, tmp_path, timeout=600,
+                backend="nccl")
+
+
+@pytest.mark.parametrize("cards", [2, 4], indirect=True)
+def test_sharded_train_step_on_cards(cards, tmp_path):
+    """The sharded train step on (data 2, model cards / 2) over nccl
+    against the one-process step on the card: within atol 2e-5 rtol
+    2e-4."""
+    import numpy as np_
+    import torch_sharding_child as child
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.core import cod
+    from repro_torch.core import drafter as D
+    from repro_torch.models.registry import get_model
+    tcfg = get_config("qwen2-1.5b").reduced()
+    dcfg = DrafterConfig(n_layers=1).resolve(tcfg)
+    g = torch.Generator().manual_seed(3)
+    tp = get_model(tcfg).init(g, device="cpu")
+    dp = D.init_params(dcfg, tcfg, g, device="cpu")
+    n, rng = 24, np_.random.default_rng(0)
+    tokens = rng.integers(1, 1000, (4, n)).astype(np_.int32)
+    M = cod.expanded_length(n, dcfg.k_train, dcfg.cod_rate)
+    pos, depth = cod.pad_to(*cod.sample_cod(rng, n, dcfg.k_train,
+                                            dcfg.cod_rate), M)
+    tgt = pos + 2
+    labels = np_.where(((pos >= 0) & (tgt < n))[None],
+                       tokens[:, np_.clip(tgt, 0, n - 1)], -1)
+    setup = (tcfg, dcfg, tp, dp, torch.as_tensor(tokens),
+             torch.as_tensor(pos.astype(np_.int32)),
+             torch.as_tensor(depth.astype(np_.int32)),
+             torch.as_tensor(labels.astype(np_.int32)), 1)
+    child.spawn(child.train_child, cards, tmp_path, setup, 2, cards // 2,
+                True, timeout=600, backend="nccl")
