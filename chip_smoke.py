@@ -20,9 +20,11 @@ capacity dispatch, top-4 of 16 experts on every layer), the VLM family:
 internvl2-1b at full width (256 stub vision tokens early-fused before
 every prompt) and the encoder-decoder family: whisper-base at full width
 (a bidirectional encoder over 1500 stub frames, cross-attention through
-the flash and decode kernels), and last the storage-sharded engine and
-the sharded drafter train step on a one-rank nccl group, bitwise the
-unsharded ones.
+the flash and decode kernels), then the storage-sharded engine (built
+leaf by leaf), the sharded drafter train step and AsyncEngine with rank 0
+deciding on a one-rank nccl group, bitwise the unsharded ones, and last
+llama4-maverick at full width on 2 of its 48 layers (interleaved MoE of
+128 experts, top-1, beside a shared expert; chunked local attention).
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -217,15 +219,16 @@ Phases, in order; any failure exits non-zero:
    target forward); then segmented grads against whole-sequence grads at
    n 1024, the loss over 4 steps on one repeated batch, a checkpoint round
    trip, and the training launcher (python -m repro_torch.launch.train);
-6. gemma2-27b at full width in bfloat16 (46 layers, d 4608, 32/16 heads, d_ff
+6. gemma2-27b at full width in bfloat16 (16 of its 46 layers, cut for
+   time: 8 (local, global) pairs; d 4608, 32/16 heads, d_ff
    36864, vocab 256000; the 4-layer drafter), every earlier phase's models
    freed first and the memory reckoned from the configs in the log: Engine.run
    of batch 8, 512-token prompts, 128 new tokens, K 5, max_len 1024 (the
    4096 window exceeds it, so no layer is a ring) after a cold run (OTPS,
-   ms/step, prefill s, AL, peak memory; 46 flash launches and 8 decode at the
-   prefill, then 108 decode a step), and Scheduler.serve of phase 3b's first
+   ms/step, prefill s, AL, peak memory; 16 flash launches and 8 decode at the
+   prefill, then 48 decode a step), and Scheduler.serve of phase 3b's first
    8 requests on a paged twin sharing the weights (page 16, a 192-page pool
-   that preempts; every request to its budget, 54 paged launches an
+   that preempts; every request to its budget, 24 paged launches an
    iteration, the pool empty after; cut from 12 requests on 224 pages for
    time);
 6b. gemma2-27b in float32 at full width cut to 4 layers (two (local, global)
@@ -310,16 +313,17 @@ Phases, in order; any failure exits non-zero:
    factor 1.25 a verify of B x (K+1)
    tokens and a decode of B drop other slots, so greedy speculation is
    not lossless there, in the JAX package as in the port.)
-11. internvl2-1b at full width in bfloat16 (24 layers, d 896, 14/2 heads
+11. internvl2-1b at full width in bfloat16 (12 of its 24 layers, cut for
+   time; d 896, 14/2 heads
    of 64, vocab 151655; 256 stub vision tokens of 1024 drawn on the card
    with ``make_extras``, projected and prepended to every prompt; the
    drafter 7/7 heads of 128): Engine.run at phase 3's shapes (a fused
-   prefill of 768 positions; 24 flash and 8 decode at the prefill, 64
+   prefill of 768 positions; 12 flash and 8 decode at the prefill, 40
    decode a step at positions 256 past the token index), then
    Scheduler.serve of phase 3b's 24 requests over paged KV (max_len 1280,
    a 320-page pool: preempts) with swap to host, each request's vision
    extras drawn at admission from its prompt's crc32, the prefix cache
-   asked for and never built (32 paged an iteration);
+   asked for and never built (20 paged an iteration);
 11b. internvl2-1b in float32 at full width, batch 4, 128-token prompts
    after the 256 vision positions: the target's logits of a prefill and a
    verify through the kernels against the plain attention (within 1e-3),
@@ -338,15 +342,35 @@ Phases, in order; any failure exits non-zero:
 13. storage-sharded serving and training (``EngineConfig(shard_model=
    True)``, ``launch/steps.build_train_step``) on a one-rank nccl group the
    script makes and destroys: full-width qwen2-1.5b in bfloat16 on 7 of 28
-   layers, the 4-layer drafter; Engine.run (batch 8, 512-token prompts, 64
-   new, K 5) bitwise the unsharded engine's, tokens and gathered state,
+   layers, the 4-layer drafter, the sharded engine drawn leaf by leaf
+   (``build_engine(shard_model=True)``: its slices bitwise the whole
+   draw's, both builds' peak memory logged); Engine.run (batch 8,
+   512-token prompts, 64 new, K 5) bitwise the unsharded engine's, tokens
+   and gathered state,
    decode and flash launches equal; Scheduler.serve of phase 3b's first 12
    requests over paged KV (3b's 256-page pool) with swap to host, every
    stream equal, a swap at least; one train step on a (data 1, model 1)
    mesh in float32 at n 2048 within atol 2e-5 rtol 2e-4 of the unsharded
-   one (loss, updated weights), the MTP kernel launched; resident bytes,
-   gathers a step and ms a step sharded and unsharded logged beside the
-   card's name and power limit.
+   one (loss, updated weights), the MTP kernel launched; 13d:
+   AsyncEngine over the sharded paged engine, rank 0 broadcasting a
+   decision record before each pass (3b's first 8 prompts at 48-token
+   budgets, odd ones sampled): every stream equal to the unsharded
+   AsyncEngine's, the records counted; resident bytes, gathers a step and
+   ms a step sharded and unsharded logged beside the card's name and
+   power limit;
+14. llama4-maverick at full width in bfloat16 on 2 of its 48 layers (~44.5
+   GB with the drafter: layer 0 local and dense, layer 1 local and MoE;
+   d 5120, 40/8 heads of 128, window 8192, 128 experts of d_ff 8192 top-1,
+   capacity factor 1.25, a shared expert, vocab 202048, untied head; the
+   drafter 40/40 heads of 128): Engine.run at phase 3's shapes (2 flash and
+   8 decode at the prefill, 20 decode a step), the routing of a prefill
+   and a verify (drop_frac, the smallest router margin), Scheduler.serve
+   of phase 3b's first 12 requests, paged, swap to host, on a 256-page
+   pool that preempts (10 paged an iteration), and at capacity factor 128
+   (nothing dropped) greedy parallel and ar against none, batch 4,
+   128-token prompts, under the bfloat16 near-tie rules (a top-2 logit
+   gap below 0.25; a row compared up to its first router margin below
+   2e-3).
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -398,9 +422,6 @@ RGEMMA_WINDOW = 2048
 # llama4-maverick's local layers (hf:meta-llama/Llama-4-Scout-17B-16E):
 # chunked local attention over 8192 positions
 LLAMA4_WINDOW = 8192
-# paged rows off every served path (llama4's model stays on the CPU): their
-# flex_attention library call, a compilation each, is not timed
-FLEX_UNTIMED = ("llama4 target verify phase 1", "llama4 drafter draft phase 1")
 # depth cuts of earlier paths (widths stay the published ones), made when
 # phase 9 came in: the whole script took 895.5 s, and 1267.8 s on a slow
 # host, against the 1200 s the script may take (H100 80GB HBM3, 700.00 W)
@@ -420,9 +441,23 @@ SAMPLED_LAYERS = 7          # phase 3c's bfloat16 runs: qwen2-1.5b, of 28
 POLICY_LAYERS = 7           # phase 3d: qwen2-1.5b in bfloat16, of 28
 RGEMMA_LAYERS = 14          # phase 9 / 9b: recurrentgemma-2b, of 26 (4
                             # (recurrent, recurrent, attention) + 2)
+# and when phases 13's leaf-by-leaf build and AsyncEngine part and phase 14
+# came in (llama4-maverick; the script had taken 884.7 and 911.6 s on an
+# H100 80GB HBM3 at 700.00 W with gemma2-27b's 46 layers and internvl2-1b's
+# 24)
+GEMMA2_LAYERS = 16          # phase 6: gemma2-27b in bfloat16, of 46 (8
+                            # (local, global) pairs)
+INTERNVL2_LAYERS = 12       # phase 11: internvl2-1b in bfloat16, of 24
 # dbrx-132b's layers in phase 10: 8 of 40 (~62 GB with its drafter in
 # bfloat16; 40 are ~263 GB)
 DBRX_LAYERS = 8
+# llama4-maverick (hf:meta-llama/Llama-4-Maverick-17B-128E) in phase 14: 2
+# of its 48 layers (~44.5 GB with its drafter in bfloat16): layer 0 local
+# and dense, layer 1 local and MoE (128 experts, top-1, the shared expert);
+# its first global NoPE layer is the fourth, and 4 layers (~77 GB) take
+# four cards (tests/test_torch_gpu.py::test_llama4_on_four_cards)
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_LAYERS = 2
 # internvl2-1b's stub vision tokens, prepended to every prompt, and phase
 # 11's page pool at max_len 1280: half of what 8 full rows need
 INTERNVL2_VISION = 256
@@ -432,6 +467,11 @@ INTERNVL2_POOL = 320
 # order only (~1e-7 of a probability), and a flipped expert moves other
 # tokens' capacity
 ROUTER_NEAR_TIE = 1e-5
+# the same for two bfloat16 runs (phase 14): the router reads a bfloat16
+# hidden state, whose rounding (2^-8 of each element, summed over d_model
+# against router weights of scale 0.02) moves a router logit by ~6e-3 and
+# a probability of ~0.05 by ~3e-4; two such steps, with margin to spare
+BF16_ROUTER_NEAR_TIE = 2e-3
 # Oracle drafts must lift the acceptance length above this (a fifth of the
 # drafts are spoiled, so about 3.7 is expected at K 5).
 ORACLE_MIN_AL = 2.0
@@ -1293,9 +1333,7 @@ def check_kernels(ops, dev):
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, bytes=nbytes,
                                        flops=flops)
-        if flex and label in FLEX_UNTIMED:
-            lib_txt = "flex_attention: not timed"
-        elif flex:
+        if flex:
             lib_txt = "flex_attention: see the end"
             measured[(name, label)]["library"] = "flex_attention"
             pending.append(((name, label), tuple(x.cpu() for x in inp), kw))
@@ -3144,9 +3182,10 @@ def drafter_bytes(tcfg, dcfg, dtype_bytes):
 def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
     """The bytes a run will hold, reckoned from the configs: target and
     drafter weights (an MoE layer's experts: w_gate, w_up and w_down each),
-    their contiguous KV caches at (B, max_len), and dense_init's float32
+    their contiguous KV caches at (B, max_len), and dense_init's
     temporaries of the largest matrix (the vocab x d embedding, or an MoE
-    layer's stacked expert weight: the draw and its scaled copy)."""
+    layer's stacked expert weight: its float32 draw, scaled in place, while
+    its cast is made)."""
     d, V, L, hd = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers, tcfg.head_dim
     H, KV, E = tcfg.n_heads, tcfg.n_kv_heads, tcfg.moe.n_experts
     gated = tcfg.mlp_variant in ("swiglu", "geglu")
@@ -3158,7 +3197,7 @@ def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
     drafter = drafter_bytes(tcfg, dcfg, dtype_bytes)
     kv = (L * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim) \
         * 2 * B * max_len * dtype_bytes
-    tmp = 2 * max(V * d, E * d * tcfg.d_ff) * 4
+    tmp = max(V * d, E * d * tcfg.d_ff) * 4
     return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
                 kv_gb=kv / 1e9, init_temporaries_gb=tmp / 1e9,
                 total_gb=(target + drafter + kv + tmp) / 1e9)
@@ -3219,14 +3258,16 @@ def dense_family_launches(cfg, n_d, iterations, chunk_lists, paged, n_ring):
 
 
 def gemma2_path(ops, dev):
-    """Phase 6: full-width gemma2-27b in bfloat16 through Engine.run and a
-    paged Scheduler.serve under pool pressure (weights shared)."""
+    """Phase 6: full-width gemma2-27b in bfloat16, its depth cut to
+    GEMMA2_LAYERS for time, through Engine.run and a paged Scheduler.serve
+    under pool pressure (weights shared)."""
     from repro_torch.configs import DrafterConfig, get_config
     from repro_torch.launch.serve import build_engine, random_prompts
     B, P, NEW, K, MAX_LEN, PAGE, POOL, N = 8, 512, 128, 5, 1024, 16, 192, 8
-    tcfg = get_config("gemma2-27b")
+    tcfg = get_config("gemma2-27b").replace(n_layers=GEMMA2_LAYERS)
     dcfg = DrafterConfig().resolve(tcfg)
-    log(f"phase 6: full-width gemma2-27b bfloat16 (46 layers, d 4608, 32/16 "
+    log(f"phase 6: full-width gemma2-27b bfloat16 ({GEMMA2_LAYERS} of 46 "
+        f"layers, d 4608, 32/16 "
         f"heads, d_ff 36864 GeGLU, vocab 256000, local 4096 / global, "
         f"softcaps 50 / 30), 4-layer parallel drafter, batch {B}, prompt {P},"
         f" max_new {NEW}, K {K}, max_len {MAX_LEN} (the window exceeds it: "
@@ -3236,8 +3277,9 @@ def gemma2_path(ops, dev):
     log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    eng = build_engine(arch="gemma2-27b", mode="parallel", K=K, max_new=NEW,
-                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    eng = build_engine(arch="gemma2-27b", n_layers=GEMMA2_LAYERS,
+                       mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
     torch.cuda.synchronize()
     built_gb = torch.cuda.memory_allocated(dev) / 1e9
     log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
@@ -3285,7 +3327,8 @@ def gemma2_rings(ops, dev, dtype="float32"):
     tie = NEAR_TIE if f32 else BF16_NEAR_TIE
     tag = "6b" if f32 else "6b bf16"
     log(f"phase {tag}: gemma2-27b {dtype}, full width, 4 of 46 layers (a cut"
-        f": 46 in float32 are ~109 GB; in bfloat16 phase 6 runs all 46), "
+        f": 46 in float32 are ~109 GB; in bfloat16 phase 6 runs "
+        f"{GEMMA2_LAYERS}), "
         f"max_len {MAX_LEN}, batch {B}, prompt {P}, max_new {NEW}, K {K}, "
         f"near tie {tie}")
     free_card(dev, f"phase {tag}")
@@ -4084,7 +4127,7 @@ def moe_probe():
         transformer.moe_apply = inner
 
 
-def routing_parts(a, b, n_moe, what):
+def routing_parts(a, b, n_moe, what, router_tie=ROUTER_NEAR_TIE):
     """The first target call (0: the prefill, s + 1: step s) at which two
     probed runs of the same shapes route a token to other experts, or
     None. Fails unless one of the runs had a router margin below
@@ -4096,16 +4139,16 @@ def routing_parts(a, b, n_moe, what):
         m = min(x["margin"], y["margin"])
         log(f"  {what}: the experts differ at call {j // n_moe} (MoE layer "
             f"{j % n_moe}), router margin {m:.3e}")
-        if not m < ROUTER_NEAR_TIE:
+        if not m < router_tie:
             fail(f"{what}: the experts differ at call {j // n_moe} with a "
-                 f"router margin of {m} >= {ROUTER_NEAR_TIE}")
+                 f"router margin of {m} >= {router_tie}")
         return j // n_moe
     if len(a) != len(b):
         fail(f"{what}: {len(a)} against {len(b)} MoE calls")
     return None
 
 
-def row_router_ties(a, b, n_moe, B, what):
+def row_router_ties(a, b, n_moe, B, what, router_tie=ROUTER_NEAR_TIE):
     """Each row's first target call (as ``routing_parts``) from which two
     probed runs may part for that row, or None: where both runs' layer
     calls have one shape, the first at which the row's experts differ
@@ -4120,35 +4163,38 @@ def row_router_ties(a, b, n_moe, B, what):
             moved = (x["experts"].reshape(B, -1) != y["experts"].reshape(B, -1)
                      ).any(1).numpy()
             low = np.minimum(x["row_margin"], y["row_margin"])
-            for rb in np.flatnonzero(moved & ~(low < ROUTER_NEAR_TIE)):
+            for rb in np.flatnonzero(moved & ~(low < router_tie)):
                 fail(f"{what}: row {rb}'s experts differ at call "
                      f"{j // n_moe} with a router margin of {low[rb]}")
         else:
             moved = np.minimum.reduce([r["row_margin"] for r in (x, y)
-                                       if r is not None]) < ROUTER_NEAR_TIE
+                                       if r is not None]) < router_tie
         for rb in np.flatnonzero(moved):
             if first[rb] is None:
                 first[rb] = j // n_moe
     return first
 
 
-def moe_streams_agree(ref_eng, toks, ref, P, what, dev, probes, coupled):
+def moe_streams_agree(ref_eng, toks, ref, P, what, dev, probes, coupled,
+                      tie=NEAR_TIE, router_tie=ROUTER_NEAR_TIE):
     """phase 4's near-tie rule for two greedy MoE runs, with the router's:
-    a row may part where the reference's top-2 logit gap is below NEAR_TIE,
+    a row may part where the reference's top-2 logit gap is below ``tie``,
     or from position P + i on, call i committing positions P + i and later
     (0: the prefill, s + 1: step s). ``coupled`` (slots dropped: a flipped
     expert moves other tokens' capacity, every row's): i is the first call
     at which the two runs' experts differ (``routing_parts``), for every
     row. Else (nothing dropped: tokens do not interact) i is the row's own
-    (``row_router_ties``)."""
+    (``row_router_ties``). ``router_tie``: a router margin below it may
+    flip an expert (ROUTER_NEAR_TIE in float32, BF16_ROUTER_NEAR_TIE in
+    bfloat16)."""
     n_moe = sum(ref_eng.tcfg.is_moe_layer(li)
                 for li in range(ref_eng.tcfg.n_layers))
     B, W = toks.shape
     if coupled:
-        i = routing_parts(*probes, n_moe, what)
+        i = routing_parts(*probes, n_moe, what, router_tie)
         firsts = [i] * B
     else:
-        firsts = row_router_ties(*probes, n_moe, B, what)
+        firsts = row_router_ties(*probes, n_moe, B, what, router_tie)
     toks = toks.copy()
     for b, i in enumerate(firsts):
         if i is not None and P + i < W:
@@ -4157,7 +4203,7 @@ def moe_streams_agree(ref_eng, toks, ref, P, what, dev, probes, coupled):
             log(f"  {what}: row {b} compared up to position {end} (a router "
                 f"near tie); past it {'equal all the same' if same else 'it parts'}")
             toks[b, end:] = ref[b, end:]
-    return near_ties(ref_eng, toks, ref, P, what, dev)
+    return near_ties(ref_eng, toks, ref, P, what, dev, tie=tie)
 
 
 def dbrx_path(ops, dev):
@@ -4340,10 +4386,11 @@ def whisper_traffic(vocab, n=24):
 
 
 def internvl2_path(ops, dev):
-    """Phase 11: internvl2-1b at full width in bfloat16 (all 24 layers;
-    256 stub vision tokens of 1024 early-fused before each prompt):
-    Engine.run at phase 3's shapes (a fused prefill of 768 positions; 24
-    flash and 8 decode at the prefill, 64 decode a step, every decode at
+    """Phase 11: internvl2-1b at full width in bfloat16 (INTERNVL2_LAYERS
+    of its 24 layers, cut for time; 256 stub vision tokens of 1024
+    early-fused before each prompt): Engine.run at phase 3's shapes (a
+    fused prefill of 768 positions; 12 flash and 8 decode at the prefill,
+    40 decode a step, every decode at
     positions 256 past its token index), then Scheduler.serve of phase
     3b's 24 requests over paged KV with swap to host, each request's
     vision extras drawn from its prompt at admission, at max_len 1280 (256
@@ -4352,14 +4399,16 @@ def internvl2_path(ops, dev):
     from repro_torch.launch.serve import build_engine, random_prompts
     B, P, NEW, K, MAX_LEN, PAGE, POOL = (8, 512, 128, 5, 1024, 16,
                                          INTERNVL2_POOL)
-    log(f"phase 11: full-width internvl2-1b bfloat16 (24 layers, d 896, 14/2 "
+    log(f"phase 11: full-width internvl2-1b bfloat16 ({INTERNVL2_LAYERS} of "
+        f"24 layers, d 896, 14/2 "
         f"heads of 64, d_ff 4864 SwiGLU, vocab 151655; {INTERNVL2_VISION} "
         f"stub vision tokens of 1024 through vis_proj), 4-layer parallel "
         f"drafter, batch {B}, prompt {P} (fused {P + INTERNVL2_VISION}), "
         f"max_new {NEW}, K {K}, max_len {MAX_LEN}")
     free_card(dev, "phase 11")
-    eng = build_engine(arch="internvl2-1b", mode="parallel", K=K, max_new=NEW,
-                       max_len=MAX_LEN, batch=B, seed=0, device=dev)
+    eng = build_engine(arch="internvl2-1b", n_layers=INTERNVL2_LAYERS,
+                       mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
+                       batch=B, seed=0, device=dev)
     if eng.pos_offset != INTERNVL2_VISION:
         fail(f"phase 11: vision offset {eng.pos_offset}")
     prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
@@ -4518,7 +4567,10 @@ def sharded_path(ops, dev):
     group (``EngineConfig(shard_model=True)``: weights and K/V rest as
     slices, gathered a layer at a time before use; a one-rank mesh gathers
     and writes slices all the same). Full-width qwen2-1.5b on 7 of its 28
-    layers in bfloat16 with the 4-layer drafter: (a) Engine.run, batch 8,
+    layers in bfloat16 with the 4-layer drafter, the sharded engine built
+    by ``build_engine(shard_model=True)``, leaf by leaf: its slices bitwise
+    ``shard_tree`` of the unsharded build's draw, both builds' peak card
+    memory logged; then (a) Engine.run, batch 8,
     512-token prompts, 64 new, K 5, contiguous: tokens and the gathered
     state bitwise the unsharded engine's on the same weights, decode and
     flash launches equal; (b) Scheduler.serve over paged KV (phase 3b's
@@ -4526,7 +4578,13 @@ def sharded_path(ops, dev):
     equal to the unsharded serve's, at least one swap, paged launches
     equal; (c) one ``build_train_step`` step on a (data 1, model 1) mesh,
     float32, n 2048: loss and updated drafter weights within atol 2e-5
-    rtol 2e-4 of the unsharded step, the MTP kernel launched."""
+    rtol 2e-4 of the unsharded step, the MTP kernel launched; (d)
+    AsyncEngine over the sharded paged engine, rank 0 deciding and
+    broadcasting a record a pass (``Mesh.broadcast``), on 3b's first 8
+    prompts at 48-token budgets, odd requests sampled, all submitted
+    before the first pass: every stream equal to the unsharded
+    AsyncEngine's, the records counted."""
+    import asyncio
     import dataclasses
     import torch.distributed as dist
     from repro_torch.core import cod
@@ -4535,8 +4593,11 @@ def sharded_path(ops, dev):
     from repro_torch.launch.steps import build_train_step, shard_train_inputs
     from repro_torch.optim import adamw_init
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampling import SamplingParams
     from repro_torch.serving.scheduler import Request, Scheduler
+    from repro_torch.serving.streaming import AsyncEngine
     from repro_torch.sharding import utils as SH
+    from repro_torch.sharding.rules import serve_param_specs
     from repro_torch.tree import leaves, leaves_with_paths
     B, P, NEW, K, MAX_LEN, LAYERS, PAGE, POOL = 8, 512, 64, 5, 1024, 7, 16, 256
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4565,10 +4626,50 @@ def sharded_path(ops, dev):
                        t.numel() * t.element_size()
                        for t in leaves(e.tparams) + leaves(e.dparams))
 
+        # the leaf-by-leaf build against the whole draw
+        peaks, built = {}, {}
+        for name, shard_model in (("unsharded", False), ("leafwise", True)):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            built[name] = build_engine(mode="parallel", K=K, max_new=NEW,
+                                       max_len=MAX_LEN, batch=B, seed=0,
+                                       device=dev, n_layers=LAYERS,
+                                       shard_model=shard_model)
+            torch.cuda.synchronize()
+            peaks[name] = dict(
+                held_gb=(torch.cuda.memory_allocated(dev) - before) / 1e9,
+                peak_gb=(torch.cuda.max_memory_allocated(dev) - before) / 1e9)
+        e0, e1 = built["unsharded"], built["leafwise"]
+        del built
+        n_shards = 0
+        for tree, cut in ((e0.tparams, e1.tparams), (e0.dparams, e1.dparams)):
+            want = SH.shard_tree(tree, serve_param_specs(tree, e1.mesh),
+                                 e1.mesh)
+            for (path, a), (_, b) in zip(leaves_with_paths(cut),
+                                         leaves_with_paths(want)):
+                if type(a) is not type(b):
+                    fail(f"phase 13: leaf {path} is a {type(a).__name__}, "
+                         f"the whole draw's cut a {type(b).__name__}")
+                if isinstance(a, SH.Shard):
+                    n_shards += 1
+                    if a.spec != b.spec:
+                        fail(f"phase 13: leaf {path} cut by {a.spec}, the "
+                             f"whole draw's by {b.spec}")
+                    a, b = a.local, b.local
+                if not torch.equal(a, b):
+                    fail(f"phase 13: leaf {path} drawn leaf by leaf differs "
+                         f"from the whole draw's")
+            del want
+        out["build"] = dict(peaks, shards=n_shards)
+        log(f"  13 build: {n_shards} slices bitwise the whole draw's; "
+            f"unsharded holds {peaks['unsharded']['held_gb']:.3f} GB, peak "
+            f"{peaks['unsharded']['peak_gb']:.3f}; leaf by leaf holds "
+            f"{peaks['leafwise']['held_gb']:.3f} GB, peak "
+            f"{peaks['leafwise']['peak_gb']:.3f} (one rank: its slices are "
+            f"the whole model) ({card})")
+
         # (a) Engine.run
-        e0 = build_engine(mode="parallel", K=K, max_new=NEW, max_len=MAX_LEN,
-                          batch=B, seed=0, device=dev, n_layers=LAYERS)
-        e1 = sharded(e0)
         prompts = random_prompts(e0.tcfg.vocab_size, B, P, seed=0)
         runs, counts = {}, {}
         for name, e in (("unsharded", e0), ("sharded", e1)):
@@ -4652,7 +4753,53 @@ def sharded_path(ops, dev):
             f"{s1['preempt_recompute']}; ms/iteration sharded "
             f"{msi['sharded']:.2f} unsharded {msi['unsharded']:.2f}; launches "
             f"{counts['sharded']} ({card})")
-        del p0, p1, reps
+        del reps
+
+        # (d) AsyncEngine, rank 0 deciding, against the unsharded one
+        work = [(p, None if i % 2 == 0 else SamplingParams(
+            temperature=0.8, top_k=50, seed=70 + i), 48)
+            for i, p in enumerate(traffic[0][:8])]
+
+        async def stream(eng):
+            aeng = AsyncEngine(eng)
+            handles = [await aeng.submit(p, sp, max_new_tokens=b)
+                       for p, sp, b in work]
+
+            async def drain(h):
+                return [t async for t, _ in h]
+            got = await asyncio.gather(*(drain(h) for h in handles))
+            return got, await aeng.close(), aeng.records
+        streams = {}
+        for name, e in (("unsharded", p0), ("sharded", p1)):
+            ops.reset_launches()
+            SH.reset_counters()
+            t0 = time.perf_counter()
+            streams[name] = asyncio.run(asyncio.wait_for(stream(e), 300))
+            wall = time.perf_counter() - t0
+            counts[name] = dict(ops.launches)
+            if name == "sharded":
+                bc = SH.counters().get("broadcast", {"calls": 0, "bytes": 0})
+        (g0, r0, _), (g1, r1, records) = (streams["unsharded"],
+                                          streams["sharded"])
+        for i, (a, b) in enumerate(zip(g0, g1)):
+            if a != b:
+                fail(f"phase 13d: stream {i} differs sharded")
+        if not (bc["calls"] == records and records >= r1["iterations"] + 1):
+            fail(f"phase 13d: {bc['calls']} broadcasts counted for {records} "
+                 f"records over {r1['iterations']} iterations")
+        if not counts["sharded"]["paged_decode_attention"] > 0:
+            fail(f"phase 13d: launches {counts['sharded']}")
+        out["async"] = dict(iterations=r1["iterations"], records=records,
+                            records_per_iteration=records / r1["iterations"],
+                            record_bytes=bc["bytes"] / max(records, 1),
+                            wall_s=wall, preempt_swap=r1["preempt_swap"],
+                            launches=counts["sharded"])
+        log(f"  13d AsyncEngine: 8 streams (4 sampled) equal to the unsharded "
+            f"engine's; {r1['iterations']} iterations, {records} records "
+            f"broadcast ({records / r1['iterations']:.3f} an iteration, "
+            f"{bc['bytes'] / max(records, 1):.0f} B each), {wall:.1f} s, "
+            f"swaps {r1['preempt_swap']} ({card})")
+        del p0, p1, streams
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4740,6 +4887,122 @@ def sharded_path(ops, dev):
     return out
 
 
+def llama4_path(ops, dev):
+    """Phase 14: llama4-maverick at full width in bfloat16 on one card,
+    its depth cut to LLAMA4_LAYERS (layer 1's MoE: 128 experts of d_ff
+    8192, top-1, capacity factor 1.25, beside the shared expert; attention
+    40/8 heads of 128 with its local window 8192, the drafter's 40/40):
+    Engine.run at phase 3's shapes, the routing of a prefill and a verify
+    (``moe_probe``), Scheduler.serve of phase 3b's first 12 requests over
+    paged KV with swap to host, then greedy parallel and ar against none
+    at capacity factor 128 (no slot dropped: rows do not interact) under
+    the bfloat16 near-tie rules (BF16_NEAR_TIE, BF16_ROUTER_NEAR_TIE)."""
+    import dataclasses
+    from repro_torch.configs import DrafterConfig, get_config
+    from repro_torch.launch.serve import build_engine, random_prompts
+    from repro_torch.serving.engine import Engine
+    B, P, NEW, K, MAX_LEN, PAGE, POOL, N = 8, 512, 128, 5, 1024, 16, 256, 12
+    tcfg = get_config(LLAMA4).replace(n_layers=LLAMA4_LAYERS)
+    dcfg = DrafterConfig().resolve(tcfg)
+    m = tcfg.moe
+    n_moe = sum(tcfg.is_moe_layer(li) for li in range(tcfg.n_layers))
+    log(f"phase 14: full-width llama4-maverick bfloat16 ({LLAMA4_LAYERS} of "
+        f"48 layers: {[tcfg.attn_kind(li) for li in range(tcfg.n_layers)]}, "
+        f"MoE {[tcfg.is_moe_layer(li) for li in range(tcfg.n_layers)]}; d "
+        f"{tcfg.d_model}, {tcfg.n_heads}/{tcfg.n_kv_heads} heads of "
+        f"{tcfg.head_dim}, window {tcfg.window_size}, {m.n_experts} experts "
+        f"top-{m.top_k} of d_ff {tcfg.d_ff} and {m.n_shared_experts} shared, "
+        f"capacity factor {m.capacity_factor}, vocab {tcfg.vocab_size}, "
+        f"untied head), 4-layer parallel drafter (d {dcfg.d_model}, "
+        f"{dcfg.n_heads}/{dcfg.n_kv_heads} heads of {dcfg.head_dim}, d_ff "
+        f"{dcfg.d_ff}), batch {B}, prompt {P}, max_new {NEW}, K {K}, "
+        f"max_len {MAX_LEN}")
+    free_card(dev, "phase 14")
+    plan = memory_plan(tcfg, dcfg, B, MAX_LEN, 2)
+    log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = build_engine(arch=LLAMA4, n_layers=LLAMA4_LAYERS, mode="parallel",
+                       K=K, max_new=NEW, max_len=MAX_LEN, batch=B, seed=0,
+                       device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  weights built in {time.perf_counter() - t0:.1f} s: "
+        f"{held / 1e9:.2f} GB allocated, peak {build_peak / 1e9:.2f} GB")
+    prompts = random_prompts(eng.tcfg.vocab_size, B, P, seed=0)
+    run = family_run(ops, dev, eng, prompts, NEW, K, "14")
+    run.update(memory_plan=plan, weights_gb=held / 1e9,
+               build_peak_gb=build_peak / 1e9)
+    with moe_probe() as probe, torch.no_grad():
+        state = eng.prefill(prompts)
+        n_pre = len(probe)
+        state = eng.step(state)
+    del state
+    pre, ver = probe[:n_pre], probe[n_pre:]
+    if not ([r["shape"] for r in pre] == [(B, P)] * n_moe
+            and [r["shape"] for r in ver] == [(B, K + 1)] * n_moe):
+        fail(f"phase 14 MoE calls {[r['shape'] for r in probe]}: want "
+             f"{n_moe} at ({B}, {P}) then {n_moe} at ({B}, {K + 1})")
+    run.update(prefill_drop_frac=float(np.mean([r["drop_frac"] for r in pre])),
+               verify_drop_frac=float(np.mean([r["drop_frac"] for r in ver])),
+               router_min_margin=min(r["margin"] for r in probe))
+    log(f"  routing: drop_frac {run['prefill_drop_frac']:.4f} at the prefill "
+        f"({B} x {P} tokens, capacity "
+        f"{int((B * P * m.top_k) / m.n_experts * m.capacity_factor) + 1}), "
+        f"{run['verify_drop_frac']:.4f} at a verify ({B} x {K + 1}, capacity "
+        f"{int((B * (K + 1) * m.top_k) / m.n_experts * m.capacity_factor) + 1}"
+        f"); smallest router top-{m.top_k} margin "
+        f"{run['router_min_margin']:.3e}")
+    log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, swap to "
+        f"host, incremental growth; phase 3b's first {N} requests")
+    peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
+                       pool_pages=POOL, max_new_tokens=192, swap="host")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = family_serve(ops, dev, peng,
+                         sched3b_traffic(peng.tcfg.vocab_size, N), "14")
+    if not serve["preempt_swap"] > 0:
+        fail("phase 14 serve: no request was swapped to the host")
+    # capacity factor 128: every slot kept, so a row's tokens depend on the
+    # row alone; bfloat16 runs of other shapes part only at near ties
+    Bn, Pn, NEWn, MAXn = 4, 128, 32, 256
+    tcfg128 = peng.tcfg.replace(moe=dataclasses.replace(
+        peng.tcfg.moe, capacity_factor=128.0))
+    prompts = random_prompts(peng.tcfg.vocab_size, Bn, Pn, seed=1)
+    runs, probes, out = {}, {}, {}
+    for mode in ("none", "parallel", "ar"):
+        use_d = mode != "none"
+        e = Engine(tcfg128, peng.dcfg if use_d else None, peng.tparams,
+                   peng.dparams if use_d else None, dataclasses.replace(
+                       peng.ecfg, kv_layout="contiguous", swap="none",
+                       drafter_mode=mode, K=K if use_d else 0,
+                       max_new_tokens=NEWn, max_len=MAXn), Bn, device=dev)
+        with moe_probe() as probe:
+            r = e.run(prompts)
+        runs[mode], probes[mode] = r["tokens"][:, :Pn + NEWn], probe
+        dropped = max(x["drop_frac"] for x in probe)
+        log(f"  capacity factor 128, {mode:8s} steps {r['steps']:3d}, "
+            f"largest drop_frac {dropped}, smallest router margin "
+            f"{min(x['margin'] for x in probe):.3e}")
+        if dropped != 0.0:
+            fail(f"phase 14 {mode} at capacity factor 128 dropped slots")
+        if mode == "none":
+            ref_eng = e
+        del e
+    for mode in ("parallel", "ar"):
+        out[f"{mode}_vs_none_parted_rows"] = moe_streams_agree(
+            ref_eng, runs[mode], runs["none"], Pn,
+            f"14 capacity 128 {mode} vs none", dev,
+            (probes[mode], probes["none"]), coupled=False,
+            tie=BF16_NEAR_TIE, router_tie=BF16_ROUTER_NEAR_TIE)
+    del peng, ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "serve": serve, "no_drops": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4779,7 +5042,7 @@ def main() -> int:
 
 
 def run_phases(ops, dev) -> list:
-    """Phases 2-13 on ``dev``; returns the kernels' JSON rows."""
+    """Phases 2-14 on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def timed(fn, *a):
@@ -4810,6 +5073,7 @@ def run_phases(ops, dev) -> list:
     internvl2 = timed(internvl2_path, ops, dev)
     whisper = timed(whisper_path, ops, dev)
     sharded = timed(sharded_path, ops, dev)
+    llama4 = timed(llama4_path, ops, dev)
     timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -4878,6 +5142,15 @@ def run_phases(ops, dev) -> list:
                        paged_decode_attention=whisper["serve"]["launches"][
                            "paged_decode_attention"])
 
+    # llama4-maverick's from phase 14 (40/8 heads, window 8192; its
+    # drafter 40/40)
+    l4_shape = {"decode_attention": "llama4 target verify phase 1",
+                "paged_decode_attention": "llama4 target verify phase 1",
+                "flash_attention": "llama4 local prefill"}
+    l4_launches = dict(llama4["run"]["launches"],
+                       paged_decode_attention=llama4["serve"]["launches"][
+                           "paged_decode_attention"])
+
     def family_row(shape, launches, fam, name):
         f = measured[(name, shape)]
         return {"shape": shape, "launches": launches,
@@ -4937,7 +5210,9 @@ def run_phases(ops, dev) -> list:
             "internvl2": family_row(iv_shape[name], iv_launches[name],
                                     "internvl2", name),
             "whisper": family_row(wh_shape[name], wh_launches[name],
-                                  "whisper", name)})
+                                  "whisper", name),
+            "llama4": family_row(l4_shape[name], l4_launches[name],
+                                 "llama4", name)})
     # the MTP kernel: timed at the training shape in float32, the dtype the
     # training path gives it; launches over both training paths of phase 5
     mtp_shape = ("training shape n 2048 K 8 r 0.8", "float32")
@@ -4973,6 +5248,7 @@ def run_phases(ops, dev) -> list:
     log(f"internvl2-1b: {json.dumps(internvl2)}")
     log(f"whisper-base: {json.dumps(whisper)}")
     log(f"sharded (phase 13): {json.dumps(sharded)}")
+    log(f"llama4-maverick (phase 14): {json.dumps(llama4)}")
     log("gemma2, gemma7b, rgemma, dbrx, llama4, internvl2 and whisper kernel "
         "timing: " + json.dumps(
             {f"{k[0]} {k[1]}": v for k, v in measured.items()

@@ -61,7 +61,16 @@ def mask_token_id(tcfg: ModelConfig) -> int:
 
 def init_params(dcfg: DrafterConfig, tcfg: ModelConfig,
                 generator: torch.Generator, *, device="cuda",
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, keep=None) -> dict:
+    """Random drafter weights drawn from ``generator`` (on ``device``).
+    ``keep``: a per-leaf hook, called on each drawn weight right after its
+    draw; what it returns stands in the tree (``models.layers.keeping``)."""
+    with L.keeping(keep):
+        return _init_params(dcfg, tcfg, generator, device, dtype)
+
+
+def _init_params(dcfg: DrafterConfig, tcfg: ModelConfig,
+                 generator: torch.Generator, device, dtype) -> dict:
     d, H, KV, hd = dcfg.d_model, dcfg.n_heads, dcfg.n_kv_heads, dcfg.head_dim
 
     def dense(shape):
@@ -76,8 +85,9 @@ def init_params(dcfg: DrafterConfig, tcfg: ModelConfig,
                                   dtype=dtype)}
 
     def normal(shape):
-        return (0.02 * torch.randn(shape, generator=generator, device=device,
-                                   dtype=torch.float32)).to(dtype)
+        return L.kept((0.02 * torch.randn(shape, generator=generator,
+                                          device=device,
+                                          dtype=torch.float32)).to(dtype))
 
     params = {
         "embed": L.embed_init(tcfg.vocab_size, d, generator, device=device,

@@ -79,10 +79,16 @@ repeated and the last (warm) run is reported.
 
 ``--shard-model N`` serves storage-sharded (``EngineConfig(shard_model=
 True)``) over N ranks started by ``torchrun --nproc-per-node N``, one card
-each (``nccl``; ``gloo`` with ``--device cpu``): every rank builds the same
-seeded weights, keeps its slice and runs the same scheduler; rank 0 prints
-the report. N must be the world size. ``--round-based`` is not offered
-with it.
+each (``nccl``; ``gloo`` with ``--device cpu``): every rank draws the same
+seeded weights leaf by leaf, keeps its slice of each as it is drawn (no
+card ever holds the whole model) and runs the same scheduler; rank 0
+prints the report. N must be the world size. ``--round-based`` is not
+offered with it. llama4-maverick at full width on 4 of its 48 layers
+(~77 GB with its drafter, its first global NoPE layer the fourth) serves
+on four cards, ~19 GB of slices each:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch llama4-maverick-400b-a17b --n-layers 4 --shard-model 4
 """
 from __future__ import annotations
 
@@ -101,6 +107,8 @@ from repro_torch.serving.engine import Engine, EngineConfig, resolve_device
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import (Request, Scheduler,
                                            serve_round_based)
+from repro_torch.sharding.rules import draw_sharded
+from repro_torch.sharding.utils import serving_mesh
 
 
 def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
@@ -114,13 +122,13 @@ def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
     the published ones). ``dtype`` defaults to bfloat16 at full width and
     float32 reduced; ``sampling`` is the engine's default policy (None:
     greedy). ``shard_model`` shards the weights and KV over every rank of
-    the initialised process group (each rank draws the same weights and
-    keeps its slice). Each rank draws the whole model on its card first,
-    as the unsharded engine does, so the weights are the same for a seed
-    and a rank's peak at construction is the whole model plus its slices:
-    a model larger than one card needs weights drawn or loaded on the host
-    (``Engine`` then moves slices only). A target the device's kernels
-    cannot serve raises before any weight is made."""
+    the initialised process group: each rank draws the same weights leaf
+    by leaf, in the unsharded draw's order, and keeps its slice of each
+    as soon as it is drawn (``sharding.rules.draw_sharded``), so its card
+    holds its slices plus the one leaf being drawn (a float32 draw and its
+    cast), never the whole model, and the slices are bitwise the unsharded
+    draw's for the seed. A target the device's kernels cannot serve raises
+    before any weight is made."""
     dev = resolve_device(device)
     tcfg = get_config(arch)
     if reduced:
@@ -130,11 +138,17 @@ def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
     dcfg = DrafterConfig().resolve(tcfg)
     model = get_model(tcfg, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tparams = model.init(gen, device=dev)
+    mesh = serving_mesh() if shard_model else None
+
+    def draw(init):
+        if mesh is None:
+            return init(gen, dev, None)
+        return draw_sharded(init, gen, mesh, device=dev)
+    tparams = draw(lambda g, d, keep: model.init(g, device=d, keep=keep))
     dparams = None
     if mode != "none":
-        dparams = D.init_params(dcfg, tcfg, gen, device=dev,
-                                dtype=getattr(torch, dtype))
+        dparams = draw(lambda g, d, keep: D.init_params(
+            dcfg, tcfg, g, device=d, dtype=getattr(torch, dtype), keep=keep))
     ecfg = EngineConfig(K=K, max_new_tokens=max_new, drafter_mode=mode,
                         cache_dtype=dtype, max_len=max_len,
                         kv_layout=kv_layout, page_size=page_size,
@@ -142,7 +156,7 @@ def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
                         sampling=sampling, draft_sampling=draft_sampling,
                         prefix_cache=prefix_cache, swap=swap,
                         host_pool_bytes=host_pool_bytes,
-                        shard_model=shard_model)
+                        shard_model=shard_model, mesh=mesh)
     return Engine(tcfg, dcfg if mode != "none" else None, tparams, dparams,
                   ecfg, batch, device=dev)
 

@@ -286,9 +286,9 @@ def main(argv=None):
 
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
-            "the NDJSON server over several ranks: AsyncEngine's wall-clock "
-            "admissions differ between ranks; rank 0 deciding and "
-            "broadcasting is an open item (ROADMAP.md, queue 1, item 5)")
+            "the NDJSON server over several ranks: the JAX package's server "
+            "takes no mesh, so neither does this one (AsyncEngine itself "
+            "serves over a mesh: rank 0 decides, the other ranks follow)")
     # the server's imports: the client stays free of torch
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.engine import resolve_device

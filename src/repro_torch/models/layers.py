@@ -24,9 +24,10 @@ there (the JAX scatter's ``mode="drop"``, without a host sync).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,14 +43,46 @@ INT32_MAX = 2 ** 31 - 1
 # init helpers
 # ---------------------------------------------------------------------------
 
+# the per-leaf hooks of the builds in progress (``keeping``), innermost last
+_KEEP: List[Callable] = []
+
+
+@contextlib.contextmanager
+def keeping(keep: Optional[Callable]):
+    """Within the block, each weight a ``dense_init`` draws (and each leaf
+    an init passes to ``kept``) is handed to ``keep`` right after its draw,
+    and what ``keep`` returns stands in the tree: a leaf-by-leaf build
+    (``Model.init(keep=)``, ``core.drafter.init_params(keep=)``) keeps a
+    slice and frees the drawn leaf before the next is drawn. None: nothing
+    changes. The draws and their order are the same with and without a
+    hook."""
+    if keep is None:
+        yield
+        return
+    _KEEP.append(keep)
+    try:
+        yield
+    finally:
+        _KEEP.pop()
+
+
+def kept(w):
+    """What the active hook keeps of the drawn leaf ``w`` (``w`` without
+    one)."""
+    return _KEEP[-1](w) if _KEEP else w
+
+
 def dense_init(shape, generator: torch.Generator, *, device, dtype,
-               scale: Optional[float] = None) -> Tensor:
-    """Truncated-normal fan-in init (as the JAX package's ``dense_init``)."""
+               scale: Optional[float] = None):
+    """Truncated-normal fan-in init (as the JAX package's ``dense_init``),
+    drawn in float32 and cast, scaled in place: a leaf peaks at its float32
+    draw plus its cast. Returns what ``kept`` keeps of it."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return (w * std).to(dtype)
+    w = w.mul_(std).to(dtype)
+    return kept(w)
 
 
 def embed_init(vocab: int, d: int, generator: torch.Generator, *, device,

@@ -24,6 +24,7 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
+from repro_torch.models import layers as L
 
 _FAMILY_MODULE = {"dense": transformer, "moe": transformer,
                   "vlm": transformer, "ssm": ssm, "hybrid": hybrid,
@@ -60,8 +61,16 @@ class Model:
         prefix-cache hit): the SSM and the hybrid families."""
         return self.cfg.family in ("ssm", "hybrid")
 
-    def init(self, generator: torch.Generator, *, device="cuda") -> dict:
-        return self.module.init_params(self.cfg, generator, device=device)
+    def init(self, generator: torch.Generator, *, device="cuda",
+             keep=None) -> dict:
+        """Random weights drawn from ``generator`` (on ``device``).
+        ``keep``: a per-leaf hook, called on each drawn weight right after
+        its draw; what it returns stands in the tree
+        (``models.layers.keeping``: a leaf-by-leaf sharded build keeps its
+        slice). Without it the tree is what it always was."""
+        with L.keeping(keep):
+            return self.module.init_params(self.cfg, generator,
+                                           device=device)
 
     def make_cache(self, batch: int, max_len: int, *, dtype=torch.bfloat16,
                    device="cuda", block: int = 1) -> dict:

@@ -80,11 +80,14 @@ positions, recurrent state, tokens, counters and sampling rows replicate;
 every cache operation indexes batch, sequence or page dims only, so it
 runs on the slices as it is, and a swap moves 1/N of a slot's K/V per
 rank. Every rank runs the same calls in the same order (the scheduler's
-host decisions are deterministic on its virtual clock), so their
-collectives match. A one-rank mesh still gathers and writes slices.
-The engine cuts each weight where the caller's tree lies and moves only
-its slice, so trees given on the host cost each card its slices alone;
-trees given on the card are the caller's, whole.
+host decisions are deterministic on its virtual clock; under
+``AsyncEngine`` rank 0 decides and broadcasts), so their collectives
+match. A one-rank mesh still gathers and writes slices. The engine cuts
+each weight where the caller's tree lies and moves only its slice, so
+trees given on the host cost each card its slices alone; trees given on
+the card are the caller's, whole; trees drawn leaf by leaf into slices
+(``sharding.rules.draw_sharded``, as ``launch/serve.build_engine`` draws
+them) are kept as they are, so no card ever holds a whole model.
 
 A VLM or encoder-decoder target takes per-request modality inputs,
 ``extras`` (``models/registry.make_extras``: ``vision_embeds`` or
@@ -332,7 +335,9 @@ class Engine:
     Args:
       tcfg / dcfg: target and drafter configs (dcfg None for mode "none").
       tparams / dparams: parameter trees (``models.transformer`` /
-        ``core.drafter`` layout), moved to ``device``.
+        ``core.drafter`` layout), moved to ``device``; under
+        ``shard_model`` their leaves may be this rank's ``Shard`` slices
+        for the engine's mesh already (``sharding.rules.draw_sharded``).
       ecfg: static engine configuration.
       batch: slots (rows of the decode state).
       device: "cuda" (the default) or "cpu"; a missing card raises.
@@ -358,7 +363,9 @@ class Engine:
                                  f"with process groups, got {self.mesh!r}")
             # each rank keeps its slice, cut where the caller's trees lie
             # and then moved: given trees on the host, the card never holds
-            # a whole sharded weight
+            # a whole sharded weight; trees cut as they were drawn
+            # (``rules.draw_sharded``) keep their slices, and a slice cut
+            # for another mesh layout raises
             self.tparams, self.dparams = (
                 None if tree is None else SH.shard_tree(
                     tree, serve_param_specs(tree, self.mesh), self.mesh,

@@ -58,8 +58,12 @@ rank of the mesh runs this same host scheduler on the virtual clock over
 the same requests: admissions, page growth, preemptions, swaps, the prefix
 cache and the adaptive-K controller decide from replicated tokens and
 counters only, so every rank makes the same engine calls in the same
-order and their gathers match. The wall-clock ``AsyncEngine`` does not
-have that property and refuses a mesh of more than one rank.
+order and their gathers match. Under the wall-clock ``AsyncEngine`` what
+enters from outside (submissions, with their rid, arrival and
+``t_submit``; aborts; the clock) is rank 0's alone: it broadcasts a record
+of it before each pass, and the other ranks apply the record
+(``_submit``, ``_abort``, ``_advance(now=)``) and then run the same core,
+which decides from the same replicated state.
 
 Termination is host-driven: after every ``sync_every`` iterations one
 readback brings the per-slot counters and committed tokens to the host;
@@ -254,14 +258,21 @@ class Scheduler:
         #                              net of prefix-cache hits
         self._next_seq = 0
         self._wall_t0 = None         # None: the virtual clock
+        self._given_clock: Optional[float] = None
         self._t_start = time.perf_counter()
 
-    def _advance(self, cost: float) -> None:
+    def _advance(self, cost: float, now: Optional[float] = None) -> None:
         """Move the session clock past one piece of work: the virtual clock
         adds its cost, the wall clock reads the time since the session
-        opened."""
+        opened. ``now`` gives the wall clock's reading instead (a follower
+        rank of ``AsyncEngine`` takes rank 0's), which then holds until the
+        next reading is given."""
+        if now is not None:
+            self._given_clock = float(now)
         if self._wall_t0 is None:
             self._clock += cost
+        elif self._given_clock is not None:
+            self._clock = self._given_clock
         else:
             self._clock = time.perf_counter() - self._wall_t0
 
@@ -308,6 +319,14 @@ class Scheduler:
         if self.eos_id is not None:
             stops.add(self.eos_id)
         r._stop_set = frozenset(stops)
+
+    def _submit(self, r: Request, t_submit: Optional[float] = None) -> None:
+        """A wall-clock arrival: validate (``_prepare``; raises before any
+        state is touched), queue at its priority and log it at the current
+        clock. ``t_submit``: rank 0's stamp, on a follower rank."""
+        self._prepare(r, t_submit)
+        bisect.insort(self._waiting, r, key=self._prio)
+        self._event("arrive", r.rid)
 
     def _flush(self, req: Request) -> None:
         """Queue the request's newly final tokens (those the stop / budget

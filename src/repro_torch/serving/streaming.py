@@ -29,13 +29,30 @@ Everything runs on one event loop. Only the dispatch task launches work on
 the device, one blocking sync at a time; ``submit``, ``abort`` and
 ``health`` touch host state between its syncs. ``launch/serve_stream.py``
 puts an NDJSON socket server in front of this class.
+
+Over a storage-sharded engine (``EngineConfig(shard_model=True)``) every
+rank of the mesh makes an ``AsyncEngine``; rank 0 decides and every rank
+replays. Rank 0 serves the clients and runs the event loop; before each
+pass of the core (admit, grow, dispatch, harvest) it broadcasts one record
+(``Mesh.broadcast``, host objects over gloo): the submissions since the
+last record (rid, prompt, policy, budget, extras, arrival, ``t_submit``)
+and aborts, in their order, its clock, and whether the session closes.
+The other ranks run :meth:`AsyncEngine.follow`: apply each record, then
+make the same engine calls, which decide from the same replicated state,
+so their gathers match. Streams, ``health()`` and the report live on rank
+0; a follower's ``submit`` raises. Rank 0's own work inside a pass (its
+deliveries to the streams) never interrupts the pass's engine calls: an
+error there is raised after them, and a failure of rank 0 outside the
+engine calls goes out in the next record, on which every follower raises
+instead of waiting in a gather. The exchange runs whenever the engine has
+a mesh, a one-rank mesh too.
 """
 from __future__ import annotations
 
 import asyncio
-import bisect
+import contextlib
 import time
-from typing import Any, AsyncIterator, Dict, Optional, Tuple
+from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +122,10 @@ class AsyncEngine:
             ...                      # as each sync commits
         aeng.health()["queue_depth"]
         report = await aeng.close()  # the scheduler's report
+
+    Over a mesh of several ranks, each rank makes its own, with the same
+    arguments; rank 0 (``leader``) is used as above, every other rank
+    calls ``follow()``, which returns when rank 0 closes.
     """
 
     def __init__(self, engine: Engine, eos_id: Optional[int] = None,
@@ -112,14 +133,9 @@ class AsyncEngine:
                  free_on_finish: bool = True,
                  max_pending: Optional[int] = None,
                  adaptive_k: Any = None):
-        mesh = getattr(engine, "mesh", None)
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"AsyncEngine over a mesh of {mesh.size} ranks: its wall-clock "
-                "admissions differ between ranks, whose gathers would then "
-                "deadlock; rank 0 deciding and broadcasting is an open item "
-                "(ROADMAP.md, queue 1, item 5)")
         self.engine = engine
+        self.mesh = getattr(engine, "mesh", None)
+        self.leader = self.mesh is None or self.mesh.is_root
         self.scheduler = Scheduler(engine, eos_id=eos_id,
                                    free_on_finish=free_on_finish,
                                    sync_every=sync_every, preempt=preempt,
@@ -128,6 +144,8 @@ class AsyncEngine:
                             else 4 * engine.batch)
         if self.max_pending < 1:
             raise ValueError("max_pending must be >= 1")
+        self.records = 0                 # decision records sent / applied
+        self._ops: List[tuple] = []      # rank 0's since its last record
         self._queues: Dict[int, asyncio.Queue] = {}
         self._done: set = set()          # rids whose end was delivered
         self._inflight = 0
@@ -137,7 +155,14 @@ class AsyncEngine:
         self._wake: Optional[asyncio.Event] = None
         self._closing = False
         self._error: Optional[BaseException] = None
+        self._front_error: Optional[BaseException] = None
         self._report: Optional[Dict[str, Any]] = None
+
+    def _leader_only(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f"AsyncEngine.{what} on rank {self.mesh.coords}: rank 0 "
+                "serves the clients; the other ranks call follow()")
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -145,20 +170,25 @@ class AsyncEngine:
     async def start(self) -> None:
         """Open the session and start the dispatch task (idempotent;
         ``submit`` calls it)."""
+        self._leader_only("start")
         if self._task is not None:
             return
+        self._open()
+        self._sem = asyncio.Semaphore(self.max_pending)
+        self._wake = asyncio.Event()
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    def _open(self) -> None:
         sched = self.scheduler
         sched._begin_session()
         # wall-clock mode: _advance reads elapsed real time, so the
         # session's *_vt columns and event stamps are wall seconds
         sched._wall_t0 = sched._t_start
-        self._sem = asyncio.Semaphore(self.max_pending)
-        self._wake = asyncio.Event()
-        self._task = asyncio.get_running_loop().create_task(self._run())
 
     async def close(self, drain: bool = True) -> Dict[str, Any]:
         """End the session and return the scheduler's report: after every
         request in flight finishes (``drain``), or aborting them."""
+        self._leader_only("close")
         if self._task is None:
             await self.start()           # an empty session
         if not drain:
@@ -190,6 +220,7 @@ class AsyncEngine:
         gets the prompt-keyed stub). A request that could never be served
         (budget past ``max_len`` or the pool) raises ValueError and gives
         its ticket back."""
+        self._leader_only("submit")
         await self.start()
         if self._error is not None:
             raise self._error
@@ -204,15 +235,21 @@ class AsyncEngine:
             req = Request(prompt, max_new_tokens=max_new_tokens,
                           arrival_time=sched._clock, extras=extras,
                           sampling=sampling_params)
-            sched._prepare(req)
+            sched._submit(req)
         except BaseException:
             self._sem.release()
             raise
+        if self.mesh is not None:
+            self._ops.append(("submit", dict(
+                rid=req.rid, prompt=req.prompt, sampling=req.sampling,
+                max_new_tokens=req.max_new_tokens,
+                extras=None if req.extras is None else {
+                    k: v.cpu() if isinstance(v, torch.Tensor) else v
+                    for k, v in req.extras.items()},
+                arrival_time=req.arrival_time, t_submit=req.t_submit)))
         self._inflight += 1
         q: asyncio.Queue = asyncio.Queue()
         self._queues[req.rid] = q
-        bisect.insort(sched._waiting, req, key=sched._prio)
-        sched._event("arrive", req.rid)
         self._wake.set()
         return StreamHandle(self, req, q)
 
@@ -237,6 +274,7 @@ class AsyncEngine:
         return to the pool and the slot is admissible on the next pass.
         Tokens already streamed stay valid. False when it had already
         finished."""
+        self._leader_only("abort")
         req = handle.request if isinstance(handle, StreamHandle) else handle
         sched = self.scheduler
         if self._task is None:
@@ -244,12 +282,15 @@ class AsyncEngine:
         sched._advance(0.0)
         if not sched._abort(req):
             return False
+        if self.mesh is not None:
+            self._ops.append(("abort", req.rid, sched._clock))
         self._deliver()                  # the end sentinel, the ticket
         self._wake.set()
         return True
 
     def health(self) -> Dict[str, Any]:
         """A monitoring snapshot of the live session (host state only)."""
+        self._leader_only("health")
         sched, eng = self.scheduler, self.engine
         if self._task is None:
             raise RuntimeError("AsyncEngine not started")
@@ -319,6 +360,14 @@ class AsyncEngine:
             self._inflight -= 1
             self._sem.release()
 
+    def _deliver_in_pass(self) -> None:
+        """``_deliver`` inside a pass: an error is kept, to be raised once
+        the pass's engine calls have run (every rank makes them)."""
+        try:
+            self._deliver()
+        except Exception as e:           # noqa: BLE001 (raised after)
+            self._front_error = self._front_error or e
+
     def _fail(self, err: BaseException) -> None:
         """The dispatch task failed: the error reaches every open stream
         and later submits, and backpressure waiters are released."""
@@ -331,38 +380,68 @@ class AsyncEngine:
                 self._sem.release()
         self._queues.clear()
 
+    def _pass(self, deliver) -> None:
+        """One pass of the loop core, the same on every rank: admit, grow,
+        dispatch and harvest, ``deliver`` after the admissions (a request
+        may finish at its first token) and after the harvest."""
+        sched = self.scheduler
+        sched._admit_waiting()
+        deliver()
+        if not sched._active.any():
+            if sched._waiting:
+                raise RuntimeError("no active slot and the head request "
+                                   "cannot be admitted: page pool leak?")
+            return
+        run = sched._grow()
+        sched._dispatch(run)
+        sched._harvest()                 # blocks on the readback
+        deliver()
+
+    def _send(self, close: bool) -> None:
+        """Rank 0: broadcast the record of the next pass (or of the close)
+        to every rank of the mesh; nothing without a mesh."""
+        if self.mesh is None:
+            return
+        ops, self._ops = self._ops, []
+        self.mesh.broadcast({"ops": ops, "clock": self.scheduler._clock,
+                             "close": close, "error": None})
+        self.records += 1
+
     async def _run(self) -> None:
         """The wall-clock driver: admit, grow, dispatch and harvest in one
         blocking pass, then yield to the clients; wait on the wake event
-        when there is nothing to do."""
+        when there is nothing to do. Over a mesh, each pass is preceded by
+        its record and the session ends with a closing one."""
         sched = self.scheduler
+        in_pass = False
         try:
             while True:
                 sched._advance(0.0)
-                if not sched._waiting and not sched._active.any():
-                    if self._closing:
-                        break
+                idle = not sched._waiting and not sched._active.any()
+                if idle and not self._closing:
                     self._wake.clear()
                     await self._wake.wait()
                     continue
+                self._send(close=idle)
+                if idle:
+                    break
+                in_pass = True
                 with torch.no_grad():
-                    sched._admit_waiting()
-                    self._deliver()      # finishes at the first token
-                    if not sched._active.any():
-                        if sched._waiting:
-                            raise RuntimeError(
-                                "no active slot and the head request cannot "
-                                "be admitted: page pool leak?")
-                        continue
-                    run = sched._grow()
-                    sched._dispatch(run)
-                    sched._harvest()     # blocks on the readback
-                self._deliver()
+                    self._pass(self._deliver_in_pass)
+                in_pass = False
+                if self._front_error is not None:
+                    raise self._front_error
                 # the clients' turn: submit and abort change core state
                 # only here, between syncs
                 await asyncio.sleep(0)
         except BaseException as e:       # noqa: BLE001 (reaches the clients)
             self._fail(e)
+            if self.mesh is not None and not in_pass:
+                # the followers wait for a record: it carries the failure
+                # (inside the engine calls every rank fails alike)
+                with contextlib.suppress(Exception):
+                    self.mesh.broadcast({"error": repr(e)})
+                    self.records += 1
             if not isinstance(e, Exception):
                 raise                    # cancellation, interrupt, exit
         finally:
@@ -370,6 +449,54 @@ class AsyncEngine:
             with torch.no_grad():
                 self._report = sched._end_session(
                     time.perf_counter() - sched._t_start)
+
+    # ------------------------------------------------------------------
+    # the other ranks
+    # ------------------------------------------------------------------
+    def follow(self) -> Dict[str, Any]:
+        """A follower rank's session (every rank of the mesh but rank 0):
+        apply each of rank 0's records, its submissions and aborts in their
+        order at rank 0's clock, and run the same pass, until rank 0
+        closes. Blocks; returns this rank's session report, whose results
+        are the replayed streams. Raises RuntimeError when rank 0's record
+        says it failed."""
+        if self.leader:
+            raise RuntimeError("follow() is for the ranks other than rank 0")
+        sched = self.scheduler
+        self._open()
+        reqs: Dict[int, Request] = {}
+        try:
+            while True:
+                rec = self.mesh.broadcast()
+                self.records += 1
+                if rec.get("error") is not None:
+                    raise RuntimeError(f"rank 0 failed: {rec['error']}")
+                for op in rec["ops"]:
+                    if op[0] == "submit":
+                        f = op[1]
+                        req = Request(f["prompt"],
+                                      max_new_tokens=f["max_new_tokens"],
+                                      arrival_time=f["arrival_time"],
+                                      extras=f["extras"],
+                                      sampling=f["sampling"], rid=f["rid"])
+                        sched._advance(0.0, now=f["arrival_time"])
+                        sched._submit(req, f["t_submit"])
+                        reqs[req.rid] = req
+                    else:
+                        _, rid, clock = op
+                        sched._advance(0.0, now=clock)
+                        sched._abort(reqs[rid])
+                sched._advance(0.0, now=rec["clock"])
+                if rec["close"]:
+                    break
+                with torch.no_grad():
+                    self._pass(sched._emit.clear)
+        finally:
+            sched._advance(0.0)
+            with torch.no_grad():
+                self._report = sched._end_session(
+                    time.perf_counter() - sched._t_start)
+        return self._report
 
 
 def virtual_twin_report(engine: Engine, workload, eos_id: Optional[int]

@@ -17,7 +17,8 @@ Two profiles:
   "data"), and K/V caches with the batch over ("pod", "data") where it
   divides, the sequence otherwise (context parallelism), the KV heads over
   "model" with a head_dim fallback;
-- the serving profile (``serve_param_specs``, ``serve_state_specs``):
+- the serving profile (``serve_param_specs``, ``serve_state_specs``;
+  ``draw_sharded`` draws a tree leaf by leaf and keeps this rank's slices):
   storage sharding for the model-sharded engine over the 1-D ("model",)
   mesh. The training rules' "data" entries drop out under that mesh, so
   each weight keeps about 1/n of its bytes per rank and is gathered on use
@@ -32,8 +33,11 @@ from __future__ import annotations
 
 import re
 
-from repro_torch.sharding.utils import (Mesh, _filter_spec, current_mesh,
-                                        kv_spec, mesh_scope)
+import torch
+
+from repro_torch.sharding.utils import (Mesh, Shard, _filter_spec,
+                                        current_mesh, is_sharded, kv_spec,
+                                        mesh_scope, shard, shard_tree)
 from repro_torch.tree import leaves_with_paths, unflatten
 
 # (regex over the path, spec entries of the *trailing* dims); a leaf with
@@ -113,13 +117,18 @@ def _specs(tree, fn):
     return unflatten(tree, [fn(p, leaf) for p, leaf in leaves_with_paths(tree)])
 
 
+def _full_shape(leaf):
+    return leaf.full_shape if isinstance(leaf, Shard) else tuple(leaf.shape)
+
+
 def param_specs(params, rules=PARAM_RULES, mesh: Mesh = None):
-    """A tree of specs matching ``params`` (tensors or anything with a
-    ``shape``) under ``mesh`` (default the active one; all None without)."""
+    """A tree of specs matching ``params`` (tensors, :class:`Shard` slices
+    at their full shape, or anything with a ``shape``) under ``mesh``
+    (default the active one; all None without)."""
     mesh = mesh or current_mesh()
-    return _specs(params, lambda p, leaf: (None,) * len(leaf.shape)
+    return _specs(params, lambda p, leaf: (None,) * len(_full_shape(leaf))
                   if mesh is None else
-                  _param_leaf(p, tuple(leaf.shape), rules, mesh))
+                  _param_leaf(p, _full_shape(leaf), rules, mesh))
 
 
 # per-layer rank of each named cache leaf; more dims are stacked ones
@@ -180,6 +189,41 @@ def serve_param_specs(params, mesh: Mesh, rules=PARAM_RULES):
     keeps about 1/n of its bytes per rank and is gathered on use."""
     with mesh_scope(mesh):
         return param_specs(params, rules)
+
+
+def draw_sharded(init, generator: torch.Generator, mesh: Mesh, *, device,
+                 rules=PARAM_RULES):
+    """This rank's storage-sharded serving tree, drawn leaf by leaf:
+    ``init(generator, device, keep)`` draws a parameter tree from
+    ``generator`` handing each drawn leaf to the per-leaf hook ``keep``
+    (``Model.init``, ``core.drafter.init_params``). A first call on the
+    meta device (another generator: no storage, no draw) gives the tree's
+    template and the order its leaves are drawn in, so each leaf's spec is
+    known when it is drawn; the second draws on ``device`` from
+    ``generator`` and cuts each sharded leaf to its :class:`Shard` as soon
+    as it is drawn, freeing the full leaf, so ``device`` holds the slices
+    plus the one leaf being drawn. The leaves no hook saw (norms, biases)
+    are cut after. Bitwise ``shard_tree`` of the tree ``init`` draws
+    without a hook, the generator left where that draw leaves it."""
+    order = []
+    template = init(torch.Generator(), "meta",
+                    lambda t: order.append(t) or t)
+    spec_of = {id(t): _param_leaf(path, tuple(t.shape), rules, mesh)
+               for path, t in leaves_with_paths(template)}
+    specs = [spec_of[id(t)] for t in order]
+    shapes = [tuple(t.shape) for t in order]
+    del order
+    drawn = iter(zip(specs, shapes))
+
+    def keep(t):
+        spec, shape = next(drawn)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"drew a leaf of {tuple(t.shape)} where the "
+                             f"template drew {shape}")
+        return Shard(shard(t, spec, mesh), spec, mesh) \
+            if is_sharded(spec) else t
+    tree = init(generator, device, keep)
+    return shard_tree(tree, serve_param_specs(template, mesh, rules), mesh)
 
 
 def _serve_state_leaf(path: str, shape, mesh: Mesh):

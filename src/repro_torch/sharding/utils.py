@@ -40,11 +40,18 @@ Every collective counts its calls and the bytes of its output, per kind
 and axis (``counters`` / ``reset_counters``), the port's counterpart of
 the collective statistics the JAX dry-run reads from compiled HLO; ``use``
 also keeps the largest subtree one call gathered.
+
+A built mesh also holds a ``gloo`` group over all its ranks for host
+objects (nccl carries CUDA tensors only): ``Mesh.broadcast`` sends rank
+0's object to every rank, as the wall-clock front end sends its decisions
+(``serving/streaming.AsyncEngine``); counted as kind "broadcast", axis
+"host".
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import pickle
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,7 +68,8 @@ class Mesh:
     a described mesh, which stands for rank 0)."""
 
     def __init__(self, names: Sequence[str], sizes: Sequence[int],
-                 coords: Dict[str, int], groups: Optional[dict]):
+                 coords: Dict[str, int], groups: Optional[dict],
+                 host=None):
         if len(names) != len(sizes):
             raise ValueError(f"axes {names} and sizes {sizes} differ in length")
         self.axis_names = tuple(names)
@@ -69,6 +77,9 @@ class Mesh:
         self.size = int(np.prod(list(self.shape.values()), dtype=np.int64))
         self.coords = dict(coords)
         self.groups = groups
+        self.host = host            # the gloo group of Mesh.broadcast
+        # (device, dtype) -> the buffer large gathers reuse (_gather_dim)
+        self.scratch: Dict[tuple, Tensor] = {}
 
     @classmethod
     def build(cls, names: Sequence[str], sizes: Sequence[int]) -> "Mesh":
@@ -95,7 +106,10 @@ class Mesh:
                 g = dist.new_group([int(r) for r in line])
                 if rank in line:
                     groups[name] = g
-        return cls(names, sizes, coords, groups)
+        host = dist.new_group([int(r) for r in layout.reshape(-1)],
+                              backend="gloo")
+        return cls(names, sizes, coords, groups,
+                   host if rank < layout.size else None)
 
     @classmethod
     def describe(cls, names: Sequence[str], sizes: Sequence[int]) -> "Mesh":
@@ -116,6 +130,34 @@ class Mesh:
         for n in names:
             idx = idx * self.shape[n] + self.coords[n]
         return idx
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this process is the mesh's first rank (rank 0)."""
+        return all(c == 0 for c in self.coords.values())
+
+    def same_layout(self, other: "Mesh") -> bool:
+        """Whether ``other`` cuts tensors as this mesh does on this rank:
+        the same axes, sizes and coordinates."""
+        return (self.axis_names == other.axis_names
+                and self.shape == other.shape and self.coords == other.coords)
+
+    def broadcast(self, obj: Any = None) -> Any:
+        """Rank 0's ``obj`` on every rank of the mesh (the others' argument
+        is ignored): pickled on rank 0, its length and then its bytes
+        broadcast over the mesh's gloo group. Collective over the mesh's
+        ranks; one call counted, with the pickle's bytes."""
+        if self.host is None:
+            raise ValueError(f"{self!r} has no host group to broadcast over")
+        root = self.is_root
+        data = pickle.dumps(obj) if root else b""
+        n = torch.tensor([len(data)], dtype=torch.int64)
+        dist.broadcast(n, src=0, group=self.host)
+        buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8) if root
+               else torch.empty(int(n), dtype=torch.uint8))
+        dist.broadcast(buf, src=0, group=self.host)
+        _count("broadcast", "host", buf)
+        return obj if root else pickle.loads(buf.numpy().tobytes())
 
 
 def serving_mesh(n: Optional[int] = None) -> Mesh:
@@ -261,21 +303,44 @@ def _all_gather_flat():
         dist.all_gather_into_tensor
 
 
+def _scratch(mesh: Mesh, numel: int, x: Tensor) -> Tensor:
+    """``numel`` elements of the mesh's gather buffer for ``x``'s device
+    and dtype, grown to the largest request and reused by every large
+    gather: a layer's large gathers then peak at their outputs plus this
+    one buffer, however long the process group keeps a collective's
+    output referenced after the call."""
+    key = (x.device, x.dtype)
+    buf = mesh.scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        mesh.scratch.pop(key, None)
+        buf = mesh.scratch[key] = torch.empty(numel, dtype=x.dtype,
+                                              device=x.device)
+    return buf[:numel]
+
+
 def _gather_dim(x: Tensor, dim: int, mesh: Mesh, axis: str) -> Tensor:
     """All-gather along ``dim`` over ``axis``: the slices end to end in one
     buffer (n, *x.shape), whose rank axis then joins ``dim`` (a view for
-    dim 0, one strided copy otherwise)."""
+    dim 0, one strided copy otherwise). A gather of more than
+    ``GATHER_ALONE_BYTES`` lands in the mesh's reused buffer and is copied
+    out, so a layer's large gathers hold one buffer between them."""
     n = mesh.shape[axis]
     shape = list(x.shape)
     shape[dim] *= n
     if x.device.type == "meta":
         out = torch.empty(shape, dtype=x.dtype, device="meta")
     else:
-        buf = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
+        big = n * x.numel() * x.element_size() > GATHER_ALONE_BYTES
+        rows = (n * x.shape[0],) + tuple(x.shape[1:])
+        buf = (_scratch(mesh, n * x.numel(), x).view(rows) if big else
+               torch.empty(rows, dtype=x.dtype, device=x.device))
         _all_gather_flat()(buf, x.contiguous(), group=mesh.groups[axis])
-        out = buf.view((n,) + tuple(x.shape)).movedim(0, dim) \
-            .reshape(shape).contiguous()
+        parts = buf.view((n,) + tuple(x.shape)).movedim(0, dim)
+        if big:
+            out = torch.empty(shape, dtype=x.dtype, device=x.device)
+            out.view(parts.shape).copy_(parts)
+        else:
+            out = parts.reshape(shape).contiguous()
     _count("all_gather", axis, out)
     return out
 
@@ -300,18 +365,27 @@ def _one_axis(spec: Spec):
     return None
 
 
+# a slice whose full tensor is larger than this is gathered alone, so its
+# gather buffer is freed before the next leaf's (a packed gather holds the
+# packed slices, the gathered bytes and the unpacked tensors at once: for
+# one of llama4's MoE layers, 3 x 10.7 GB of experts, that is 2.25 layers)
+GATHER_ALONE_BYTES = 1 << 30
+
+
 def gather_many(items, mesh: Mesh) -> List[Tensor]:
     """``gather`` of several (slice, spec) pairs in as few collectives as
     there are axes: the slices split along one dim over the same axis are
     packed end to end as bytes (widest element type first, so every
-    offset is aligned), gathered by one call and unpacked; any other spec
-    is gathered alone. Bitwise ``gather``'s tensors; one call is counted a
-    group, with the bytes of the full tensors."""
+    offset is aligned), gathered by one call and unpacked; any other spec,
+    and a slice of more than ``GATHER_ALONE_BYTES`` in full, is gathered
+    alone. Bitwise ``gather``'s tensors; one call is counted a group, with
+    the bytes of the full tensors."""
     out: List[Optional[Tensor]] = [None] * len(items)
     groups: Dict[str, List[int]] = {}
     for i, (x, spec) in enumerate(items):
         one = _one_axis(spec)
-        if one is None:
+        if one is None or (x.numel() * x.element_size() * mesh.shape[one[1]]
+                           > GATHER_ALONE_BYTES):
             out[i] = gather(x, spec, mesh)
         else:
             groups.setdefault(one[1], []).append(i)
@@ -404,12 +478,22 @@ class Shard:
     def __repr__(self) -> str:
         return f"Shard({tuple(self.local.shape)}, {self.spec})"
 
+    @property
+    def full_shape(self) -> Tuple[int, ...]:
+        """The shape of the tensor this is a slice of."""
+        return tuple(d * int(np.prod([self.mesh.shape[n] for n in _names(e)],
+                                     dtype=np.int64))
+                     for d, e in zip(self.local.shape, self.spec))
+
 
 def shard_tree(tree, specs, mesh: Mesh, device=None):
     """``tree`` (dicts, lists, tensors) with each leaf whose spec shards a
     dim replaced by its :class:`Shard`; replicated leaves stay tensors.
     ``device``: where the result lies; each leaf is cut where it lies and
-    only its slice moves, so ``device`` never holds a whole sharded leaf."""
+    only its slice moves, so ``device`` never holds a whole sharded leaf.
+    A leaf that is a :class:`Shard` already (a tree cut as it was drawn)
+    is kept, its slice moved; one cut under another spec or for another
+    mesh layout raises."""
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs[k], mesh, device)
                 for k, v in tree.items()}
@@ -419,6 +503,14 @@ def shard_tree(tree, specs, mesh: Mesh, device=None):
     if hasattr(tree, "_fields"):
         return type(tree)(*(shard_tree(v, s, mesh, device)
                             for v, s in zip(tree, specs)))
+    if isinstance(tree, Shard):
+        if tuple(tree.spec) != tuple(specs) or not \
+                tree.mesh.same_layout(mesh):
+            raise ValueError(f"{tree!r} was cut for {tree.mesh!r} "
+                             f"(coordinates {tree.mesh.coords}); this mesh "
+                             f"{mesh!r} ({mesh.coords}) cuts it by {specs}")
+        return Shard(tree.local if device is None else
+                     tree.local.to(device), tree.spec, mesh)
     if not isinstance(tree, Tensor):
         return tree
     if is_sharded(specs):
@@ -428,41 +520,48 @@ def shard_tree(tree, specs, mesh: Mesh, device=None):
     return tree if device is None else tree.to(device)
 
 
+def _layer_shards(t, found: List[Shard]) -> None:
+    """Append the :class:`Shard` leaves of ``t`` to ``found``: dicts are
+    walked, lists (the layer stacks) are not."""
+    if isinstance(t, Shard):
+        found.append(t)
+    elif isinstance(t, dict):
+        for v in t.values():
+            if not isinstance(v, list):
+                _layer_shards(v, found)
+
+
+def _layer_rebuilt(t, by_id: Dict[int, Tensor]):
+    """``t`` with each :class:`Shard` replaced by its gathered tensor."""
+    if isinstance(t, Shard):
+        return by_id[id(t)]
+    if isinstance(t, dict):
+        return {k: v if isinstance(v, list) else _layer_rebuilt(v, by_id)
+                for k, v in t.items()}
+    return t
+
+
 def use(tree):
     """The full weights of one layer's subtree (or of one leaf): every
     :class:`Shard` in it gathered, in one collective per axis
     (``gather_many``); dicts are walked, lists (the layer stacks) are not,
     so ``use(params)`` gathers the top-level leaves and leaves ``blocks``
-    for the loop. The identity without an active mesh."""
+    for the loop. The identity without an active mesh. Nothing but the
+    returned tree holds the gathered tensors (no closure cycle that only
+    the garbage collector would break), so a layer's weights are freed as
+    soon as the caller drops them."""
     if not _SCOPE:
         return tree
     found: List[Shard] = []
-
-    def collect(t):
-        if isinstance(t, Shard):
-            found.append(t)
-        elif isinstance(t, dict):
-            for v in t.values():
-                if not isinstance(v, list):
-                    collect(v)
-    collect(tree)
+    _layer_shards(tree, found)
     if not found:
         return tree
     fulls = gather_many([(t.local, t.spec) for t in found], found[0].mesh)
-    by_id = {id(t): f for t, f in zip(found, fulls)}
     nbytes = sum(f.numel() * f.element_size() for f in fulls)
     _USE["calls"] += 1
     _USE["bytes"] += nbytes
     _USE["max_bytes"] = max(_USE["max_bytes"], nbytes)
-
-    def rebuild(t):
-        if isinstance(t, Shard):
-            return by_id[id(t)]
-        if isinstance(t, dict):
-            return {k: v if isinstance(v, list) else rebuild(v)
-                    for k, v in t.items()}
-        return t
-    return rebuild(tree)
+    return _layer_rebuilt(tree, {id(t): f for t, f in zip(found, fulls)})
 
 
 def full_tree(tree):

@@ -34,19 +34,22 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
-def unflatten(template, new_leaves) -> Any:
-    """A tree shaped like ``template`` holding ``new_leaves`` in order."""
-    it = iter(new_leaves)
+def _build(t, it):
+    if _is_leaf(t):
+        return next(it)
+    if isinstance(t, dict):
+        return {k: _build(v, it) for k, v in t.items()}
+    if hasattr(t, "_fields"):
+        return type(t)(*(_build(v, it) for v in t))
+    return type(t)(_build(v, it) for v in t)
 
-    def build(t):
-        if _is_leaf(t):
-            return next(it)
-        if isinstance(t, dict):
-            return {k: build(v) for k, v in t.items()}
-        if hasattr(t, "_fields"):
-            return type(t)(*(build(v) for v in t))
-        return type(t)(build(v) for v in t)
-    out = build(template)
+
+def unflatten(template, new_leaves) -> Any:
+    """A tree shaped like ``template`` holding ``new_leaves`` in order
+    (built without a recursive closure, whose reference cycle would keep
+    ``new_leaves`` alive until the garbage collector runs)."""
+    it = iter(new_leaves)
+    out = _build(template, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out

@@ -12,8 +12,10 @@ the decode and paged kernels at its shapes (a wrapped ring too) and flash
 with softcap and window past 4096, reduced gemma2's rings through the
 kernels, the flash training
 attention's gradients, and reduced training steps through the MTP kernel;
-on a machine with 2 or 4 cards, storage-sharded serving and the sharded
-train step over ``nccl``, one card a rank (skipped where the card count
+on a machine with 2 or 4 cards, storage-sharded serving, the sharded
+train step and ``AsyncEngine`` with rank 0 deciding over ``nccl``, one
+card a rank, and on 4 cards llama4-maverick at full width on 4 of its
+layers drawn leaf by leaf into its slices (skipped where the card count
 does not reach the world size).
 
 Marked ``gpu``; each test decides inside the ``card`` fixture whether a
@@ -1175,3 +1177,26 @@ def test_sharded_train_step_on_cards(cards, tmp_path):
              torch.as_tensor(labels.astype(np_.int32)), 1)
     child.spawn(child.train_child, cards, tmp_path, setup, 2, cards // 2,
                 True, timeout=600, backend="nccl")
+
+
+@pytest.mark.parametrize("cards", [4], indirect=True)
+def test_llama4_on_four_cards(cards, tmp_path):
+    """llama4-maverick at full width, 4 of 48 layers in bfloat16 (~77 GB
+    with its drafter), drawn leaf by leaf into its slices over 4 cards:
+    each build peaks at its slices plus one leaf's float32 draw and cast;
+    Engine.run parallel and ar equal none at capacity factor 128 (bfloat16
+    near-tie rules); a paged serve that swaps equals one that never
+    preempts; at 2 layers the sharded tokens are the one-card engine's."""
+    import torch_sharding_child as child
+    child.spawn(child.card_llama4_child, cards, tmp_path, timeout=900,
+                backend="nccl")
+
+
+@pytest.mark.parametrize("cards", [2, 4], indirect=True)
+def test_async_engine_on_cards(cards, tmp_path):
+    """AsyncEngine over qwen2-1.5b at full width (2 layers) sharded over
+    2 / 4 cards, rank 0 deciding and the others following: its greedy and
+    sampled streams equal the unsharded AsyncEngine's."""
+    import torch_sharding_child as child
+    child.spawn(child.card_async_child, cards, tmp_path, timeout=600,
+                backend="nccl")

@@ -364,6 +364,34 @@ def test_serving_policy_modules_load_without_jax():
         assert ROOT / "src" / "repro_torch" / "serving" / rel in PORT_FILES
 
 
+def test_multirank_modules_load_without_jax():
+    """The leaf-by-leaf sharded build, the mesh's decision broadcast and
+    the launcher and front end over several ranks (and all they import)
+    load with ``jax`` and ``repro`` made unimportable, and so does the
+    card tests' rank helper, which the card's machine runs without JAX."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = "
+            "None; import repro_torch.sharding.rules, "
+            "repro_torch.sharding.utils, repro_torch.launch.serve, "
+            "repro_torch.serving.streaming, torch_sharding_child")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'tests'}"},
+                   cwd=ROOT)
+    bad = [m for m in _imported_modules(ROOT / "tests" /
+                                        "torch_sharding_child.py")
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert not bad, f"torch_sharding_child.py imports {bad}"
+
+
+def test_serve_stream_refuses_several_ranks(monkeypatch):
+    """The NDJSON server takes no mesh, as the JAX package's does not: it
+    refuses a launch of more than one rank before it builds anything."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="several ranks"):
+        serve_stream.main(["--reduced", "--device", "cpu", "--port", "0"])
+
+
 def test_chip_smoke_kernels_line_lists_every_kernel():
     """``chip_smoke.py``'s kernels line (built in ``run_phases``) names all
     four kernels with their sources and the TPU kernels they replace."""
