@@ -22,9 +22,13 @@ every prompt) and the encoder-decoder family: whisper-base at full width
 (a bidirectional encoder over 1500 stub frames, cross-attention through
 the flash and decode kernels), then the storage-sharded engine (built
 leaf by leaf), the sharded drafter train step and AsyncEngine with rank 0
-deciding on a one-rank nccl group, bitwise the unsharded ones, and last
+deciding on a one-rank nccl group, bitwise the unsharded ones,
 llama4-maverick at full width on 2 of its 48 layers (interleaved MoE of
-128 experts, top-1, beside a shared expert; chunked local attention).
+128 experts, top-1, beside a shared expert; chunked local attention), and
+last the trained drafter from its checkpoint: the P-EAGLE and AR EAGLE-3
+drafters trained through the training launcher and served from their
+checkpoints through the serving launcher, against none and a random
+drafter.
 
     python3 chip_smoke.py            # from the root of a checkout, on the card
 
@@ -149,10 +153,11 @@ Phases, in order; any failure exits non-zero:
    words) on the card and the CPU, and 3 x 2^20 uniforms bitwise equal
    between them; then, bfloat16 at phase 3's shapes, Engine.run under
    temperature 0.8, top-k 50, top-p 0.95, seed 0 with draft sampling off
-   and on, and Scheduler.serve of phase 3b's traffic with even requests
+   and on, and Scheduler.serve of phase 3b's first 12 requests (cut from
+   24 for time) with even requests
    greedy and odd ones sampled (seed = index): OTPS, ms/step or
    ms/iteration and AL beside phase 3 / 3b's greedy numbers (the bfloat16
-   runs on 7 of the 28 layers, cut for time), and the
+   runs on 4 of the 28 layers, cut for time), and the
    attention launch counts of the greedy path's formula (sampling adds no
    attention launch); then, float32 full width (phase 4's prompts): two
    seeded runs identical, each sampled request's stream the same served
@@ -164,7 +169,7 @@ Phases, in order; any failure exits non-zero:
    (first committed token over 2^14 rows against the warped target, one-hot
    and sampled drafts, at the 0.999 quantile);
 3d / 4c. the serving policies: Scheduler.serve of phase 3b's engine
-   (bfloat16, on 7 of its 28 layers) with the prefix cache, swap to a 1 GiB pinned host pool and
+   (bfloat16, on 4 of its 28 layers) with the prefix cache, swap to a 1 GiB pinned host pool and
    adaptive K (the default SpeculationConfig) on shared-prefix traffic: 24
    requests in 3 groups, each group's own 320-token system prompt and a
    unique suffix of 16-256 tokens, then 4 requests repeating an earlier
@@ -179,7 +184,7 @@ Phases, in order; any failure exits non-zero:
    the host with its swap_out / swap_in events, every request to its
    budget, the attention launches of the stated formula (a hit's suffix
    chunks run the decode kernel), the allocator and the host pool empty
-   after a flush and reset_stats; then float32 (7 of the 28 layers, cut
+   after a flush and reset_stats; then float32 (4 of the 28 layers, cut
    for time), the same traffic served
    with the three policies on and off (cold prefill, recompute preemption,
    fixed K), one request sampled and swapped out: every stream equal
@@ -187,7 +192,7 @@ Phases, in order; any failure exits non-zero:
    the off run, a sampled one after a margin < 1e-4), and the sampled one
    equal to itself served alone;
 3e / 4d. the serving front end: phase 3b's engine geometry (bfloat16,
-   7 of the 28 layers, cut for time; swap to a 1 GiB pinned host pool)
+   4 of the 28 layers, cut for time; swap to a 1 GiB pinned host pool)
    under AsyncEngine, the first 16 of
    phase 3b's requests (odd ones sampled, seed = index) submitted at wall-clock
    Exp(0.075 s) gaps, seed 0, twice: as they come, then with every fourth
@@ -219,16 +224,16 @@ Phases, in order; any failure exits non-zero:
    target forward); then segmented grads against whole-sequence grads at
    n 1024, the loss over 4 steps on one repeated batch, a checkpoint round
    trip, and the training launcher (python -m repro_torch.launch.train);
-6. gemma2-27b at full width in bfloat16 (16 of its 46 layers, cut for
-   time: 8 (local, global) pairs; d 4608, 32/16 heads, d_ff
+6. gemma2-27b at full width in bfloat16 (8 of its 46 layers, cut for
+   time: 4 (local, global) pairs; d 4608, 32/16 heads, d_ff
    36864, vocab 256000; the 4-layer drafter), every earlier phase's models
    freed first and the memory reckoned from the configs in the log: Engine.run
    of batch 8, 512-token prompts, 128 new tokens, K 5, max_len 1024 (the
    4096 window exceeds it, so no layer is a ring) after a cold run (OTPS,
-   ms/step, prefill s, AL, peak memory; 16 flash launches and 8 decode at the
-   prefill, then 48 decode a step), and Scheduler.serve of phase 3b's first
+   ms/step, prefill s, AL, peak memory; 8 flash launches and 8 decode at the
+   prefill, then 32 decode a step), and Scheduler.serve of phase 3b's first
    8 requests on a paged twin sharing the weights (page 16, a 192-page pool
-   that preempts; every request to its budget, 24 paged launches an
+   that preempts; every request to its budget, 16 paged launches an
    iteration, the pool empty after; cut from 12 requests on 224 pages for
    time);
 6b. gemma2-27b in float32 at full width cut to 4 layers (two (local, global)
@@ -244,18 +249,18 @@ Phases, in order; any failure exits non-zero:
    near-tie rule (BF16_NEAR_TIE), launch counts stated;
 6c. minitron-4b in float32 at full width (32 layers, ReLU², an untied head):
    4 prompts of 256, 32 new tokens, greedy parallel against none;
-7. gemma-7b at full width in bfloat16 (14 of its 28 layers, cut for time;
+7. gemma-7b at full width in bfloat16 (8 of its 28 layers, cut for time;
    d 3072, 16/16 heads of 256, d_ff 24576 GeGLU, vocab 256000; the
    4-layer drafter, 24 heads of 128): Engine.run at phase 3's shapes
    after a cold run (one flash a layer and 8 decode at the prefill, 2
    decode a layer and 16 a step) and Scheduler.serve of phase
    3b's first 12 requests (cut from 24 for time) on a paged twin (pool
-   256, preempts; 22 paged an iteration, launches of each admission
-   prefill logged); 7b: float32 at full width, 14 layers, phase 4's
+   256, preempts; 16 paged an iteration, launches of each admission
+   prefill logged); 7b: float32 at full width, 8 layers, phase 4's
    prompts: parallel and ar
    against none, a paged serve under pool pressure against the contiguous
    one, under phase 4's near-tie rule;
-8. mamba2-780m at full width in bfloat16 (12 of its 48 SSD layers, cut
+8. mamba2-780m at full width in bfloat16 (6 of its 48 SSD layers, cut
    for time; d 1536, d_inner 3072, 48 heads of 64, d_state 128; the
    drafter 12 heads of 128): the
    memory plan with the verify's snapshot peak (the state after each of
@@ -269,20 +274,21 @@ Phases, in order; any failure exits non-zero:
    none, paged against contiguous, a recompute-preempted and a swapped
    request each equal to itself served alone, and a seeded sampled request
    alone equal to itself batched;
-9. recurrentgemma-2b at full width in bfloat16 (14 of its 26 layers, cut
-   for time: 4 x (recurrent, recurrent, attention) + 2 recurrent, the
+9. recurrentgemma-2b at full width in bfloat16 (8 of its 26 layers, cut
+   for time: 2 x (recurrent, recurrent, attention) + 2 recurrent, the
    2-slot tail kept; d 2560, RG-LRU width 2560, conv 4, MQA 10/1 heads of
    256, window 2048, d_ff 7680 GeGLU, vocab 256000; the drafter 20 heads
    of 128): the memory plan with the verify's snapshots (conv windows and
-   h after each of K + 1 tokens, 10 recurrent layers), Engine.run at phase
-   3's shapes (4 flash and 8 decode at the prefill, 24 decode a step: the
-   4 attention layers' two phases and the drafter's), a verify step's
-   measured peak beyond its state, and Scheduler.serve of phase 3b's 24
-   requests, paged (at max_len 1024 the local layers' caches are pools
-   beside the per-slot recurrent rows), swap to host, on a 256-page pool
-   that preempts (12 paged an iteration; each admission's first MSB chunk
+   h after each of K + 1 tokens, 6 recurrent layers), Engine.run at phase
+   3's shapes (2 flash and 8 decode at the prefill, 20 decode a step: the
+   2 attention layers' two phases and the drafter's), a verify step's
+   measured peak beyond its state, and Scheduler.serve of phase 3b's first
+   12 requests (cut from 24 for time), paged (at max_len 1024 the local
+   layers' caches are pools beside the per-slot recurrent rows), swap to
+   host, on a 256-page pool
+   that preempts (10 paged an iteration; each admission's first MSB chunk
    a prefill, its later chunks in decode mode); 9b: float32 at full width,
-   14 layers, phase 4's prompts as 8b, then over
+   8 layers, phase 4's prompts as 8b, then over
    wrapped rings (max_len 4096: rings of 2048 + 6 slots; batch 2,
    2300-token prompts): parallel with the random drafter and with oracle
    drafts (AL > 2) against none, the logits through the kernels against
@@ -313,17 +319,18 @@ Phases, in order; any failure exits non-zero:
    factor 1.25 a verify of B x (K+1)
    tokens and a decode of B drop other slots, so greedy speculation is
    not lossless there, in the JAX package as in the port.)
-11. internvl2-1b at full width in bfloat16 (12 of its 24 layers, cut for
+11. internvl2-1b at full width in bfloat16 (6 of its 24 layers, cut for
    time; d 896, 14/2 heads
    of 64, vocab 151655; 256 stub vision tokens of 1024 drawn on the card
    with ``make_extras``, projected and prepended to every prompt; the
    drafter 7/7 heads of 128): Engine.run at phase 3's shapes (a fused
-   prefill of 768 positions; 12 flash and 8 decode at the prefill, 40
+   prefill of 768 positions; 6 flash and 8 decode at the prefill, 28
    decode a step at positions 256 past the token index), then
-   Scheduler.serve of phase 3b's 24 requests over paged KV (max_len 1280,
+   Scheduler.serve of phase 3b's first 12 requests (cut from 24 for time)
+   over paged KV (max_len 1280,
    a 320-page pool: preempts) with swap to host, each request's vision
    extras drawn at admission from its prompt's crc32, the prefix cache
-   asked for and never built (20 paged an iteration);
+   asked for and never built (14 paged an iteration);
 11b. internvl2-1b in float32 at full width, batch 4, 128-token prompts
    after the 256 vision positions: the target's logits of a prefill and a
    verify through the kernels against the plain attention (within 1e-3),
@@ -341,7 +348,7 @@ Phases, in order; any failure exits non-zero:
 12b. whisper-base in float32 at full width: 11b's checks;
 13. storage-sharded serving and training (``EngineConfig(shard_model=
    True)``, ``launch/steps.build_train_step``) on a one-rank nccl group the
-   script makes and destroys: full-width qwen2-1.5b in bfloat16 on 7 of 28
+   script makes and destroys: full-width qwen2-1.5b in bfloat16 on 4 of 28
    layers, the 4-layer drafter, the sharded engine drawn leaf by leaf
    (``build_engine(shard_model=True)``: its slices bitwise the whole
    draw's, both builds' peak memory logged); Engine.run (batch 8,
@@ -370,7 +377,27 @@ Phases, in order; any failure exits non-zero:
    (nothing dropped) greedy parallel and ar against none, batch 4,
    128-token prompts, under the bfloat16 near-tie rules (a top-2 logit
    gap below 0.25; a row compared up to its first router margin below
-   2e-3).
+   2e-3);
+15. the trained drafter from checkpoint to the card: the P-EAGLE drafter
+   and the AR EAGLE-3 drafter (4 layers each, float32) trained by
+   ``launch.train.main`` against full-width qwen2-1.5b in bfloat16 (seed
+   0, 7 of its 28 layers on both sides, cut for time) on its own greedy
+   rollouts of 16 random 4-token prompts, 128 tokens each (the MTP kernel
+   in training, flash for the target's taps), 40 steps, each written to
+   its own checkpoint; then ``launch.serve.main`` serves the corpus's
+   first 12 prompts (``--prompts``) with budgets of 60, Exp(1) virtual
+   gaps, paged, five ways: none, ar and parallel from their checkpoints,
+   parallel with adaptive K, parallel with a random drafter (the
+   control); and the trained parallel drafter on 12 unseen random
+   prompts (a drafter of a random target learns its rollouts, not the
+   target: it accepts next to nothing there). Checks: the served leaves are the trained ones cast to
+   bfloat16, bitwise; ar and parallel streams equal none's under the
+   bfloat16 near-tie rule; the trained P-EAGLE drafter's AL above the
+   random control's; each serve's attention launches by phase 3b's
+   formula (ar: K + 1 drafter forwards an iteration). Prints AL, OTPS,
+   ms/iteration and peak pages of each way, the P-EAGLE / AR-EAGLE and
+   parallel / none OTPS ratios and the adaptive-K k_row histogram, beside
+   the card's name and power limit.
 
 The second-to-last line is a JSON object of the kernels' numbers, the last
 line the result.
@@ -422,32 +449,26 @@ RGEMMA_WINDOW = 2048
 # llama4-maverick's local layers (hf:meta-llama/Llama-4-Scout-17B-16E):
 # chunked local attention over 8192 positions
 LLAMA4_WINDOW = 8192
-# depth cuts of earlier paths (widths stay the published ones), made when
-# phase 9 came in: the whole script took 895.5 s, and 1267.8 s on a slow
-# host, against the 1200 s the script may take (H100 80GB HBM3, 700.00 W)
-GEMMA7B_LAYERS = 14         # phase 7 / 7b: gemma-7b, of 28
-# and when phase 10 came in (dbrx-132b; the script took 854.7 s on an
-# H100 80GB HBM3 at 700.00 W with the cuts below but mamba2's and 4c's at
-# 24 and 14 layers), at full width
-MAMBA2_LAYERS = 12          # phase 8 / 8b: mamba2-780m, of 48
-POLICY_F32_LAYERS = 7       # phase 4c: qwen2-1.5b in float32, of 28
-# and when phases 11 and 12 came in (internvl2-1b, whisper-base: the
-# script took 826.5 and 863.6 s on two H100 80GB HBM3 hosts at 700.00 W
-# with 3c's and 3e's at 14 layers)
-STREAM_LAYERS = 7           # phase 3e: qwen2-1.5b, of 28
-SAMPLED_LAYERS = 7          # phase 3c's bfloat16 runs: qwen2-1.5b, of 28
-# and when phase 13 came in (the storage-sharded engine: the script took
-# 1013.0 s on an H100 80GB HBM3 at 700.00 W, phase 3d at full depth)
-POLICY_LAYERS = 7           # phase 3d: qwen2-1.5b in bfloat16, of 28
-RGEMMA_LAYERS = 14          # phase 9 / 9b: recurrentgemma-2b, of 26 (4
+# depth cuts of earlier paths (widths stay the published ones), made as
+# phases came in against the 1200 s the script may take (H100 80GB HBM3,
+# 700.00 W): phase 9 (895.5 s, 1267.8 s on a slow host: gemma-7b to 14),
+# phase 10 (854.7 s: mamba2 to 12, 4c to 7), phases 11 and 12 (826.5 and
+# 863.6 s: 3c and 3e to 7), phase 13 (1013.0 s: 3d to 7, recurrentgemma to
+# 14), phase 14 (884.7 and 911.6 s: gemma2-27b to 16, internvl2-1b to 12),
+# and phase 15 (the trained drafter; 891.9 s before it, 1018.3 s with it
+# and the first cuts below, so the qwen2 phases' 7 layers became 4 too):
+GEMMA7B_LAYERS = 8          # phase 7 / 7b: gemma-7b, of 28
+MAMBA2_LAYERS = 6           # phase 8 / 8b: mamba2-780m, of 48
+RGEMMA_LAYERS = 8           # phase 9 / 9b: recurrentgemma-2b, of 26 (2
                             # (recurrent, recurrent, attention) + 2)
-# and when phases 13's leaf-by-leaf build and AsyncEngine part and phase 14
-# came in (llama4-maverick; the script had taken 884.7 and 911.6 s on an
-# H100 80GB HBM3 at 700.00 W with gemma2-27b's 46 layers and internvl2-1b's
-# 24)
-GEMMA2_LAYERS = 16          # phase 6: gemma2-27b in bfloat16, of 46 (8
+INTERNVL2_LAYERS = 6        # phase 11: internvl2-1b in bfloat16, of 24
+GEMMA2_LAYERS = 8           # phase 6: gemma2-27b in bfloat16, of 46 (4
                             # (local, global) pairs)
-INTERNVL2_LAYERS = 12       # phase 11: internvl2-1b in bfloat16, of 24
+SAMPLED_LAYERS = 4          # phase 3c's bfloat16 runs: qwen2-1.5b, of 28
+POLICY_LAYERS = 4           # phase 3d: qwen2-1.5b in bfloat16, of 28
+POLICY_F32_LAYERS = 4       # phase 4c: qwen2-1.5b in float32, of 28
+STREAM_LAYERS = 4           # phase 3e: qwen2-1.5b, of 28
+SHARDED_LAYERS = 4          # phase 13: qwen2-1.5b, of 28
 # dbrx-132b's layers in phase 10: 8 of 40 (~62 GB with its drafter in
 # bfloat16; 40 are ~263 GB)
 DBRX_LAYERS = 8
@@ -2062,20 +2083,16 @@ def sampled_throughput(ops, dev, path, sched):
     del eng
     torch.cuda.empty_cache()
 
-    POOL, N = 256, 24
-    log(f"  Scheduler.serve, paged, pool {POOL}, phase 3b's {N} requests, "
+    POOL, N = 256, 12       # 3b's first 12 requests (cut from 24 for time)
+    log(f"  Scheduler.serve, paged, pool {POOL}, phase 3b's first {N} "
+        f"requests, "
         f"even greedy, odd sampled ({SAMPLED}, seed = index), "
         f"{SAMPLED_LAYERS} of 28 layers")
     eng = build_engine(mode="parallel", n_layers=SAMPLED_LAYERS, K=K,
                        max_new=192, max_len=MAX_LEN, batch=B, seed=0,
                        device=dev, kv_layout="paged", page_size=16,
                        pool_pages=POOL)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(256, 641, N)
-    budgets = rng.integers(64, 193, N)
-    arrivals = np.cumsum(rng.exponential(1.0, N))
-    prompts = [rng.integers(0, cfg.vocab_size - 1, n).astype(np.int32)
-               for n in lens]
+    prompts, budgets, arrivals = sched3b_traffic(cfg.vocab_size, N)
     reqs = [Request(p, max_new_tokens=int(b), arrival_time=float(t),
                     sampling=None if i % 2 == 0
                     else SamplingParams(seed=i, **SAMPLED))
@@ -3987,12 +4004,12 @@ def recurrentgemma_path(ops, dev):
     torch.cuda.empty_cache()
     log(f"  Scheduler.serve: paged (the local layers' KV and the drafter's),"
         f" page {PAGE}, pool {POOL} pages, swap to host, incremental growth;"
-        f" phase 3b's 24 requests")
+        f" phase 3b's first 12 requests")
     peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
                        pool_pages=POOL, max_new_tokens=192, swap="host")
     del eng
     serve = family_serve(ops, dev, peng,
-                         sched3b_traffic(peng.tcfg.vocab_size), "9")
+                         sched3b_traffic(peng.tcfg.vocab_size, 12), "9")
     if not serve["preempt_swap"] > 0:
         fail("phase 9 serve: no request was swapped to the host")
     del peng
@@ -4389,10 +4406,10 @@ def internvl2_path(ops, dev):
     """Phase 11: internvl2-1b at full width in bfloat16 (INTERNVL2_LAYERS
     of its 24 layers, cut for time; 256 stub vision tokens of 1024
     early-fused before each prompt): Engine.run at phase 3's shapes (a
-    fused prefill of 768 positions; 12 flash and 8 decode at the prefill,
-    40 decode a step, every decode at
+    fused prefill of 768 positions; a flash a layer and 8 decode at the
+    prefill, 2 decode a layer and 16 a step, every decode at
     positions 256 past its token index), then Scheduler.serve of phase
-    3b's 24 requests over paged KV with swap to host, each request's
+    3b's first 12 requests over paged KV with swap to host, each request's
     vision extras drawn from its prompt at admission, at max_len 1280 (256
     + 640 + 192 + 6 exceeds 1024) on a pool of 320 pages (half of 8 full
     rows), the prefix cache asked for and never built; then 11b."""
@@ -4415,13 +4432,14 @@ def internvl2_path(ops, dev):
     extras = stub_extras(eng, B, 0)
     run = family_run(ops, dev, eng, prompts, NEW, K, "11", extras)
     log(f"  Scheduler.serve: paged, page {PAGE}, pool {POOL} pages, swap to "
-        f"host, max_len 1280, prefix cache asked for; phase 3b's 24 requests")
+        f"host, max_len 1280, prefix cache asked for; phase 3b's first 12 "
+        f"requests")
     peng = family_twin(eng, B, dev, kv_layout="paged", page_size=PAGE,
                        pool_pages=POOL, max_new_tokens=192, max_len=1280,
                        swap="host", prefix_cache=True)
     del eng
     serve = family_serve(ops, dev, peng,
-                         sched3b_traffic(peng.tcfg.vocab_size), "11")
+                         sched3b_traffic(peng.tcfg.vocab_size, 12), "11")
     if peng.prefix_cache is not None:
         fail("phase 11: a prefix cache was built for a VLM target")
     if not serve["preempt_swap"] > 0:
@@ -4566,7 +4584,7 @@ def sharded_path(ops, dev):
     """Phase 13: storage-sharded serving and training on a one-rank nccl
     group (``EngineConfig(shard_model=True)``: weights and K/V rest as
     slices, gathered a layer at a time before use; a one-rank mesh gathers
-    and writes slices all the same). Full-width qwen2-1.5b on 7 of its 28
+    and writes slices all the same). Full-width qwen2-1.5b on 4 of its 28
     layers in bfloat16 with the 4-layer drafter, the sharded engine built
     by ``build_engine(shard_model=True)``, leaf by leaf: its slices bitwise
     ``shard_tree`` of the unsharded build's draw, both builds' peak card
@@ -4599,7 +4617,8 @@ def sharded_path(ops, dev):
     from repro_torch.sharding import utils as SH
     from repro_torch.sharding.rules import serve_param_specs
     from repro_torch.tree import leaves, leaves_with_paths
-    B, P, NEW, K, MAX_LEN, LAYERS, PAGE, POOL = 8, 512, 64, 5, 1024, 7, 16, 256
+    B, P, NEW, K, MAX_LEN, PAGE, POOL = 8, 512, 64, 5, 1024, 16, 256
+    LAYERS = SHARDED_LAYERS
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -5003,6 +5022,249 @@ def llama4_path(ops, dev):
     return {"run": run, "serve": serve, "no_drops": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: trained drafters from their checkpoints
+# ---------------------------------------------------------------------------
+
+# phase 15's target: qwen2-1.5b at full width in bfloat16, cut to 7 of its
+# 28 layers on both the training and the serving side, for time
+TRAINED_TARGET_LAYERS = 7
+# its drafters: 4 layers at full width, trained through the training
+# launcher on the target's own greedy rollouts (128 tokens) of 16 random
+# 4-token prompts, 40 steps of batch 8 at lr 3e-3
+TRAINED_LAYERS = 4
+TRAINED_CORPUS = dict(seed=1, n_seqs=16, batch=16)   # self_generated_corpus
+TRAINED_ARGS = ["--data", "self", "--seq-len", "128",
+                "--n-seqs", str(TRAINED_CORPUS["n_seqs"]), "--batch", "8",
+                "--epochs", "20", "--lr", "3e-3",
+                "--layers", str(TRAINED_LAYERS),
+                "--n-layers", str(TRAINED_TARGET_LAYERS)]
+# the target the launcher trains against, as its report names it
+TRAINED_TARGET = {"arch": "qwen2-1.5b", "seed": 0, "dtype": "bfloat16",
+                  "n_layers": TRAINED_TARGET_LAYERS}
+# its serving traffic: 12 requests, the corpus's first 12 prompts (on
+# unseen prompts a drafter trained on a random target's rollouts accepts
+# nothing), budgets of 60 (positions within the trained 128), Exp(1)
+# virtual gaps, 8 slots over paged KV (page 16, 5 pages a row, 40 in the
+# pool), served once
+TRAINED_REQUESTS = 12
+TRAINED_SERVE_ARGS = ["--max-new", "60", "--requests",
+                      str(TRAINED_REQUESTS), "--mean-gap", "1",
+                      "--batch", "8", "--max-len", "80",
+                      "--kv-layout", "paged", "--page-size", "16", "--k", "5",
+                      "--layers", str(TRAINED_LAYERS),
+                      "--n-layers", str(TRAINED_TARGET_LAYERS), "--runs", "1"]
+
+
+@contextlib.contextmanager
+def served_reports(k_rows=None):
+    """Records each ``Scheduler.serve`` call's (scheduler, report) while
+    the block runs (the launcher keeps its scheduler to itself) and, into
+    ``k_rows``, the draft cap of every live row each dispatched iteration;
+    the class's methods are restored on exit."""
+    from repro_torch.serving.scheduler import Scheduler
+    serve, dispatch = Scheduler.serve, Scheduler._dispatch
+    seen = []
+
+    def serve_and_keep(self, *a, **kw):
+        rep = serve(self, *a, **kw)
+        seen.append((self, rep))
+        return rep
+
+    def dispatch_and_count(self, run):
+        if k_rows is not None:
+            for k in self._k_row[run].tolist():
+                k_rows[k] = k_rows.get(k, 0) + 1
+        return dispatch(self, run)
+    Scheduler.serve, Scheduler._dispatch = serve_and_keep, dispatch_and_count
+    try:
+        yield seen
+    finally:
+        Scheduler.serve, Scheduler._dispatch = serve, dispatch
+
+
+def trained_launches_want(mode, cfg, n_d, K, iterations, admissions):
+    """Attention launches of a paged serve (phase 3b's formula, by mode):
+    each iteration's paged phase-1 and decode phase-2 launches, the
+    target's n_layers plus the drafter's (parallel: its draft and extend;
+    ar: K single-slot forwards and the extend); an admission's flash
+    prefill of the target and, with a drafter, its extend in two phases."""
+    per = cfg.n_layers + {"none": 0, "parallel": 2 * n_d,
+                          "ar": (K + 1) * n_d}[mode]
+    return {"paged_decode_attention": iterations * per,
+            "decode_attention": iterations * per
+            + (admissions * 2 * n_d if mode != "none" else 0),
+            "flash_attention": admissions * cfg.n_layers, "mtp_attention": 0}
+
+
+def loaded_leaves_equal(dev, eng, path, what):
+    """The drafter ``eng`` serves equals, leaf for leaf and bitwise, the
+    trained float32 leaves of its checkpoint ``path`` after one cast to the
+    leaf's serving dtype (bfloat16 weights, float32 norms)."""
+    from repro_torch.tree import leaves_with_paths
+    n = 0
+    with np.load(path) as data:
+        for key, t in leaves_with_paths(eng.dparams):
+            arr = data[key]
+            want = torch.from_numpy(arr).to(device=dev, dtype=t.dtype)
+            if arr.dtype != np.float32 or not torch.equal(t, want):
+                fail(f"{what}: loaded leaf {key} is not the trained one "
+                     f"cast to {t.dtype}")
+            n += 1
+    return n
+
+
+def trained_path(ops, dev):
+    """Phase 15: the trained drafter from checkpoint to the card. Trains
+    the P-EAGLE drafter and the AR EAGLE-3 drafter (``--ar-baseline``),
+    4 layers each, against full-width qwen2-1.5b in bfloat16 (seed 0, 7
+    of 28 layers) through ``launch.train.main`` (self-generated corpus:
+    the MTP kernel in training, flash for the target's taps), each into
+    its own checkpoint; then serves the corpus's first 12 prompts through
+    ``launch.serve.main`` five ways: none, ar and parallel from their
+    checkpoints, parallel with adaptive K, and parallel with a random
+    drafter (a directory with no checkpoint); and the trained parallel
+    drafter once more on 12 unseen random prompts. Checks: the served
+    leaves are the trained ones cast to bfloat16; ar and parallel streams
+    equal none's under BF16_NEAR_TIE; the trained parallel drafter's AL
+    above the random control's; each serve's launches by
+    ``trained_launches_want``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import corpus_prompts
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    free_card(dev, "phase 15")
+    log(f"phase 15: trained drafters ({TRAINED_LAYERS} layers, float32) "
+        f"against full-width qwen2-1.5b bfloat16 on "
+        f"{TRAINED_TARGET['n_layers']} layers, seed 0: "
+        f"{' '.join(TRAINED_ARGS)}; served {' '.join(TRAINED_SERVE_ARGS)}")
+    out = {"train": {}, "serve": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {"parallel": f"{tmp}/parallel", "ar": f"{tmp}/ar",
+                "random": f"{tmp}/none"}
+        for kind, extra in (("parallel", []), ("ar", ["--ar-baseline"])):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rep = train_launch.main(TRAINED_ARGS + extra
+                                    + ["--ckpt", dirs[kind]])
+            counts = dict(ops.launches)
+            rep.update(seconds=time.perf_counter() - t0, launches=counts)
+            out["train"][kind] = rep
+            log(f"  trained {kind}: {rep['steps']} steps, loss "
+                f"{rep['loss']:.4f}, {rep['s_per_step']:.3f} s/step, "
+                f"{rep['label_tokens_per_s']:.0f} label tokens/s, peak "
+                f"{rep['peak_memory_gb']} GB, {rep['seconds']:.1f} s "
+                f"with the corpus; launches {counts}")
+            if not math.isfinite(rep["loss"]) or counts["mtp_attention"] == 0:
+                fail(f"phase 15 {kind} training: loss {rep['loss']}, "
+                     f"launches {counts}")
+            if rep["target"] != TRAINED_TARGET:
+                fail(f"phase 15 trained against {rep['target']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the corpus's first prompts: the training launcher's rollouts open
+        # with them
+        prompts = corpus_prompts(get_config(TRAINED_TARGET["arch"]).vocab_size,
+                                 **TRAINED_CORPUS)[:TRAINED_REQUESTS]
+        seen_prompts = f"{tmp}/prompts.npy"
+        np.save(seen_prompts, prompts)
+        ways = (("none", "none", dirs["random"], []),
+                ("ar", "ar", dirs["ar"], []),
+                ("parallel", "parallel", dirs["parallel"], []),
+                ("parallel adaptive-K", "parallel", dirs["parallel"],
+                 ["--adaptive-k"]),
+                ("parallel random drafter", "parallel", dirs["random"], []),
+                ("parallel unseen prompts", "parallel", dirs["parallel"],
+                 ["--prompt-len", "4"]))
+        streams, ref_eng, k_rows = {}, None, {}
+        for way, mode, ckpt, extra in ways:
+            unseen = way == "parallel unseen prompts"
+            ops.reset_launches()
+            adaptive = "--adaptive-k" in extra
+            t0 = time.perf_counter()
+            with served_reports(k_rows if adaptive else None) as seen:
+                rep = serve_launch.main(
+                    TRAINED_SERVE_ARGS + extra + ["--mode", mode, "--ckpt",
+                                                  ckpt]
+                    + ([] if unseen else ["--prompts", seen_prompts]))
+            counts = dict(ops.launches)
+            rep["launcher_s"] = time.perf_counter() - t0
+            sched, last = seen[-1]
+            eng = sched.engine
+            want_src = "random" if ckpt == dirs["random"] else "checkpoint"
+            if mode != "none" and rep["drafter"]["source"] != want_src:
+                fail(f"phase 15 {way} served a {rep['drafter']} drafter")
+            if way in ("ar", "parallel"):
+                rep["loaded_leaves"] = loaded_leaves_equal(
+                    dev, eng, rep["drafter"]["path"], way)
+            it = rep["iterations"]
+            adm = rep["requests"] + rep["preemptions"]
+            want = trained_launches_want(mode, eng.tcfg, TRAINED_LAYERS,
+                                         eng.ecfg.K, it, adm)
+            if counts != want:
+                fail(f"phase 15 {way} launches {counts} != {want} "
+                     f"({it} iterations, {adm} admissions)")
+            rep.update(ms_per_iteration=rep["wall_s"] / it * 1e3,
+                       launches=counts)
+            out["serve"][way] = rep
+            log(f"  {way:24s}: AL {rep['acceptance_length']:.4f}, OTPS "
+                f"{rep['otps']:.1f}, {rep['ms_per_iteration']:.2f} ms/"
+                f"iteration over {it}, peak pages {rep['peak_pages']}, "
+                f"preemptions {rep['preemptions']}, new tokens "
+                f"{rep['new_tokens']}, {rep['launcher_s']:.1f} s in the "
+                f"launcher; drafter {rep['drafter']}; launches {counts}")
+            if not unseen:
+                res = sorted(last["results"], key=lambda r: r["rid"])
+                streams[way] = np.stack([np.concatenate([p, r["tokens"]])
+                                         for p, r in zip(prompts, res)])
+            if mode == "none":
+                ref_eng = eng
+            del sched, eng, seen, last
+            gc.collect()
+            torch.cuda.empty_cache()
+    tie = BF16_NEAR_TIE if ref_eng.tcfg.dtype == "bfloat16" else NEAR_TIE
+    for way in ("ar", "parallel", "parallel adaptive-K",
+                "parallel random drafter"):
+        out["serve"][way]["parted_rows"] = near_ties(
+            ref_eng, streams[way], streams["none"], prompts.shape[1],
+            f"15 {way} vs none", dev, tie=tie)
+    del ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    sv = out["serve"]
+    al = {way: r["acceptance_length"] for way, r in sv.items()}
+    out["ratios"] = {
+        "p_eagle_over_ar_eagle_otps": sv["parallel"]["otps"]
+        / sv["ar"]["otps"],
+        "parallel_over_none_otps": sv["parallel"]["otps"]
+        / sv["none"]["otps"],
+        "adaptive_over_parallel_otps": sv["parallel adaptive-K"]["otps"]
+        / sv["parallel"]["otps"]}
+    out["k_row_histogram"] = dict(sorted(k_rows.items()))
+    log(f"  on {card_name()}: AL none {al['none']:.4f} / AR EAGLE-3 "
+        f"{al['ar']:.4f} / P-EAGLE {al['parallel']:.4f} / P-EAGLE adaptive "
+        f"K {al['parallel adaptive-K']:.4f} / random drafter "
+        f"{al['parallel random drafter']:.4f} / P-EAGLE on unseen prompts "
+        f"{al['parallel unseen prompts']:.4f}; OTPS P-EAGLE / AR-EAGLE "
+        f"{out['ratios']['p_eagle_over_ar_eagle_otps']:.3f}, parallel / "
+        f"none {out['ratios']['parallel_over_none_otps']:.3f}, adaptive / "
+        f"fixed K {out['ratios']['adaptive_over_parallel_otps']:.3f}; k_row "
+        f"histogram over live rows of each iteration (adaptive K) "
+        f"{out['k_row_histogram']}")
+    if not al["parallel"] > al["parallel random drafter"]:
+        fail(f"phase 15: the trained P-EAGLE drafter's AL {al['parallel']} "
+             f"is not above the random drafter's "
+             f"{al['parallel random drafter']}")
+    return out
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5016,10 +5278,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    card = smi.stdout.strip()
+    card = card_name()
     log(card)
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
@@ -5042,7 +5301,7 @@ def main() -> int:
 
 
 def run_phases(ops, dev) -> list:
-    """Phases 2-14 on ``dev``; returns the kernels' JSON rows."""
+    """Phases 2-15 on ``dev``; returns the kernels' JSON rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     def timed(fn, *a):
@@ -5074,6 +5333,7 @@ def run_phases(ops, dev) -> list:
     whisper = timed(whisper_path, ops, dev)
     sharded = timed(sharded_path, ops, dev)
     llama4 = timed(llama4_path, ops, dev)
+    trained = timed(trained_path, ops, dev)
     timed(flex_library, ops, dev, pending, measured)
 
     csrc = "src/repro_torch/kernels/csrc"
@@ -5249,6 +5509,7 @@ def run_phases(ops, dev) -> list:
     log(f"whisper-base: {json.dumps(whisper)}")
     log(f"sharded (phase 13): {json.dumps(sharded)}")
     log(f"llama4-maverick (phase 14): {json.dumps(llama4)}")
+    log(f"trained drafters (phase 15): {json.dumps(trained)}")
     log("gemma2, gemma7b, rgemma, dbrx, llama4, internvl2 and whisper kernel "
         "timing: " + json.dumps(
             {f"{k[0]} {k[1]}": v for k, v in measured.items()

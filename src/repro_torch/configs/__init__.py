@@ -30,5 +30,10 @@ def get_config(arch_id: str) -> ModelConfig:
     return _CONFIGS[arch_id]
 
 
+def all_configs() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
 __all__ = ["ARCH_IDS", "INPUT_SHAPES", "DrafterConfig", "HybridConfig",
-           "InputShape", "ModelConfig", "MoEConfig", "SSMConfig", "get_config"]
+           "InputShape", "ModelConfig", "MoEConfig", "SSMConfig",
+           "all_configs", "get_config"]

@@ -98,6 +98,14 @@ class ModelConfig:
     def q_scale(self) -> float:
         return self.query_scale if self.query_scale is not None else self.head_dim ** -0.5
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def has_decoder(self) -> bool:
+        return True     # every config here decodes (whisper: its decoder)
+
     def attn_kind(self, layer_idx: int) -> str:
         return self.attn_pattern[layer_idx % len(self.attn_pattern)]
 

@@ -17,7 +17,9 @@ Python lists, so every converter here unstacks into layer order.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -142,6 +144,40 @@ def target_params(jparams: dict, cfg: ModelConfig, *, device="cpu",
     if "vis_proj" in jparams:
         out["vis_proj"] = _map(jparams["vis_proj"], conv)
     return out
+
+
+def jax_checkpoint(directory: str, name: str,
+                   step: Optional[int] = None) -> dict:
+    """The tree the JAX package's ``checkpoint.save_pytree`` wrote under
+    ``name`` at ``step`` (the latest by default), as nested dicts of numpy
+    arrays in its own (stacked) layout: the npz keys are the tree's
+    ``/``-joined paths, and a leaf recorded as bfloat16 in
+    ``<name>.meta.json`` (stored as a uint16 view) comes back widened to
+    float32, exactly (numpy has no bfloat16). Feed the result to
+    :func:`drafter_params` or :func:`target_params`."""
+    from repro_torch.checkpoint.store import latest_step
+    if step is None:
+        step = latest_step(directory, name)
+        if step is None:
+            raise FileNotFoundError(f"no {name} under {directory}")
+    base = os.path.join(directory, f"step_{step:08d}")
+    dtypes = {}
+    meta_fn = os.path.join(base, f"{name}.meta.json")
+    if os.path.exists(meta_fn):
+        with open(meta_fn) as f:
+            dtypes = json.load(f).get("dtypes", {})
+    tree: dict = {}
+    with np.load(os.path.join(base, f"{name}.npz")) as data:
+        for key in data.files:
+            arr = data[key]
+            if dtypes.get(key) == "bfloat16":
+                arr = (arr.astype(np.uint32) << 16).view(np.float32)
+            *outer, leaf = key.split("/")
+            node = tree
+            for part in outer:
+                node = node.setdefault(part, {})
+            node[leaf] = arr
+    return tree
 
 
 def drafter_params(jparams: dict, *, device="cpu",

@@ -58,6 +58,18 @@ def markov_corpus(seed: int, n_seqs: int, seq_len: int, vocab: int,
     return seqs
 
 
+def corpus_prompts(vocab: int, *, seed: int, n_seqs: int,
+                   prompt_len: int = 4, batch: int = 8) -> np.ndarray:
+    """The random prompts that :func:`self_generated_corpus` rolls out
+    with the same arguments, row i opening corpus row i: drawn a batch at
+    a time, so (n_seqs rounded up to whole batches, prompt_len)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.integers(0, vocab - 2, size=(batch,
+                                                            prompt_len))
+                           for _ in range(-(-n_seqs // batch))]
+                          ).astype(np.int32)
+
+
 def self_generated_corpus(model, params, *, seed: int, n_seqs: int,
                           seq_len: int, prompt_len: int = 4,
                           batch: int = 8, device="cuda",
@@ -70,16 +82,14 @@ def self_generated_corpus(model, params, *, seed: int, n_seqs: int,
     the text region."""
     from repro_torch.serving.engine import Engine, EngineConfig
 
-    rng = np.random.default_rng(seed)
     out = []
-    vocab = model.cfg.vocab_size
     ecfg = EngineConfig(K=0, max_new_tokens=seq_len - prompt_len,
                         drafter_mode="none", cache_dtype=model.cfg.dtype,
                         max_len=seq_len + model.cfg.vision_tokens + 8)
     eng = Engine(model.cfg, None, params, None, ecfg, batch, device=device)
-    while len(out) * batch < n_seqs:
-        prompts = rng.integers(0, vocab - 2,
-                               size=(batch, prompt_len)).astype(np.int32)
+    every = corpus_prompts(model.cfg.vocab_size, seed=seed, n_seqs=n_seqs,
+                           prompt_len=prompt_len, batch=batch)
+    for prompts in np.split(every, len(every) // batch):
         extras = extras_fn(batch) if extras_fn else {}
         off = eng.pos_offset
         out.append(eng.run(prompts, extras)["tokens"][:, off:off + seq_len])

@@ -26,10 +26,14 @@ holds:
 
 All of it is an estimate from those constants, not a measurement. A cell
 whose step cannot run on meta records ``status: "error"`` with the op
-that stopped it.
+that stopped it. ``--variant optimized`` is the JAX package's optimized
+variant: the drafter's blocks recomputed in the training backward
+(``DrafterConfig.remat``); its records are written beside the baseline's.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
         --shape decode_32k [--multipod] [--out results/dryrun_torch]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
+        --shape train_4k --variant optimized
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 """
 from __future__ import annotations
@@ -58,6 +62,7 @@ from repro_torch.sharding import utils as SH
 from repro_torch.sharding.utils import Shard
 
 GB80 = 80e9
+VARIANTS = ("baseline", "optimized")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -170,10 +175,15 @@ def run_step(fn, args: dict, extras: Optional[dict], mesh) -> dict:
 
 
 def run_one(arch: str, shape_name, multi_pod: bool, *, k_infer: int = 5,
-            n_micro: int = 8, mesh=None, tcfg=None) -> dict:
+            n_micro: int = 8, variant: str = "baseline", mesh=None,
+            tcfg=None) -> dict:
     """One cell's record. ``shape_name`` may be an ``InputShape``, and
     ``mesh`` / ``tcfg`` override the production mesh and the published
-    config (scaled-down runs)."""
+    config (scaled-down runs). ``variant="optimized"`` recomputes each
+    drafter block in the training backward (``DrafterConfig.remat``), as
+    the JAX package's optimized variant does."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
     t0 = time.time()
     shape = input_shape(shape_name)
     shape_name = shape.name
@@ -181,11 +191,11 @@ def run_one(arch: str, shape_name, multi_pod: bool, *, k_infer: int = 5,
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(str(s) for s in mesh.shape.values()),
-           "axes": list(mesh.axis_names)}
+           "axes": list(mesh.axis_names), "variant": variant}
     if tcfg is None:
         rec.update(status="skip", reason=get_config(arch).long_context)
         return rec
-    dcfg = resolve_drafter(tcfg)
+    dcfg = resolve_drafter(tcfg, remat=variant == "optimized")
     if shape.kind == "train":
         fn, make_inputs = build_train_step(tcfg, dcfg, shape, n_micro=n_micro)
     elif shape.kind == "prefill":
@@ -215,6 +225,9 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--k", type=int, default=5)
     ap.add_argument("--n-micro", type=int, default=8)
+    ap.add_argument("--variant", default="baseline", choices=VARIANTS,
+                    help="optimized: the drafter's blocks recomputed in the "
+                         "training backward")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true",
                     help="recompute cells whose record exists")
@@ -229,7 +242,9 @@ def main(argv=None):
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                tag = f"{arch}__{shape}__{'mp' if mp else 'sp'}"
+                tag = f"{arch}__{shape}__{'mp' if mp else 'sp'}" + (
+                    "" if args.variant == "baseline" else
+                    f"__{args.variant}")
                 out_fn = os.path.join(args.out, tag + ".json")
                 if os.path.exists(out_fn) and not args.force:
                     print(f"[skip existing] {tag}")
@@ -237,10 +252,11 @@ def main(argv=None):
                 print(f"[dryrun] {tag} ...", flush=True)
                 try:
                     rec = run_one(arch, shape, mp, k_infer=args.k,
-                                  n_micro=args.n_micro)
+                                  n_micro=args.n_micro, variant=args.variant)
                 except Exception as e:
                     rec = {"arch": arch, "shape": shape,
-                           "mesh": _mesh_name(mp), "status": "error",
+                           "mesh": _mesh_name(mp), "variant": args.variant,
+                           "status": "error",
                            "error": repr(e),
                            "traceback": traceback.format_exc()}
                 with open(out_fn, "w") as f:

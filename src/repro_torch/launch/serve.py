@@ -24,10 +24,17 @@ default policy) and reports its OTPS, rounds and AL beside the scheduler's.
 
 The target is ``--arch`` (default qwen2-1.5b; gemma-7b, gemma2-27b,
 minitron-4b, the SSM mamba2-780m, the hybrid recurrentgemma-2b and the
-MoE dbrx-132b and llama4-maverick too) at full width in bfloat16 with a
-4-layer parallel drafter, both with random weights drawn from ``--seed``;
-``--n-layers`` cuts the target's depth, its widths kept (dbrx-132b's 40
-layers do not fit one card; 8 do, ~62 GB). mamba2-780m keeps its conv and
+MoE dbrx-132b and llama4-maverick too) at full width in bfloat16, random
+weights drawn from ``--seed``, with the ``--layers``-layer drafter (4 by
+default): the latest ``drafter_{arch}`` checkpoint under ``--ckpt`` (what
+``launch.train`` wrote there against the same target), cast once to the
+target's dtype, or random weights from the same seed when the directory
+holds none; a checkpoint that does not fit (another ``--layers``, hidden-
+state variant or target) raises, naming the leaf, and the report's
+``drafter`` says which was served. ``--no-bucket`` prefills each admission
+at its own length instead of the next power of two. ``--n-layers`` cuts
+the target's depth, its widths kept (dbrx-132b's 40 layers do not fit one
+card; 8 do, ~62 GB). mamba2-780m keeps its conv and
 SSD state per slot, so only its drafter's KV is paged; recurrentgemma-2b
 keeps its RG-LRU rows per slot beside its local layers' KV, pooled at a
 max_len not above 2048 + K + 1 and per-slot rings above; both admit
@@ -37,13 +44,25 @@ encoder-decoder whisper-base serve with stub frontend inputs (256 vision
 tokens of 1024, or 1500 encoder frames of 512), drawn per request from its
 prompt at admission (``Request.extras``); neither builds a prefix cache,
 and ``--round-based`` refuses them (whole rounds carry no per-request
-extras). Prompts are random
-tokens from the same seed and arrive with Exp(``--mean-gap``) gaps on the
-virtual clock (0: all at once). The KV cache is paged on the card and
-contiguous on the CPU unless ``--kv-layout`` says otherwise. The run is
-repeated and the last (warm) run is reported.
+extras). Prompts are random tokens from the same seed and arrive with
+Exp(``--mean-gap``) gaps on the virtual clock (0: all at once);
+``--prompts`` serves given prompts instead (a numpy ``.npy`` array of
+token rows, e.g. a training corpus's ``data.corpus_prompts``, on which a
+drafter trained on that corpus's rollouts accepts: on unseen prompts a
+drafter trained on a random target's rollouts accepts next to nothing).
+The KV cache is paged on the card and contiguous on the CPU unless
+``--kv-layout`` says otherwise. The run is repeated and the last (warm)
+run is reported.
 
     PYTHONPATH=src python -m repro_torch.launch.serve            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --ckpt build/ckpt \
+        --seq-len 128 --n-seqs 16 --batch 8 --epochs 20 --lr 3e-3 && \
+    PYTHONPATH=src python -c "import numpy as np; from repro_torch.data \
+        import corpus_prompts; np.save('build/prompts.npy', corpus_prompts(\
+        151936, seed=1, n_seqs=12, batch=16))" && \
+    PYTHONPATH=src python -m repro_torch.launch.serve --ckpt build/ckpt \
+        --prompts build/prompts.npy --requests 12 --max-new 60 \
+        --mean-gap 1                           # the trained drafter
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 \
         --mean-gap 1 --pool-pages 256          # on the card, under pressure
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
@@ -100,6 +119,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import latest_step, load_pytree
 from repro_torch.configs import ARCH_IDS, DrafterConfig, get_config
 from repro_torch.core import drafter as D
 from repro_torch.models.registry import get_model, takes_extras
@@ -107,8 +127,46 @@ from repro_torch.serving.engine import Engine, EngineConfig, resolve_device
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import (Request, Scheduler,
                                            serve_round_based)
-from repro_torch.sharding.rules import draw_sharded
-from repro_torch.sharding.utils import serving_mesh
+from repro_torch.sharding.rules import (draw_sharded, serve_param_specs,
+                                        slice_keeper)
+from repro_torch.sharding.utils import serving_mesh, shard_tree
+
+
+def target_config(arch="qwen2-1.5b", *, reduced=False, n_layers=None,
+                  dtype=None):
+    """The target's config as the launchers build it: ``arch`` at full
+    width (or its reduced CPU-test config), ``n_layers`` cutting its depth,
+    in ``dtype`` (default bfloat16 at full width, float32 reduced). The
+    training launcher draws its target from the same config, so a drafter
+    it trains is served against the same weights."""
+    tcfg = get_config(arch)
+    if reduced:
+        tcfg = tcfg.reduced()
+    dtype = dtype or ("float32" if reduced else "bfloat16")
+    return tcfg.replace(dtype=dtype, n_layers=n_layers or tcfg.n_layers)
+
+
+def load_drafter(dcfg, tcfg, ckpt, *, device, mesh=None):
+    """The trained drafter ``drafter_{arch}`` of the latest step under
+    ``ckpt`` that holds one, in the template ``dcfg`` at the target's dtype
+    (each leaf cast once: norms stay float32), and ``(step, path)``; or
+    ``(None, None)`` when no step holds one. Under a mesh each leaf is cut
+    to its rank's slice as soon as it is read. A checkpoint that does not
+    fit the template (another ``--layers``, hidden-state variant or arch)
+    raises, naming the leaf."""
+    name = f"drafter_{tcfg.arch_id}"
+    step = latest_step(ckpt, name)
+    if step is None:
+        return None, None
+    template = D.init_params(dcfg, tcfg, torch.Generator(), device="meta",
+                             dtype=getattr(torch, tcfg.dtype))
+    keep = None if mesh is None else slice_keeper(template, mesh)
+    params = load_pytree(template, ckpt, name, step, device=device,
+                         keep=keep)
+    if mesh is not None:
+        params = shard_tree(params, serve_param_specs(template, mesh), mesh)
+    return params, (step, os.path.join(ckpt, f"step_{step:08d}",
+                                       f"{name}.npz"))
 
 
 def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
@@ -116,26 +174,31 @@ def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
                  batch=8, seed=0, device="cuda", kv_layout="contiguous",
                  page_size=16, pool_pages=0, kv_growth="incremental",
                  sampling=None, draft_sampling=False, prefix_cache=False,
-                 swap="none", host_pool_bytes=0, shard_model=False):
-    """The target ``arch`` + the 4-layer drafter with seeded random weights,
-    wrapped in an Engine. ``n_layers`` cuts the target's depth (widths stay
-    the published ones). ``dtype`` defaults to bfloat16 at full width and
-    float32 reduced; ``sampling`` is the engine's default policy (None:
-    greedy). ``shard_model`` shards the weights and KV over every rank of
-    the initialised process group: each rank draws the same weights leaf
-    by leaf, in the unsharded draw's order, and keeps its slice of each
-    as soon as it is drawn (``sharding.rules.draw_sharded``), so its card
-    holds its slices plus the one leaf being drawn (a float32 draw and its
-    cast), never the whole model, and the slices are bitwise the unsharded
-    draw's for the seed. A target the device's kernels cannot serve raises
-    before any weight is made."""
+                 swap="none", host_pool_bytes=0, shard_model=False,
+                 ckpt=None, drafter_layers=4, bucket_prefill=True):
+    """The target ``arch`` with seeded random weights and the
+    ``drafter_layers``-layer drafter, wrapped in an Engine. The drafter is
+    the latest ``drafter_{arch}`` checkpoint under ``ckpt`` (the training
+    launcher's output; trained in float32, served in the target's dtype),
+    or seeded random weights when ``ckpt`` holds none;
+    ``engine.drafter_source`` says which (``source``, ``path``, ``step``;
+    None with ``mode="none"``). ``n_layers`` cuts the target's depth
+    (widths stay the published ones). ``dtype`` defaults to bfloat16 at
+    full width and float32 reduced; ``sampling`` is the engine's default
+    policy (None: greedy); ``bucket_prefill`` pads admission prefills to
+    powers of two. ``shard_model`` shards the weights and KV over every
+    rank of the initialised process group: each rank draws the same
+    weights leaf by leaf, in the unsharded draw's order, and keeps its
+    slice of each as soon as it is drawn (``sharding.rules.draw_sharded``;
+    a checkpoint is read the same way, leaf by leaf), so its card holds
+    its slices plus the one leaf being drawn (a float32 draw and its cast),
+    never the whole model, and the slices are bitwise the unsharded draw's
+    for the seed. A target the device's kernels cannot serve raises before
+    any weight is made."""
     dev = resolve_device(device)
-    tcfg = get_config(arch)
-    if reduced:
-        tcfg = tcfg.reduced()
-    dtype = dtype or ("float32" if reduced else "bfloat16")
-    tcfg = tcfg.replace(dtype=dtype, n_layers=n_layers or tcfg.n_layers)
-    dcfg = DrafterConfig().resolve(tcfg)
+    tcfg = target_config(arch, reduced=reduced, n_layers=n_layers,
+                         dtype=dtype)
+    dcfg = DrafterConfig(n_layers=drafter_layers, k_infer=K).resolve(tcfg)
     model = get_model(tcfg, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     mesh = serving_mesh() if shard_model else None
@@ -145,20 +208,31 @@ def build_engine(*, arch="qwen2-1.5b", reduced=False, n_layers=None,
             return init(gen, dev, None)
         return draw_sharded(init, gen, mesh, device=dev)
     tparams = draw(lambda g, d, keep: model.init(g, device=d, keep=keep))
-    dparams = None
+    dparams = source = None
     if mode != "none":
-        dparams = draw(lambda g, d, keep: D.init_params(
-            dcfg, tcfg, g, device=d, dtype=getattr(torch, dtype), keep=keep))
+        dparams, found = load_drafter(dcfg, tcfg, ckpt, device=dev,
+                                      mesh=mesh)
+        source = {"source": "random", "path": None, "step": None}
+        if found is not None:
+            source = {"source": "checkpoint", "path": found[1],
+                      "step": found[0]}
+        else:
+            dparams = draw(lambda g, d, keep: D.init_params(
+                dcfg, tcfg, g, device=d, dtype=getattr(torch, tcfg.dtype),
+                keep=keep))
     ecfg = EngineConfig(K=K, max_new_tokens=max_new, drafter_mode=mode,
-                        cache_dtype=dtype, max_len=max_len,
+                        cache_dtype=tcfg.dtype, max_len=max_len,
                         kv_layout=kv_layout, page_size=page_size,
                         pool_pages=pool_pages, kv_growth=kv_growth,
                         sampling=sampling, draft_sampling=draft_sampling,
                         prefix_cache=prefix_cache, swap=swap,
                         host_pool_bytes=host_pool_bytes,
+                        bucket_prefill=bucket_prefill,
                         shard_model=shard_model, mesh=mesh)
-    return Engine(tcfg, dcfg if mode != "none" else None, tparams, dparams,
-                  ecfg, batch, device=dev)
+    eng = Engine(tcfg, dcfg if mode != "none" else None, tparams, dparams,
+                 ecfg, batch, device=dev)
+    eng.drafter_source = source
+    return eng
 
 
 def random_prompts(vocab: int, batch: int, length: int, seed: int):
@@ -178,11 +252,13 @@ def request_policy(i: int, *, temperature=0.0, top_k=0, top_p=1.0, seed=0,
 
 
 def make_requests(vocab: int, n: int, prompt_len: int, max_new: int,
-                  mean_gap: float, seed: int, policy=None):
-    """``n`` requests of random ``prompt_len``-token prompts and ``max_new``
-    budgets, arriving with Exp(``mean_gap``) gaps (0: all at time 0);
-    ``policy(i)`` gives request i's SamplingParams (None: the engine's)."""
-    prompts = random_prompts(vocab, n, prompt_len, seed)
+                  mean_gap: float, seed: int, policy=None, prompts=None):
+    """``n`` requests of random ``prompt_len``-token prompts (or the first
+    ``n`` rows of ``prompts``) and ``max_new`` budgets, arriving with
+    Exp(``mean_gap``) gaps (0: all at time 0); ``policy(i)`` gives request
+    i's SamplingParams (None: the engine's)."""
+    prompts = (random_prompts(vocab, n, prompt_len, seed) if prompts is None
+               else np.asarray(prompts, np.int32)[:n])
     gaps = (np.random.default_rng(seed + 1).exponential(mean_gap, n)
             if mean_gap > 0 else np.zeros(n))
     return [Request(p, max_new_tokens=max_new, arrival_time=float(t),
@@ -288,11 +364,26 @@ def main(argv=None):
     ap.add_argument("--shard-model", type=int, default=0, metavar="N",
                     help="storage-shard weights and KV over the N ranks "
                          "torchrun started (N = the world size)")
+    ap.add_argument("--ckpt", default="results/ckpt",
+                    help="serve the latest drafter_{arch} checkpoint under "
+                         "this directory (the training launcher's --ckpt); "
+                         "none there: a random drafter")
+    ap.add_argument("--layers", type=int, default=4,
+                    help="the drafter's depth (the checkpoint's)")
+    ap.add_argument("--prompts", default=None, metavar="NPY",
+                    help="serve these prompts: an (n, length) integer array "
+                         "saved by numpy (default: random --prompt-len "
+                         "tokens from --seed)")
+    ap.add_argument("--no-bucket", action="store_true",
+                    help="prefill each admission at its own length, not "
+                         "padded to the next power of two")
     args = ap.parse_args(argv)
     if args.mixed_sampling and args.temperature <= 0:
         ap.error("--mixed-sampling needs --temperature > 0")
     if args.prefix_groups < 1:
         ap.error("--prefix-groups must be at least 1")
+    if args.prompts and args.shared_prefix > 0:
+        ap.error("--prompts and --shared-prefix both make the prompts")
     if args.round_based and args.shared_prefix > 0:
         ap.error("--round-based stacks equal-length prompts: not with "
                  "--shared-prefix")
@@ -316,8 +407,14 @@ def main(argv=None):
                        draft_sampling=args.draft_sampling,
                        prefix_cache=args.prefix_cache, swap=args.swap,
                        host_pool_bytes=args.host_pool_bytes,
-                       shard_model=args.shard_model > 0)
-    n_req = args.requests or args.batch
+                       shard_model=args.shard_model > 0, ckpt=args.ckpt,
+                       drafter_layers=args.layers,
+                       bucket_prefill=not args.no_bucket)
+    given = None if args.prompts is None else np.load(args.prompts)
+    n_req = args.requests or (args.batch if given is None else len(given))
+    if given is not None and (given.ndim != 2 or len(given) < n_req):
+        ap.error(f"--prompts holds {given.shape}: {n_req} rows of tokens "
+                 f"wanted")
     sched = Scheduler(eng, eos_id=args.eos_id, sync_every=args.sync_every,
                       preempt=not args.no_preempt, adaptive_k=args.adaptive_k)
 
@@ -334,7 +431,8 @@ def main(argv=None):
                 (args.max_new, args.max_new), args.mean_gap, args.seed,
                 policy=policy)
         return make_requests(eng.tcfg.vocab_size, n_req, args.prompt_len,
-                             args.max_new, args.mean_gap, args.seed, policy)
+                             args.max_new, args.mean_gap, args.seed, policy,
+                             prompts=given)
     for _ in range(args.runs):
         r = sched.serve(requests())
     report = {
@@ -342,11 +440,15 @@ def main(argv=None):
                    if eng.device.type == "cuda" else "cpu"),
         "arch": eng.tcfg.arch_id, "reduced": args.reduced,
         "n_layers": eng.tcfg.n_layers,
-        "mode": args.mode, "kv_layout": layout, "batch": args.batch,
+        "mode": args.mode, "drafter": eng.drafter_source,
+        "drafter_layers": args.layers, "kv_layout": layout,
+        "batch": args.batch, "k": args.k, "bucket_prefill": not args.no_bucket,
         "temperature": args.temperature, "top_k": args.top_k,
         "top_p": args.top_p, "mixed_sampling": args.mixed_sampling,
         "draft_sampling": args.draft_sampling,
-        "requests": n_req, "prompt_len": args.prompt_len,
+        "requests": n_req, "prompts": args.prompts,
+        "prompt_len": (args.prompt_len if given is None
+                       else given.shape[1]),
         "new_tokens": r["total_new_tokens"], "iterations": r["iterations"],
         "otps": r["otps"], "otps_vt": r["otps_vt"],
         "acceptance_length": r["weighted_acceptance_length"],

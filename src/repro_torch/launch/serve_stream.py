@@ -8,15 +8,22 @@ lines; clients (request shaping, tokenization) live in other processes.
     PYTHONPATH=src python -m repro_torch.launch.serve_stream    # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve_stream --reduced \\
         --device cpu --max-len 64 --max-new 8 --page-size 8     # CPU rehearsal
+    PYTHONPATH=src python -m repro_torch.launch.serve_stream --arch \\
+        qwen2-1.5b --ckpt results/ckpt --layers 4   # a trained drafter
     PYTHONPATH=src python -m repro_torch.launch.serve_stream --client \\
         --port 8765 --requests 4                                # the client
 
-The server is full-width qwen2-1.5b in bfloat16 with the 4-layer parallel
-drafter, seeded random weights (``launch.serve.build_engine``), paged KV by
-default; ``--prefix-cache``, ``--swap host`` and ``--adaptive-k`` turn on
-the serving policies, and ``--temperature/--top-k/--top-p/--seed`` set the
-policy of requests that name none. ``--port 0`` binds a free port (the
-line the server prints names it).
+The server is ``--arch`` (default qwen2-1.5b; every family the
+AsyncEngine serves, a VLM or encoder-decoder target with stub frontend
+inputs drawn from each prompt at admission) at full width in bfloat16,
+seeded random weights, with the ``--layers``-layer drafter: the latest
+``drafter_{arch}`` checkpoint under ``--ckpt`` (the training launcher's
+output), or seeded random weights when there is none
+(``launch.serve.build_engine``); paged KV by default; ``--prefix-cache``,
+``--swap host`` and ``--adaptive-k`` turn on the serving policies, and
+``--temperature/--top-k/--top-p/--seed`` set the policy of requests that
+name none. ``--port 0`` binds a free port (the line the server prints
+names it).
 
 Protocol, one JSON object per line both ways. Client to server::
 
@@ -229,6 +236,9 @@ async def _demo_client(host: str, port: int, n_requests: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="the target architecture (every family the "
+                         "AsyncEngine serves)")
     ap.add_argument("--reduced", action="store_true",
                     help="the 2-layer CPU-test config instead of full width")
     ap.add_argument("--device", default="cuda")
@@ -237,6 +247,11 @@ def main(argv=None):
     ap.add_argument("--mode", default="parallel",
                     choices=("parallel", "ar", "none"))
     ap.add_argument("--k", type=int, default=5)
+    ap.add_argument("--layers", type=int, default=4,
+                    help="the drafter's depth (the checkpoint's)")
+    ap.add_argument("--ckpt", default="results/ckpt",
+                    help="serve the latest drafter_{arch} checkpoint under "
+                         "this directory; none there: a random drafter")
     ap.add_argument("--batch", type=int, default=8, help="decode slots")
     ap.add_argument("--max-new", type=int, default=128)
     ap.add_argument("--max-len", type=int, default=1024)
@@ -299,7 +314,8 @@ def main(argv=None):
     default = (SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p, seed=args.seed)
                if args.temperature > 0 else None)
-    eng = build_engine(reduced=args.reduced, mode=args.mode, K=args.k,
+    eng = build_engine(arch=args.arch, reduced=args.reduced, mode=args.mode,
+                       K=args.k, ckpt=args.ckpt, drafter_layers=args.layers,
                        max_new=args.max_new, max_len=args.max_len,
                        batch=args.batch, seed=args.seed, device=dev,
                        kv_layout=args.kv_layout, page_size=args.page_size,
@@ -314,10 +330,14 @@ def main(argv=None):
     async def serve_forever():
         server = await start_stream_server(aeng, args.host, args.port)
         addr = server.sockets[0].getsockname()
+        src = eng.drafter_source
+        drafter = "" if src is None else (
+            f", drafter {src['path']}" if src["source"] == "checkpoint"
+            else ", random drafter")
         print(f"streaming NDJSON server on {addr[0]}:{addr[1]} "
               f"({eng.tcfg.arch_id}, {dev}, batch {args.batch}, K {args.k}, "
               f"mode {args.mode}, {args.kv_layout}, max_pending "
-              f"{aeng.max_pending})", flush=True)
+              f"{aeng.max_pending}{drafter})", flush=True)
         async with server:
             await server.serve_forever()
 

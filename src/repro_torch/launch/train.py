@@ -9,7 +9,11 @@ padding to the static expanded length and, with ``--segments S``,
 Algorithm-1 segments with gradient accumulation inside each sequence.
 A VLM or encoder-decoder target (``--arch internvl2-1b`` /
 ``whisper-base``) takes stub extras (``make_extras`` from key 0) in its
-rollouts and in every training batch, as the JAX launcher does.
+rollouts and in every training batch, as the JAX launcher does. The
+trained drafter is written under ``--ckpt`` as ``drafter_{arch}``, and
+``launch.serve --ckpt`` (``--layers`` the same) serves it against the
+same target: seed 0, the same dtype and depth (``--n-layers`` cuts it on
+both); the report names them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --data markov \
         --seq-len 2048 --batch 1 --n-seqs 4 --epochs 1      # on the card
@@ -25,11 +29,14 @@ import torch
 
 from repro_torch import prng
 from repro_torch.checkpoint import save_pytree
-from repro_torch.configs import DrafterConfig, get_config
+from repro_torch.configs import DrafterConfig
 from repro_torch.data import MTPPipeline, markov_corpus, self_generated_corpus
+from repro_torch.launch.serve import target_config
 from repro_torch.models.registry import get_model, make_extras, takes_extras
 from repro_torch.serving.engine import resolve_device
 from repro_torch.training import TrainConfig, Trainer
+
+TARGET_SEED = 0
 
 
 def main(argv=None):
@@ -37,6 +44,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--reduced", action="store_true",
                     help="the 2-layer CPU-test config instead of full width")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the target's depth (widths stay), as the "
+                         "serving launcher's --n-layers does")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--batch", type=int, default=16)
@@ -54,13 +64,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    tcfg = get_config(args.arch)
-    if args.reduced:
-        tcfg = tcfg.reduced()
-    model = get_model(tcfg)
+    # the serving launcher's target: its build_engine(seed=0) draws these
+    # weights bitwise, so the drafter is served against what it learned
+    tcfg = target_config(args.arch, reduced=args.reduced,
+                         n_layers=args.n_layers)
+    model = get_model(tcfg, dev)
     print(f"init target {args.arch} (reduced={args.reduced}) on {dev} ...",
           flush=True)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(TARGET_SEED)
     tparams = model.init(gen, device=dev)
 
     key = prng.PRNGKey(0, device=dev)
@@ -98,6 +109,9 @@ def main(argv=None):
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "arch": args.arch, "reduced": args.reduced,
+        "target": {"arch": tcfg.arch_id, "seed": TARGET_SEED,
+                   "dtype": tcfg.dtype, "n_layers": tcfg.n_layers},
+        "drafter_layers": args.layers, "parallel": not args.ar_baseline,
         "seq_len": args.seq_len, "batch": args.batch,
         "segments": args.segments, "steps": len(log),
         "loss": log[-1]["loss"],

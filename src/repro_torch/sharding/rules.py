@@ -226,6 +226,23 @@ def draw_sharded(init, generator: torch.Generator, mesh: Mesh, *, device,
     return shard_tree(tree, serve_param_specs(template, mesh, rules), mesh)
 
 
+def slice_keeper(template, mesh: Mesh, rules=PARAM_RULES):
+    """A per-leaf hook ``keep(path, leaf)`` for a tree read leaf by leaf
+    (``checkpoint.load_pytree(keep=)``): each leaf that the serving specs
+    of ``template`` shard is cut to this rank's :class:`Shard` as soon as
+    it is read, so the whole leaf can go; the others are kept whole.
+    ``shard_tree`` with the same specs then gives the tree that cutting
+    the whole read tree would give."""
+    specs = {path: _param_leaf(path, tuple(t.shape), rules, mesh)
+             for path, t in leaves_with_paths(template)}
+
+    def keep(path, t):
+        spec = specs[path]
+        return Shard(shard(t, spec, mesh), spec, mesh) \
+            if is_sharded(spec) else t
+    return keep
+
+
 def _serve_state_leaf(path: str, shape, mesh: Mesh):
     name = path.rsplit("/", 1)[-1]
     if name in ("k", "v") and len(shape) >= 4:

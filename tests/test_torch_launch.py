@@ -119,3 +119,42 @@ def test_sharding_and_launch_modules_load_without_jax():
             "repro_torch.launch.dryrun")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(root / "src")}, cwd=root)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "optimized"])
+def test_dryrun_variant_numbers_equal_the_jax_dryruns(variant):
+    """``--variant``: the record names it, and its drafter is the one the
+    JAX dry-run resolves for it (``optimized``: the blocks recomputed in
+    the backward, ``remat``), field for field; the per-GPU numbers both
+    dry-runs compute from the configs (the useful FLOPs of a cell, over
+    the mesh's GPUs) are the JAX package's for that variant at every input
+    shape. On qwen2 reduced at the scaled-down train shape over a described
+    (data 2, model 2) mesh the optimized step recomputes each drafter
+    block, so its counted FLOPs exceed the baseline's."""
+    import dataclasses
+    from repro.launch.steps import resolve_drafter as jresolve_drafter
+    from repro_torch.launch.steps import resolve_drafter
+    remat = variant == "optimized"
+    for arch in ARCH_IDS:
+        tcfg, jcfg = get_config(arch), jget_config(arch)
+        dcfg = resolve_drafter(tcfg, remat=remat)
+        jdcfg = jresolve_drafter(jcfg, remat=remat)
+        assert dataclasses.asdict(dcfg) == dataclasses.asdict(jdcfg), arch
+        for name, shape in INPUT_SHAPES.items():
+            assert roofline.model_flops_estimate(tcfg, shape, dcfg) / 256 \
+                == JRL.model_flops_estimate(jcfg, JINPUT_SHAPES[name],
+                                            jdcfg) / 256, (arch, name)
+    tcfg = get_config("qwen2-1.5b").reduced()
+    mesh = Mesh.describe(("data", "model"), (2, 2))
+    recs = {v: dryrun.run_one("qwen2-1.5b", SMALL[0], False, n_micro=2,
+                              mesh=mesh, tcfg=tcfg, variant=v)
+            for v in ("baseline", variant)}
+    rec = recs[variant]
+    assert rec["status"] == "ok" and rec["variant"] == variant
+    assert rec["roofline"]["model_flops"] == JRL.model_flops_estimate(
+        jget_config("qwen2-1.5b").reduced(), SMALL[0],
+        jresolve_drafter(jget_config("qwen2-1.5b").reduced(), remat=remat))
+    if remat:
+        assert rec["flops"] > recs["baseline"]["flops"]
+    with pytest.raises(ValueError, match="variant"):
+        dryrun.run_one("qwen2-1.5b", SMALL[0], False, variant="fast")

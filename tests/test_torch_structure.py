@@ -469,3 +469,73 @@ def test_sampling_and_dropout_use_no_torch_random_stream(rel):
     bad = {_dotted(c.func) for r in roots for c in ast.walk(r)
            if isinstance(c, ast.Call) and _TORCH_RANDOM.search(_dotted(c.func))}
     assert not bad, f"{rel} calls {sorted(bad)}"
+
+
+# The JAX package's launchers and their counterparts in the port. A flag the
+# port names otherwise is listed here with its reason (none is, so far).
+LAUNCHERS = ("serve", "serve_stream", "train", "dryrun")
+RENAMED_FLAGS: dict = {}
+
+
+def _flags(path: Path) -> set:
+    return set(re.findall(r"add_argument\(\s*\"(--[a-z0-9-]+)\"",
+                          path.read_text()))
+
+
+@pytest.mark.parametrize("launcher", LAUNCHERS)
+def test_port_launchers_take_every_jax_flag(launcher):
+    """Every ``--flag`` of ``src/repro/launch/<launcher>.py`` has its
+    counterpart in ``src/repro_torch/launch/<launcher>.py``, read from the
+    source text of both."""
+    jax_flags = _flags(ROOT / "src" / "repro" / "launch" / f"{launcher}.py")
+    port = _flags(ROOT / "src" / "repro_torch" / "launch" / f"{launcher}.py")
+    assert jax_flags, launcher
+    missing = {f for f in jax_flags
+               if RENAMED_FLAGS.get((launcher, f), (f,))[0] not in port}
+    assert not missing, f"{launcher}: the port lacks {sorted(missing)}"
+
+
+def test_serve_stream_serves_a_vlm_with_stub_extras():
+    """``serve_stream --arch internvl2-1b`` (reduced, on the CPU): requests
+    carry no vision inputs, so each gets the prompt-keyed stub extras at
+    admission, and the demo client streams one to its budget; with no
+    checkpoint under ``--ckpt`` the server says its drafter is random."""
+    import signal
+    import subprocess
+    import sys
+    env = {"PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"}
+    server = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_stream", "--arch",
+         "internvl2-1b", "--reduced", "--device", "cpu", "--port", "0",
+         "--batch", "2", "--max-len", "64", "--max-new", "8",
+         "--page-size", "8", "--ckpt", str(ROOT / "no-such-directory")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=ROOT)
+    try:
+        line = server.stdout.readline()
+        port = re.search(r"server on [\d.]+:(\d+) \(internvl2-1b, ", line)
+        assert port and "random drafter" in line, line
+        code = ("from repro_torch.launch import serve_stream; "
+                "serve_stream.main(['--client', '--port', '"
+                + port.group(1) + "', '--requests', '1', '--max-new', '6'])")
+        out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "r0: 6 tokens" in out.stdout
+    finally:
+        server.send_signal(signal.SIGINT)
+        assert server.wait(timeout=60) == 0
+
+
+def test_configs_registry_and_family_properties():
+    """``all_configs``, ``is_attention_free`` and ``has_decoder`` as the
+    JAX package's configs have them."""
+    from repro.configs import all_configs as jall_configs
+    from repro_torch.configs import all_configs
+    port, ref = all_configs(), jall_configs()
+    assert sorted(port) == sorted(ref)
+    for arch, cfg in port.items():
+        assert cfg.is_attention_free == ref[arch].is_attention_free, arch
+        assert cfg.has_decoder == ref[arch].has_decoder, arch
+    assert [a for a, c in port.items() if c.is_attention_free] == \
+        ["mamba2-780m"]
