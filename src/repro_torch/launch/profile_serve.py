@@ -22,6 +22,18 @@ weights' bytes and the time the card takes to read them once at 3.35 TB/s
 (the floor of a step that reads every weight, as a verify of an MoE
 target whose experts are all routed to does).
 
+The program's own spans (``repro_torch.tracing``: ``engine.step`` and
+its phases ``step.draft``, ``step.verify``, ``step.accept``,
+``step.commit``, ``step.extend``) are recorded over the profiled steps and
+printed as a table by span: calls, host ms a step (the spans' summed
+length), device busy ms a step (the union of the card's kernels and
+copies inside them) and idle ms a step (the difference), beside the
+increase of the program's counters (``tracing.counters()``) a step. Then
+slot 0 is admitted again with its ``--prompt-len`` prompt, once to warm
+and once profiled, and the same table is printed for that one admission:
+``engine.admit`` and its parts ``prefill.target``, ``prefill.drafter``,
+``admit.write`` and its readbacks (``sync``).
+
 With ``--temperature`` > 0 every slot samples under that policy (the flags
 of ``launch/serve.py``; slot i on the key stream of ``--seed + i``), so the
 steps run the sampled lane, and the lane's pieces are timed apart at the
@@ -51,12 +63,14 @@ bonus draws over V) and, with ``--draft-sampling``, the K draft draws.
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import json
 import time
 
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, tracing
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import spec_decode as SD
 from repro_torch.launch.serve import (build_engine, random_prompts,
@@ -103,6 +117,108 @@ def _device_ms(fn, reps=10) -> dict:
             and e.self_device_time_total > 0]
     return {"ms": sum(e.self_device_time_total for e in rows) / 1e3 / reps,
             "launches": sum(e.count for e in rows) / reps}
+
+
+def _busy_union(kernels):
+    """Sorted, merged (start, end) ns of the card's operations."""
+    out = []
+    for a, b in sorted(kernels):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(a, b, busy, starts) -> int:
+    """Nanoseconds of [a, b] that ``busy`` (sorted, merged; ``starts``
+    their starts) covers."""
+    total = 0
+    for x, y in busy[max(bisect.bisect_right(starts, a) - 1, 0):]:
+        if x >= b:
+            break
+        total += max(0, min(y, b) - max(x, a))
+    return total
+
+
+def span_table(records, kernels, steps: int, per: str = "step") -> dict:
+    """By program span name: calls, host ms a step (``per``) (the spans'
+    summed length), device busy ms a step (the busy union of ``kernels``,
+    (start, end) ns, inside the spans) and idle ms a step."""
+    busy = _busy_union(kernels)
+    starts = [a for a, _ in busy]
+    rows = {}
+    for r in records:
+        row = rows.setdefault(r.name, [0, 0, 0])
+        row[0] += 1
+        row[1] += r.t1 - r.t0
+        row[2] += _covered(r.t0, r.t1, busy, starts)
+    return {name: {"calls": n, f"host_ms_per_{per}": host / 1e6 / steps,
+                   f"device_ms_per_{per}": dev / 1e6 / steps,
+                   f"idle_ms_per_{per}": (host - dev) / 1e6 / steps}
+            for name, (n, host, dev) in rows.items()}
+
+
+def _device_events(prof):
+    """(start, end) ns of the card's operations in a profile."""
+    return [(e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")]
+
+
+def admission_table(eng, state, prompt, slot: int, max_new: int,
+                    sampling=None, extras=None):
+    """Free slot ``slot`` and admit ``prompt`` into it again, twice: once
+    to warm, once under the profiler. Returns the state and
+    ``span_table`` of that one admission (``engine.admit`` and its
+    parts)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if eng.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    for profiled in (False, True):
+        state = eng.free_slot(state, slot)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        tracing.clear()
+        with (torch.profiler.profile(activities=acts) if profiled
+              else contextlib.nullcontext()) as prof:
+            state, _, _ = eng.prefill_into_slot(
+                state, prompt, slot, max_new, sampling=sampling,
+                extras=extras)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+    table = span_table(tracing.spans(), _device_events(prof), 1,
+                       per="admission")
+    tracing.clear()
+    return state, table
+
+
+def _print_table(table: dict, per: str) -> None:
+    print(f"  {'program span':<16}{'calls':>7}{'host ms':>10}"
+          f"{'device ms':>11}{'idle ms':>10}   (per {per})")
+    for name, r in table.items():
+        print(f"  {name:<16}{r['calls']:>7}"
+              f"{r[f'host_ms_per_{per}']:>10.3f}"
+              f"{r[f'device_ms_per_{per}']:>11.3f}"
+              f"{r[f'idle_ms_per_{per}']:>10.3f}")
+
+
+def _flat(tree, prefix=""):
+    """The numeric leaves of a nested dict, by dotted path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        elif isinstance(v, (int, float)):
+            out[prefix + k] = v
+    return out
+
+
+def counters_per_step(before: dict, after: dict, steps: int) -> dict:
+    """The counters that moved, their increase a step."""
+    b, a = _flat(before), _flat(after)
+    return {k: (v - b.get(k, 0)) / steps for k, v in a.items()
+            if v != b.get(k, 0)}
 
 
 def sampled_lane_ms(eng, sp, draft_sampling: bool) -> dict:
@@ -195,10 +311,18 @@ def main(argv=None):
     step_peak = torch.cuda.max_memory_allocated(eng.device) - held
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    tracing.clear()
+    counted = tracing.counters()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
             state = eng.step(state, *live)
         torch.cuda.synchronize()
+    spans = span_table(tracing.spans(), _device_events(prof), steps)
+    tracing.clear()
+    counted = counters_per_step(counted, tracing.counters(), steps)
+    state, admission = admission_table(
+        eng, state, prompts[0], 0, max_new, sampling=policy(0),
+        extras={k: v[:1] for k, v in extras.items()})
 
     # device-side events only (kernels, copies, sets): the CPU ops that
     # launched them carry the same time again
@@ -229,6 +353,8 @@ def main(argv=None):
         "groups": {k: {"launches_per_step": v[0] / steps,
                        "ms_per_step": v[1] / 1e3 / steps}
                    for k, v in sorted(groups.items(), key=lambda kv: -kv[1][1])},
+        "spans": spans, "counters_per_step": counted,
+        "admission_spans": admission,
     }
     if args.temperature > 0:
         report["sampled_lane"] = sampled_lane_ms(eng, policy(0),
@@ -240,6 +366,11 @@ def main(argv=None):
     for name, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
         print(f"  {us / 1e3 / steps:8.3f} ms/step {count / steps:7.1f}"
               f" launches/step  {name[:100]}")
+    _print_table(spans, "step")
+    print("  counters a step: " + ", ".join(
+        f"{k} {v:g}" for k, v in sorted(counted.items())))
+    print(f"  one admission of {prompt_len} prompt tokens into slot 0:")
+    _print_table(admission, "admission")
     print(json.dumps(report))
     return report
 

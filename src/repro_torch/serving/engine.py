@@ -113,6 +113,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import DrafterConfig, ModelConfig
 from repro_torch.core import drafter as D
 from repro_torch.core import spec_decode as SD
@@ -444,9 +445,10 @@ class Engine:
         state = self._state_template(B, device=self.device, sampling=samp)
         hp = torch.full((B,), fused - 1, dtype=torch.int32,
                         device=self.device)
-        out = self.model.forward(self.tparams, prompts, mode="prefill",
-                                 cache=state["tcache"], collect_taps=True,
-                                 head_positions=hp, **(extras or {}))
+        with tracing.span("prefill.target", tokens=Pb):
+            out = self.model.forward(self.tparams, prompts, mode="prefill",
+                                     cache=state["tcache"], collect_taps=True,
+                                     head_positions=hp, **(extras or {}))
         head = out.logits[:, 0]
         if greedy:
             first = head.argmax(-1).to(torch.int32)
@@ -469,8 +471,9 @@ class Engine:
                                      device=self.device)[None].repeat(B, 1)
             # drafter position p pairs taps[p] with token p + 1, over the
             # text region
-            D.extend(self.dcfg, self.tcfg, self.dparams, state["dcache"],
-                     prompts[:, 1:], out.taps[:, off:off + Pb - 1], pos)
+            with tracing.span("prefill.drafter", tokens=Pb - 1):
+                D.extend(self.dcfg, self.tcfg, self.dparams, state["dcache"],
+                         prompts[:, 1:], out.taps[:, off:off + Pb - 1], pos)
             if Pb > true_len:
                 cache_ops.commit(state["dcache"], cp - 1)
         return state
@@ -675,12 +678,15 @@ class Engine:
         got = self._alloc_pages(need - have)
         if got is None:
             return state, False
+        tracing.count("page_claims")
+        tracing.count("pages_claimed", len(got))
         self._slot_pages[slot].extend(got)
         got_t = torch.tensor(got, dtype=torch.int32, device=self.device)
         cache_ops.blank_pages(self._core(state), got_t, self.pspec)
         state["block_table"][slot, have:need] = got_t
         return state, True
 
+    @tracing.spanned("engine.admit")
     @_in_mesh
     def prefill_into_slot(self, state: dict, prompt, slot: int,
                           max_new: Optional[int] = None,
@@ -714,6 +720,9 @@ class Engine:
         ``(state, None, last_position)``."""
         prompt = torch.as_tensor(np.asarray(prompt, np.int32).reshape(1, -1),
                                  device=self.device)
+        tracing.annotate(tokens=prompt.shape[1])
+        tracing.count("admissions")
+        tracing.count("admitted_prompt_tokens", prompt.shape[1])
         res_tok = None
         if resume:
             prompt, res_tok = prompt[:, :-1], prompt[0, -1]
@@ -724,14 +733,16 @@ class Engine:
         with torch.no_grad():
             if not self.paged:
                 src = self._admission_prefill(prompt, sp, extras)
-                cache_ops.write_slot(state, _resume_fixup(src, res_tok), slot)
+                with tracing.span("admit.write"):
+                    cache_ops.write_slot(state, _resume_fixup(src, res_tok),
+                                         slot)
             else:
                 if self._slot_pages[slot]:
                     raise RuntimeError(f"slot {slot} still holds pages; "
                                        "free_slot it before re-admission")
                 n = self.initial_pages(prompt.shape[1] + (1 if resume else 0),
                                        max_new, resume=resume)
-                ptoks = prompt[0].cpu().numpy()
+                ptoks = tracing.to_host(prompt[0]).numpy()
                 shared, cow = [], None
                 if self.prefix_cache is not None:
                     shared, cow = self.prefix_cache.match(ptoks)
@@ -748,22 +759,23 @@ class Engine:
                     self._slot_pages[slot] = pages
                     row = self._table_row(pages)
                     src = self._admission_prefill(prompt, sp, extras)
-                    cache_ops.admit_pages(self._core(state),
-                                          _resume_fixup(src, res_tok), slot,
-                                          row, self.pspec)
-                    state["block_table"][slot] = row
+                    with tracing.span("admit.write"):
+                        cache_ops.admit_pages(self._core(state),
+                                              _resume_fixup(src, res_tok),
+                                              slot, row, self.pspec)
+                        state["block_table"][slot] = row
                     if self.prefix_cache is not None:
                         self.prefix_cache.insert_stream(ptoks, pages,
                                                         self.allocator)
                         self.prefix_cache.note_admission(0, False)
-        last = int(src["last"][0])
+        last = int(tracing.to_host(src["last"][0]))
         self._slot_floor[slot] = last - (1 if self.ecfg.drafter_mode
                                          != "none" else 0)
         if resume:
             self.last_logprob = 0.0
             return state, None, last
-        self.last_logprob = float(src["logprobs"][0, last])
-        return state, int(src["tokens"][0, last]), last
+        self.last_logprob = float(tracing.to_host(src["logprobs"][0, last]))
+        return state, int(tracing.to_host(src["tokens"][0, last])), last
 
     # ------------------------------------------------------------------
     # prefix caching (serving/prefix_cache.py; EngineConfig.prefix_cache)
@@ -812,12 +824,14 @@ class Engine:
             self._chunk(src, prompt[:, pos:pos + c], pos, sp.is_greedy,
                         hit=first)
             pos, first = pos + c, False
-        cache_ops.admit_pages(self._core(state), _resume_fixup(src, res_tok),
-                              slot, row, self.pspec, scatter_row=scatter)
-        state["block_table"][slot] = row
+        with tracing.span("admit.write"):
+            cache_ops.admit_pages(self._core(state),
+                                  _resume_fixup(src, res_tok), slot, row,
+                                  self.pspec, scatter_row=scatter)
+            state["block_table"][slot] = row
         # index the verifiable prompt prefix, a diverged copy included (its
         # full key now carries this prompt's lookahead)
-        ptoks = prompt[0].cpu().numpy()
+        ptoks = tracing.to_host(prompt[0]).numpy()
         self.prefix_cache.insert_stream(ptoks, pages, self.allocator)
         self.last_hit_tokens = start
         self.prefix_cache.note_admission(start, cow is not None)
@@ -866,9 +880,10 @@ class Engine:
         c = chunk.shape[1]
         positions = (start + torch.arange(c, dtype=torch.int32,
                                           device=self.device))[None]
-        out = self.model.forward(self.tparams, chunk, mode="decode",
-                                 positions=positions, cache=src["tcache"],
-                                 collect_taps=True, head_last_only=True)
+        with tracing.span("prefill.target", tokens=c):
+            out = self.model.forward(self.tparams, chunk, mode="decode",
+                                     positions=positions, cache=src["tcache"],
+                                     collect_taps=True, head_last_only=True)
         fused = start + c
         head = out.logits[:, -1]
         samp = src["sampling"]
@@ -885,14 +900,16 @@ class Engine:
         src["last"].fill_(fused)
         src["tcache"] = out.cache
         if self.ecfg.drafter_mode != "none":
-            if hit and c > 1:
-                D.extend(self.dcfg, self.tcfg, self.dparams, src["dcache"],
-                         chunk[:, 1:], out.taps[:, :-1], positions[:, :-1])
-            elif not hit:
-                taps = torch.cat([src["taps_last"][:, None],
-                                  out.taps[:, :-1]], dim=1)
-                D.extend(self.dcfg, self.tcfg, self.dparams, src["dcache"],
-                         chunk, taps, positions - 1)
+            with tracing.span("prefill.drafter", tokens=c):
+                if hit and c > 1:
+                    D.extend(self.dcfg, self.tcfg, self.dparams,
+                             src["dcache"], chunk[:, 1:], out.taps[:, :-1],
+                             positions[:, :-1])
+                elif not hit:
+                    taps = torch.cat([src["taps_last"][:, None],
+                                      out.taps[:, :-1]], dim=1)
+                    D.extend(self.dcfg, self.tcfg, self.dparams,
+                             src["dcache"], chunk, taps, positions - 1)
         src["taps_last"] = out.taps[:, -1].contiguous()
 
     def serve_state(self) -> dict:
@@ -1028,7 +1045,7 @@ class Engine:
         nbytes = self.swap_bytes_estimate(slot)
         if not self.host_pool.can_store(nbytes):
             return state, False
-        last = int(state["last"][slot])
+        last = int(tracing.to_host(state["last"][slot]))
         host_pages = torch.tensor([pages[i] for i in host_idx],
                                   dtype=torch.int32, device=self.device)
         with torch.no_grad():
@@ -1172,6 +1189,7 @@ class Engine:
         warp, sort or threefry launch."""
         return any(self._slot_sampled) or not self.ecfg.sampling.is_greedy
 
+    @tracing.spanned("engine.step")
     @_in_mesh
     def step(self, state: dict, active=None, max_new=None,
              k_row=None, greedy_only: Optional[bool] = None) -> dict:
@@ -1183,6 +1201,7 @@ class Engine:
         if self.paged and "block_table" not in state:
             raise ValueError("a paged Engine steps a paged state "
                              "(blank_state + prefill_into_slot)")
+        tracing.count("steps")
         if self.prefix_cache is not None:
             self._check_shared_pages()
 
@@ -1343,82 +1362,91 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         policy = (draft_keys(samp, c + 1, K), samp["temperature"],
                   samp["top_k"], samp["top_p"])
     dlogits = None
-    if ecfg.drafter_mode == "parallel":
-        drafts, dlogits, dcache = D.draft_parallel(
-            dcfg, tcfg, dparams, dcache, tok_next, state["taps_last"], c - 1,
-            K, block_table=table, policy=policy)
-    elif ecfg.drafter_mode == "ar":
-        drafts, dlogits, dcache = D.draft_ar(
-            dcfg, tcfg, dparams, dcache, tok_next, state["taps_last"], c - 1,
-            K, block_table=table, policy=policy)
-    else:
-        drafts = torch.zeros((B, 0), dtype=torch.int32, device=c.device)
+    with tracing.span("step.draft"):
+        if ecfg.drafter_mode == "parallel":
+            drafts, dlogits, dcache = D.draft_parallel(
+                dcfg, tcfg, dparams, dcache, tok_next, state["taps_last"],
+                c - 1, K, block_table=table, policy=policy)
+        elif ecfg.drafter_mode == "ar":
+            drafts, dlogits, dcache = D.draft_ar(
+                dcfg, tcfg, dparams, dcache, tok_next, state["taps_last"],
+                c - 1, K, block_table=table, policy=policy)
+        else:
+            drafts = torch.zeros((B, 0), dtype=torch.int32, device=c.device)
 
     # target verify over [t_last, d_1..d_K] at positions c..c+K
-    vt = torch.cat([tok_next[:, None], drafts], dim=1)
-    positions = c[:, None] + torch.arange(K + 1, dtype=torch.int32,
-                                          device=c.device)[None]
-    tout = model.forward(tparams, vt, mode="decode", positions=positions,
-                         cache=state["tcache"],
-                         collect_taps=ecfg.drafter_mode != "none",
-                         block_table=table, snapshots=model.recurrent)
-    if K == 0:
-        accept_len = torch.zeros((B,), dtype=torch.int32, device=c.device)
-        if greedy_only:
-            t_star = tout.logits.argmax(-1).to(torch.int32)
+    with tracing.span("step.verify"):
+        vt = torch.cat([tok_next[:, None], drafts], dim=1)
+        positions = c[:, None] + torch.arange(K + 1, dtype=torch.int32,
+                                              device=c.device)[None]
+        tout = model.forward(tparams, vt, mode="decode", positions=positions,
+                             cache=state["tcache"],
+                             collect_taps=ecfg.drafter_mode != "none",
+                             block_table=table, snapshots=model.recurrent)
+    with tracing.span("step.accept"):
+        if K == 0:
+            accept_len = torch.zeros((B,), dtype=torch.int32,
+                                     device=c.device)
+            if greedy_only:
+                t_star = tout.logits.argmax(-1).to(torch.int32)
+            else:
+                t_star = SD.sample_token(
+                    step_keys(samp, c + 1), tout.logits[:, 0],
+                    samp["temperature"], samp["top_k"],
+                    samp["top_p"])[:, None]
+        elif greedy_only:
+            accept_len, t_star = SD.greedy_verify(drafts, tout.logits)
+            if k_row is not None:
+                accept_len = torch.minimum(accept_len, k_row)
         else:
-            t_star = SD.sample_token(step_keys(samp, c + 1),
-                                     tout.logits[:, 0], samp["temperature"],
-                                     samp["top_k"], samp["top_p"])[:, None]
-    elif greedy_only:
-        accept_len, t_star = SD.greedy_verify(drafts, tout.logits)
-        if k_row is not None:
-            accept_len = torch.minimum(accept_len, k_row)
-    else:
-        V = tout.logits.shape[-1]
-        q = F.one_hot(drafts.long(), V).to(tout.logits.dtype)
-        if policy is not None:
-            q = torch.where((samp["temperature"] > 0)[:, None, None],
-                            SD.warp_probs(dlogits, samp["temperature"],
-                                          samp["top_k"], samp["top_p"]), q)
-        accept_len, t_star = SD.mixed_verify(
-            step_keys(samp, c + 1), drafts, q, tout.logits,
-            samp["temperature"], samp["top_k"], samp["top_p"], k_row)
+            V = tout.logits.shape[-1]
+            q = F.one_hot(drafts.long(), V).to(tout.logits.dtype)
+            if policy is not None:
+                q = torch.where((samp["temperature"] > 0)[:, None, None],
+                                SD.warp_probs(dlogits, samp["temperature"],
+                                              samp["top_k"], samp["top_p"]),
+                                q)
+            accept_len, t_star = SD.mixed_verify(
+                step_keys(samp, c + 1), drafts, q, tout.logits,
+                samp["temperature"], samp["top_k"], samp["top_p"], k_row)
 
-    budget = ecfg.max_new_tokens if max_new is None else max_new
-    active = state["new_count"] < budget
-    if active_mask is not None:
-        active &= active_mask
-    accept_len = torch.where(active, accept_len, 0)
+        budget = ecfg.max_new_tokens if max_new is None else max_new
+        active = state["new_count"] < budget
+        if active_mask is not None:
+            active &= active_mask
+        accept_len = torch.where(active, accept_len, 0)
 
-    # roll the target cache back to the last accepted token: invalidate
-    # attention entries past it, write a recurrent target's snapshot at it
-    # (a frozen or masked row keeps its state: it commits nothing)
-    tcache = cache_ops.commit(tout.cache, c + accept_len, table,
-                              snapshots=(tout.aux or {}).get("snapshots"),
-                              accept_idx=torch.where(active, accept_len, -1))
+    with tracing.span("step.commit"):
+        # roll the target cache back to the last accepted token: invalidate
+        # attention entries past it, write a recurrent target's snapshot at
+        # it (a frozen or masked row keeps its state: it commits nothing)
+        tcache = cache_ops.commit(
+            tout.cache, c + accept_len, table,
+            snapshots=(tout.aux or {}).get("snapshots"),
+            accept_idx=torch.where(active, accept_len, -1))
 
-    # append committed tokens t_star[0..accept_len]
-    ar = torch.arange(K + 1, dtype=torch.int32, device=c.device)[None]
-    idx = c[:, None] + 1 + ar
-    keep = (ar <= accept_len[:, None]) & active[:, None]
-    safe_idx = torch.where(keep, idx, state["tokens"].shape[1])
-    tokens = _scatter_drop(state["tokens"], safe_idx, t_star)
-    logprobs = _scatter_drop(state["logprobs"], safe_idx,
-                             _token_logprob(tout.logits, t_star))
+        # append committed tokens t_star[0..accept_len]
+        ar = torch.arange(K + 1, dtype=torch.int32, device=c.device)[None]
+        idx = c[:, None] + 1 + ar
+        keep = (ar <= accept_len[:, None]) & active[:, None]
+        safe_idx = torch.where(keep, idx, state["tokens"].shape[1])
+        tokens = _scatter_drop(state["tokens"], safe_idx, t_star)
+        logprobs = _scatter_drop(state["logprobs"], safe_idx,
+                                 _token_logprob(tout.logits, t_star))
+        new_last = torch.where(active, c + accept_len + 1, c)
 
-    new_last = torch.where(active, c + accept_len + 1, c)
     taps_last = state["taps_last"]
     new_state = {}
     if ecfg.drafter_mode != "none":
-        taps_new = tout.taps[torch.arange(B, device=c.device),
-                             accept_len.long()]
-        taps_last = torch.where(active[:, None], taps_new, taps_last)
-        # extend the drafter cache across the verified block; the stale
-        # tail is invalidated by the next positional write
-        new_state["dcache"] = D.extend(dcfg, tcfg, dparams, dcache, t_star,
-                                       tout.taps, positions,
-                                       block_table=table)
+        with tracing.span("step.extend"):
+            taps_new = tout.taps[torch.arange(B, device=c.device),
+                                 accept_len.long()]
+            taps_last = torch.where(active[:, None], taps_new, taps_last)
+            # extend the drafter cache across the verified block; the stale
+            # tail is invalidated by the next positional write
+            new_state["dcache"] = D.extend(dcfg, tcfg, dparams, dcache,
+                                           t_star, tout.taps, positions,
+                                           block_table=table)
 
     ncommit = torch.where(active, accept_len + 1, 0)
     act = active.to(torch.int32)

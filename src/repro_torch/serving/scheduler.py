@@ -84,7 +84,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, tracing
 from repro_torch.models.registry import make_extras, takes_extras
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.sampling import SamplingParams
@@ -414,7 +414,9 @@ class Scheduler:
         req = self._slot_req[s]
         swapped = False
         if self._swap_beats_recompute(req, s):
-            self._state, swapped = eng.swap_out_slot(self._state, s, req.rid)
+            with tracing.request(req.rid):
+                self._state, swapped = eng.swap_out_slot(self._state, s,
+                                                         req.rid)
         req.status = QUEUED
         req.slot = None
         req.n_preempt += 1
@@ -553,9 +555,10 @@ class Scheduler:
                 eng.tcfg, 1, "prefill",
                 prng.fold_in(prng.PRNGKey(0, device=eng.device), seed))
         self._event("admit", req.rid)
-        self._state, first, last = eng.prefill_into_slot(
-            self._state, prompt, s, max_new=remaining, sampling=req.sampling,
-            resume=resume, extras=req.extras)
+        with tracing.request(req.rid):
+            self._state, first, last = eng.prefill_into_slot(
+                self._state, prompt, s, max_new=remaining,
+                sampling=req.sampling, resume=resume, extras=req.extras)
         if first_admission:
             # after the prefill's readback of its last position, so the
             # stamp marks a committed admission, not a queued launch
@@ -587,6 +590,7 @@ class Scheduler:
         if done:                             # EOS at the first token
             self._finish_slot(s)
 
+    @tracing.spanned("sched.admit_waiting")
     def _admit_waiting(self) -> None:
         """Admit eligible requests into free slots, FIFO with head-of-line
         blocking; a head that outranks a runner preempts it for room."""
@@ -616,6 +620,7 @@ class Scheduler:
                     break                # the head waits for frees (FIFO)
             self._admit(self._waiting.pop(0), free[0])
 
+    @tracing.spanned("sched.grow")
     def _grow(self) -> np.ndarray:
         """Grow each live slot to cover the coming sync block (incremental
         paging); when the pool runs out, preempt the lowest-priority slot,
@@ -662,6 +667,7 @@ class Scheduler:
                                "stalled; enable preemption or grow pool_pages")
         return run
 
+    @tracing.spanned("sched.dispatch")
     def _dispatch(self, run: np.ndarray) -> None:
         """``sync_every`` iterations over the live slots."""
         dev = self.engine.device
@@ -673,6 +679,7 @@ class Scheduler:
             self._n_iters += 1
             self._advance(self.iter_cost)
 
+    @tracing.spanned("sched.harvest")
     def _harvest(self) -> None:
         """One readback of the per-slot counters, tokens and logprobs (it
         blocks on every dispatched step, so later wall stamps mark committed
@@ -683,7 +690,8 @@ class Scheduler:
         packed = torch.cat([
             st["tokens"], st["logprobs"].view(torch.int32),
             torch.stack([st["new_count"], st["slot_iters"], st["last"]], 1),
-        ], 1).cpu().numpy()
+        ], 1)
+        packed = tracing.to_host(packed).numpy()
         W = st["tokens"].shape[1]
         tokens = packed[:, :W]
         logprobs = np.ascontiguousarray(packed[:, W:2 * W]).view(np.float32)

@@ -22,8 +22,9 @@ Semantics:
 - backpressure: at most ``max_pending`` requests are in flight (queued and
   running); ``submit()`` awaits a free ticket, and a rejected submit
   returns it;
-- ``health()`` reports queue depth, running slots, pool occupancy and wait
-  percentiles.
+- ``health()`` reports queue depth, running slots, pool occupancy, wait
+  percentiles (interpolated) and the program's counters
+  (``tracing.counters()``).
 
 Everything runs on one event loop. Only the dispatch task launches work on
 the device, one blocking sync at a time; ``submit``, ``abort`` and
@@ -57,6 +58,7 @@ from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import ABORTED, FINISHED, Request, Scheduler
@@ -219,7 +221,8 @@ class AsyncEngine:
         (``Request.extras``; a VLM or encoder-decoder request without them
         gets the prompt-keyed stub). A request that could never be served
         (budget past ``max_len`` or the pool) raises ValueError and gives
-        its ticket back."""
+        its ticket back; so does one that waited for its ticket while the
+        session began to close, with RuntimeError."""
         self._leader_only("submit")
         await self.start()
         if self._error is not None:
@@ -229,8 +232,12 @@ class AsyncEngine:
         await self._sem.acquire()
         sched = self.scheduler
         try:
+            # the session may have failed or begun to close while this
+            # submit waited for its ticket
             if self._error is not None:
                 raise self._error
+            if self._closing:
+                raise RuntimeError("AsyncEngine is closing")
             sched._advance(0.0)          # read the wall clock
             req = Request(prompt, max_new_tokens=max_new_tokens,
                           arrival_time=sched._clock, extras=extras,
@@ -297,13 +304,11 @@ class AsyncEngine:
         completed = [r for r in sched._finished if r.status == FINISHED]
         # wall stamps only: t_admit 0.0 marks a request that ended without
         # an admission
-        waits = sorted(r.t_admit - r.t_submit for r in completed
-                       if r.t_admit > 0.0)
+        waits = [r.t_admit - r.t_submit for r in completed
+                 if r.t_admit > 0.0]
 
         def pct(p: float) -> float:
-            if not waits:
-                return 0.0
-            return waits[min(int(p / 100 * len(waits)), len(waits) - 1)]
+            return float(np.percentile(waits, p)) if waits else 0.0
 
         pool_total = eng.pool_pages if eng.paged else 0
         pool_free = eng.allocator.n_free if eng.paged else 0
@@ -332,6 +337,7 @@ class AsyncEngine:
             "p50_wait_s": pct(50),
             "p99_wait_s": pct(99),
             "uptime_s": time.perf_counter() - sched._t_start,
+            "counters": tracing.counters(),
         }
 
     # ------------------------------------------------------------------

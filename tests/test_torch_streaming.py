@@ -7,10 +7,11 @@ random churn with mid-stream aborts over a pool that preempts (survivors
 exact, an aborted stream a prefix of its twin, no page leaked, the event
 trace monotone under wall stamps), a stop token, ``adaptive_k``, the abort
 of a queued request, ``close(drain=False)``, backpressure, a rejected
-submit's ticket, the abort of a swapped-out request (its host bytes freed
-at once), a failing dispatch loop, and the NDJSON socket server (round
-trip, and a dropped connection aborting its requests). ``health()`` has
-the JAX engine's keys.
+submit's ticket, a submit that got its ticket during the close, the
+abort of a swapped-out request (its host bytes freed at once), a failing
+dispatch loop, and the NDJSON socket server (round trip, and a dropped
+connection aborting its requests). ``health()`` has the JAX engine's keys
+and the port's counters, and interpolates its wait percentiles.
 
 The reduced qwen2-1.5b in float32 (``torch_serving_setup``). Every async
 test runs under ``asyncio.wait_for`` with a 60 s limit, so a livelocked
@@ -233,6 +234,33 @@ def test_close_without_drain_aborts_inflight():
     assert_pool_drained(eng)
 
 
+def test_submit_waiting_for_a_ticket_at_close_raises():
+    """max_pending 1: a submit waiting for the ticket when
+    ``close(drain=False)`` aborts the request that holds it gets the ticket
+    during the close; it gives it back and raises instead of entering the
+    closing session, and every stream ends."""
+    eng = port_engine()
+    p = np.random.default_rng(12).integers(1, 200, size=5).astype(np.int32)
+
+    async def go():
+        aeng = AsyncEngine(eng, max_pending=1)
+        first = await aeng.submit(p, max_new_tokens=16)
+        waiting = asyncio.get_running_loop().create_task(
+            aeng.submit(p, max_new_tokens=4))
+        await asyncio.sleep(0)
+        rep = await aeng.close(drain=False)
+        got = [pair async for pair in first]
+        with pytest.raises(RuntimeError, match="closing"):
+            await waiting
+        return first, got, rep, aeng._sem._value
+
+    first, got, rep, tickets = run(go())
+    assert first.aborted and len(got) < 16
+    assert rep["n_requests"] == 1 and rep["aborted"] == 1
+    assert tickets == 1
+    assert_pool_drained(eng)
+
+
 def test_backpressure_bounds_inflight_without_deadlock():
     """max_pending 2: health() never sees more in flight, every request
     still ends with the twin's stream."""
@@ -378,13 +406,38 @@ def test_health_has_the_jax_engines_keys():
         return empty, out, h, rep, jh
 
     empty, out, h, rep, jh = run(go())
-    assert set(h) == set(jh) == set(empty)
+    # beside the JAX engine's keys, the port's counters (``tracing``)
+    assert set(h) == set(jh) | {"counters"} == set(empty)
+    assert h["counters"]["serving"]["admissions"] >= 1
     assert empty["finished"] == 0 and empty["p50_wait_s"] == 0.0
     assert len(out) == 4 and h["finished"] == 1 and h["queue_depth"] == 0
     assert h["slots"] == eng.batch and h["pool_pages"] == eng.pool_pages
     assert 0.0 <= h["pool_occupancy"] <= 1.0
     assert h["p99_wait_s"] >= h["p50_wait_s"] >= 0.0
     assert rep["results"][0]["latency_s"] >= rep["results"][0]["wait_s"] >= 0
+
+
+def test_health_wait_percentiles_interpolate():
+    """Waits of 1, 2, 3 and 10 s: the percentiles lie between order
+    statistics (numpy's linear rule), not on them."""
+    eng = port_engine()
+    p = np.random.default_rng(13).integers(1, 200, size=4).astype(np.int32)
+
+    async def go():
+        aeng = AsyncEngine(eng)
+        await aeng.start()
+        for wait in (3.0, 1.0, 10.0, 2.0):
+            r = Request(p, max_new_tokens=2)
+            r.status, r.t_submit, r.t_admit = "finished", 100.0, 100.0 + wait
+            aeng.scheduler._finished.append(r)
+        h = aeng.health()
+        aeng.scheduler._finished.clear()
+        await aeng.close()
+        return h
+
+    h = run(go())
+    assert h["p50_wait_s"] == pytest.approx(2.5)
+    assert h["p99_wait_s"] == pytest.approx(3.0 + 0.97 * 7.0)
 
 
 def test_clock_moves_only_through_advance():
