@@ -3196,13 +3196,26 @@ def drafter_bytes(tcfg, dcfg, dtype_bytes):
         4 * dd * Hd * hdd + 3 * dd * dcfg.d_ff)) * dtype_bytes
 
 
-def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
+def verify_graph_bytes(tcfg, dcfg, B, K, dtype_bytes, snaps=0):
+    """What a served verify's CUDA graphs keep in their pool for a session
+    (``serving/verify_graph.py``): their outputs, the float32 logits and
+    the drafter's taps of B x (K + 1) tokens and a recurrent target's
+    per-token snapshots (``snaps`` bytes). The forward's temporaries come
+    on top, reused inside the pool (an MoE layer's dispatch among them);
+    an eager step's peak beyond its state bounds them."""
+    T = B * (K + 1)
+    return T * (tcfg.vocab_size * 4
+                + dcfg.num_taps * tcfg.d_model * dtype_bytes) + snaps
+
+
+def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes, K=None):
     """The bytes a run will hold, reckoned from the configs: target and
     drafter weights (an MoE layer's experts: w_gate, w_up and w_down each),
     their contiguous KV caches at (B, max_len), and dense_init's
     temporaries of the largest matrix (the vocab x d embedding, or an MoE
     layer's stacked expert weight: its float32 draw, scaled in place, while
-    its cast is made)."""
+    its cast is made); with ``K``, the served verify's graph pool
+    (``verify_graph_bytes``)."""
     d, V, L, hd = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers, tcfg.head_dim
     H, KV, E = tcfg.n_heads, tcfg.n_kv_heads, tcfg.moe.n_experts
     gated = tcfg.mlp_variant in ("swiglu", "geglu")
@@ -3215,9 +3228,13 @@ def memory_plan(tcfg, dcfg, B, max_len, dtype_bytes):
     kv = (L * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim) \
         * 2 * B * max_len * dtype_bytes
     tmp = max(V * d, E * d * tcfg.d_ff) * 4
-    return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
-                kv_gb=kv / 1e9, init_temporaries_gb=tmp / 1e9,
-                total_gb=(target + drafter + kv + tmp) / 1e9)
+    graph = 0 if K is None else verify_graph_bytes(tcfg, dcfg, B, K,
+                                                   dtype_bytes)
+    plan = dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
+                kv_gb=kv / 1e9, init_temporaries_gb=tmp / 1e9)
+    if K is not None:
+        plan["verify_graph_gb"] = graph / 1e9
+    return dict(plan, total_gb=(target + drafter + kv + tmp + graph) / 1e9)
 
 
 def near_ties(ref_eng, toks, ref, start, what, dev, tie=NEAR_TIE,
@@ -3502,9 +3519,10 @@ def minitron_path(ops, dev):
 def ssm_memory_plan(tcfg, dcfg, B, max_len, K, dtype_bytes):
     """The bytes an SSM run holds, from the configs: target and drafter
     weights, the per-slot conv and state rows, the drafter's KV at (B,
-    max_len), and the verify's peak of per-token snapshots (the state after
+    max_len), the verify's peak of per-token snapshots (the state after
     each of its K + 1 tokens, float32, every layer: held from the forward
-    to the commit)."""
+    to the commit), and the served verify's graph pool, which keeps them
+    with the logits and taps for the session (``verify_graph_bytes``)."""
     d, V, L = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers
     s = tcfg.ssm
     d_inner = s.expand * d
@@ -3518,10 +3536,12 @@ def ssm_memory_plan(tcfg, dcfg, B, max_len, K, dtype_bytes):
                      + (s.conv_width - 1) * conv_ch * dtype_bytes)
     kv = dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim * 2 * B * max_len * dtype_bytes
     snaps = (K + 1) * L * B * H * s.head_dim * N * 4
+    graph = verify_graph_bytes(tcfg, dcfg, B, K, dtype_bytes, snaps)
     return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
                 recurrent_state_gb=state / 1e9, drafter_kv_gb=kv / 1e9,
-                verify_snapshots_gb=snaps / 1e9,
-                total_gb=(target + drafter + state + kv + snaps) / 1e9)
+                verify_snapshots_gb=snaps / 1e9, verify_graph_gb=graph / 1e9,
+                total_gb=(target + drafter + state + kv + snaps + graph)
+                / 1e9)
 
 
 def admissions_logged(eng):
@@ -3837,14 +3857,14 @@ def mamba2_path(ops, dev):
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(4):
-        state = eng.step(state)
+    state = eager_steps(eng, state, 4)
     torch.cuda.synchronize()
     run["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
     log(f"  a verify step holds {run['step_peak_gb']:.3f} GB beyond its "
         f"state (planned snapshots {plan['verify_snapshots_gb']:.3f} GB)")
     if run["step_peak_gb"] < plan["verify_snapshots_gb"]:
         fail("a verify step held less than its snapshots: were they built?")
+    state = graph_pool(eng, state, run, plan)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3924,7 +3944,8 @@ def hybrid_memory_plan(tcfg, dcfg, B, max_len, K, dtype_bytes):
     weights, the recurrent layers' per-slot conv and h rows, the attention
     layers' and the drafter's KV at (B, max_len), and the verify's peak of
     per-token snapshots (the conv window and h after each of its K + 1
-    tokens, every recurrent layer: held from the forward to the commit)."""
+    tokens, every recurrent layer: held from the forward to the commit),
+    and the served verify's graph pool (``verify_graph_bytes``)."""
     d, V, L = tcfg.d_model, tcfg.vocab_size, tcfg.n_layers
     W, cw = tcfg.hybrid.lru_width or d, tcfg.hybrid.conv_width
     H, KV, hd = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
@@ -3940,10 +3961,12 @@ def hybrid_memory_plan(tcfg, dcfg, B, max_len, K, dtype_bytes):
     kv = (L_att * KV * hd + dcfg.n_layers * dcfg.n_kv_heads * dcfg.head_dim) \
         * 2 * B * max_len * dtype_bytes
     snaps = (K + 1) * L_rec * B * row
+    graph = verify_graph_bytes(tcfg, dcfg, B, K, dtype_bytes, snaps)
     return dict(target_gb=target / 1e9, drafter_gb=drafter / 1e9,
                 recurrent_state_gb=state / 1e9, kv_gb=kv / 1e9,
-                verify_snapshots_gb=snaps / 1e9,
-                total_gb=(target + drafter + state + kv + snaps) / 1e9)
+                verify_snapshots_gb=snaps / 1e9, verify_graph_gb=graph / 1e9,
+                total_gb=(target + drafter + state + kv + snaps + graph)
+                / 1e9)
 
 
 def recurrentgemma_path(ops, dev):
@@ -3991,14 +4014,14 @@ def recurrentgemma_path(ops, dev):
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(4):
-        state = eng.step(state)
+    state = eager_steps(eng, state, 4)
     torch.cuda.synchronize()
     run["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
     log(f"  a verify step holds {run['step_peak_gb']:.3f} GB beyond its "
         f"state (planned snapshots {plan['verify_snapshots_gb']:.3f} GB)")
     if run["step_peak_gb"] < plan["verify_snapshots_gb"]:
         fail("a verify step held less than its snapshots: were they built?")
+    state = graph_pool(eng, state, run, plan)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4109,6 +4132,56 @@ def rgemma_rings(ops, dev, eng):
     torch.cuda.empty_cache()
     return {"ring_slots": slots, "oracle_al": oracle_al,
             "serve_chunks": [list(c) for c in chunks]}
+
+
+@contextlib.contextmanager
+def eager_verify(eng):
+    """``eng``'s verify forward run eagerly inside the block: a replayed
+    one (``serving/verify_graph.py``) calls none of the forward's Python
+    functions but the paged kernel's, so a probe that wraps one
+    (``moe_probe``, which also reads back, and no capture may) or swaps
+    the kernels for their plain versions (``plain_attention``) needs the
+    eager path; so does a step's memory peak (a replay's buffers, a
+    recurrent target's snapshots among them, sit in its graphs' pool,
+    reserved when they were captured: ``graph_pool`` reads that)."""
+    from repro_torch.serving.verify_graph import eager
+    graph, eng.verify = eng.verify, eager
+    try:
+        yield eng
+    finally:
+        eng.verify = graph
+
+
+def eager_steps(eng, state, n: int):
+    """``n`` steps of ``eng`` under ``eager_verify``."""
+    with eager_verify(eng):
+        for _ in range(n):
+            state = eng.step(state)
+    return state
+
+
+def graph_pool(eng, state, run, plan):
+    """The served path's verify memory: three steps of ``eng`` as it
+    serves (eager, capture, replay under a new key), then the device memory
+    its graphs' capture reserved for the session (``VerifyGraph
+    .pool_bytes``). It has to hold the plan's ``verify_graph_gb`` (the
+    graphs' outputs) and at most what an eager step held beyond its state
+    (``run["step_peak_gb"]``), by a quarter and 0.1 GB of the allocator's
+    rounding more. Returns the state."""
+    for _ in range(3):
+        state = eng.step(state)
+    torch.cuda.synchronize()
+    run["graph_pool_gb"] = eng.verify.pool_bytes / 1e9
+    log(f"  served (graphed) verify: its pool reserves "
+        f"{run['graph_pool_gb']:.3f} GB for the session (planned outputs "
+        f"{plan['verify_graph_gb']:.3f} GB; an eager step's peak "
+        f"{run['step_peak_gb']:.3f} GB)")
+    if run["graph_pool_gb"] < plan["verify_graph_gb"]:
+        fail("the verify's graphs hold less than their outputs: were they "
+             "captured?")
+    if run["graph_pool_gb"] > 1.25 * run["step_peak_gb"] + 0.1:
+        fail("the verify's graphs hold more than an eager step did")
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -4245,7 +4318,7 @@ def dbrx_path(ops, dev):
         f"{dcfg.d_ff}), batch {B}, prompt {P}, max_new {NEW}, K {K}, "
         f"max_len {MAX_LEN}")
     free_card(dev, "phase 10")
-    plan = memory_plan(tcfg, dcfg, B, MAX_LEN, 2)
+    plan = memory_plan(tcfg, dcfg, B, MAX_LEN, 2, K=K)
     log("  memory plan: " + ", ".join(f"{k} {v:.2f}" for k, v in plan.items()))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4263,7 +4336,7 @@ def dbrx_path(ops, dev):
     with moe_probe() as probe, torch.no_grad():
         state = eng.prefill(prompts)
         n_pre = len(probe)
-        state = eng.step(state)
+        state = eager_steps(eng, state, 1)
     pre, ver = probe[:n_pre], probe[n_pre:]
     if not ([r["shape"] for r in pre] == [(B, P)] * DBRX_LAYERS
             and [r["shape"] for r in ver] == [(B, K + 1)] * DBRX_LAYERS):
@@ -4283,12 +4356,12 @@ def dbrx_path(ops, dev):
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(4):
-        state = eng.step(state)
+    state = eager_steps(eng, state, 4)
     torch.cuda.synchronize()
     run["step_peak_gb"] = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
     log(f"  a verify step holds {run['step_peak_gb']:.3f} GB beyond its "
         f"state")
+    state = graph_pool(eng, state, run, plan)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4335,7 +4408,7 @@ def dbrx_float32(ops, dev):
     runs, probes = {}, {}
     for name, ctx in (("kernels", contextlib.nullcontext()),
                       ("plain", plain_attention(ops))):
-        with ctx, moe_probe() as probe:
+        with ctx, moe_probe() as probe, eager_verify(eng):
             r = eng.run(prompts)
         runs[name], probes[name] = r["tokens"][:, :P + NEW], probe
         log(f"  {name:7s} steps {r['steps']:3d} AL "
@@ -4354,7 +4427,7 @@ def dbrx_float32(ops, dev):
                    eng.dparams if use_d else None,
                    dataclasses.replace(eng.ecfg, drafter_mode=mode,
                                        K=K if use_d else 0), B, device=dev)
-        with moe_probe() as probe:
+        with moe_probe() as probe, eager_verify(e):
             r = e.run(prompts)
         runs[mode], probes[mode] = r["tokens"][:, :P + NEW], probe
         dropped = max(x["drop_frac"] for x in probe)
@@ -4956,7 +5029,7 @@ def llama4_path(ops, dev):
     with moe_probe() as probe, torch.no_grad():
         state = eng.prefill(prompts)
         n_pre = len(probe)
-        state = eng.step(state)
+        state = eager_steps(eng, state, 1)
     del state
     pre, ver = probe[:n_pre], probe[n_pre:]
     if not ([r["shape"] for r in pre] == [(B, P)] * n_moe
@@ -4998,7 +5071,7 @@ def llama4_path(ops, dev):
                        peng.ecfg, kv_layout="contiguous", swap="none",
                        drafter_mode=mode, K=K if use_d else 0,
                        max_new_tokens=NEWn, max_len=MAXn), Bn, device=dev)
-        with moe_probe() as probe:
+        with moe_probe() as probe, eager_verify(e):
             r = e.run(prompts)
         runs[mode], probes[mode] = r["tokens"][:, :Pn + NEWn], probe
         dropped = max(x["drop_frac"] for x in probe)

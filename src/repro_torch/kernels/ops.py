@@ -33,11 +33,19 @@ checks refuse a head_dim slice (head_dim against q's).
 A meta tensor (the dry-run's) takes neither the kernel nor its plain
 version: the call returns the kernel's output shapes and counts its FLOPs
 (``meta_flops``), as a kernel that builds no score matrix would.
+
+``outside_graph(name, ...)`` calls this module's ``name`` through the
+module's attribute, so a wrapper put on it sees the call. While a forward
+is captured as a CUDA graph in pieces (``serving/verify_graph.py``, under
+``graph_split``), such a call is left out of the graph and made again,
+eagerly, at every replay, writing the tensors it first returned
+(``out=``): ``models.transformer.cache_phase`` makes the paged call so.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -57,6 +65,30 @@ HEAD_DIMS = (32, 64, 128, 256)
 
 # the FLOPs of the attention calls made on the meta device, per kernel
 meta_flops: Dict[str, float] = dict.fromkeys(launches, 0.0)
+
+
+# while a forward is captured in pieces: takes each ``outside_graph`` call
+_split: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def graph_split(split: Callable):
+    """Inside the block, ``outside_graph(name, *args, **kw)`` returns
+    ``split(name, args, kw)`` instead of making the call."""
+    global _split
+    prev, _split = _split, split
+    try:
+        yield
+    finally:
+        _split = prev
+
+
+def outside_graph(name: str, *args, **kw):
+    """This module's ``name``(*args, **kw), looked up as the module's
+    attribute at each call; under ``graph_split`` handed to its split."""
+    if _split is not None:
+        return _split(name, args, kw)
+    return globals()[name](*args, **kw)
 
 
 def reset_launches() -> None:
@@ -266,22 +298,29 @@ def paged_decode_attention_plain(q, k_pool, v_pool, pos_pool, block_table,
 
 def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
                            q_positions, *, scale, window=0, softcap=0.0,
-                           return_stats=False):
+                           return_stats=False, out=None):
     """Paged decode attention (see ``paged_decode_attention_plain``): the
     CUDA kernel of ``csrc/paged_decode_attention.cu`` for CUDA tensors,
     which reads the pool through the table and builds no view, split
     across the nb * page slots a row addresses by ``decode_split`` in
-    bfloat16, as ``decode_attention`` is."""
+    bfloat16, as ``decode_attention`` is. ``out``: the tensors to write
+    the result into, as a call of these operands returns them (a tensor,
+    or (out, m, l) with ``return_stats``); they are returned."""
     kind = _device_kind(q, k_pool)
     if kind == "meta":
         return _meta_attention("paged_decode_attention", q, k_pool.shape[2],
                                block_table.shape[1] * k_pool.shape[1],
                                return_stats)
     if kind == "cpu":
-        return paged_decode_attention_plain(
+        got = paged_decode_attention_plain(
             q, k_pool, v_pool, pos_pool, block_table, q_positions,
             scale=scale, window=window, softcap=softcap,
             return_stats=return_stats)
+        if out is None:
+            return got
+        for o, g in zip(out, got) if return_stats else [(out, got)]:
+            o.copy_(g)
+        return out
     _check_operands(q, k_pool, v_pool, per_row=False)
     B, T, H, hd = q.shape
     NP, page, KV = k_pool.shape[:3]
@@ -289,22 +328,35 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, block_table,
     _check_int32(q, pos_pool=(pos_pool, (NP, page)),
                  block_table=(block_table, (B, nb)),
                  q_positions=(q_positions, (B, T)))
-    out = torch.empty_like(q)
-    m = torch.empty((B, KV, H // KV, T), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    stats = (B, KV, H // KV, T)
+    if out is None:
+        o = torch.empty_like(q)
+        m = torch.empty(stats, dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    else:
+        o, m, l = out if return_stats else (out, None, None)
+        if m is None:
+            m = torch.empty(stats, dtype=torch.float32, device=q.device)
+            l = torch.empty_like(m)
+        if not (o.shape == q.shape and o.dtype == q.dtype and o.is_contiguous()
+                and m.shape == l.shape == stats
+                and m.dtype == l.dtype == torch.float32
+                and m.is_contiguous() and l.is_contiguous()):
+            raise ValueError("paged_decode_attention: out does not hold "
+                             "this call's result")
     nsplit, chunk, buf, scratch = _split_k(q, nb * page, KV)  # buf: alive
     lib = build.library("paged_decode_attention")
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos_pool.data_ptr(), block_table.data_ptr(), q_positions.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), *scratch, B, T, H, KV,
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), *scratch, B, T, H, KV,
         NP, page, nb, hd, float(scale), int(window), float(softcap), nsplit,
         chunk,
         DECODE_KEY_TILE, decode_row_tile(hd), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     launches["paged_decode_attention"] += 1
     _raise_on(lib, err, "paged_decode_attention")
-    return (out, m, l) if return_stats else out
+    return (o, m, l) if return_stats else o
 
 
 # ---------------------------------------------------------------------------

@@ -106,8 +106,9 @@ def rope_sincos(positions: Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exponent = -torch.arange(half, dtype=torch.float32,
                              device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exponent)
+    # a fill, not a copy from the host: capturable in a CUDA graph
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exponent)
     ang = positions.float()[..., None] * freqs
     return torch.sin(ang), torch.cos(ang)
 

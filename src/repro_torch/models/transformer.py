@@ -168,7 +168,9 @@ def cache_phase(q: Tensor, cache: dict, positions: Tensor,
     takes no per-row bound; the insert that follows invalidates them
     anyway), then the pools are read through the table. Under an active
     mesh the cache's K/V (or pools) are this rank's slices of ``n_kv``
-    heads: they are gathered here, so the kernel sees full tensors."""
+    heads: they are gathered here, so the kernel sees full tensors. The
+    paged call stays out of a verify forward's CUDA graph
+    (``kernels.ops.outside_graph``): each replay makes it eagerly."""
     pos0 = positions[:, :1]
     hd = q.shape[-1]
     k, v = (t.to(q.dtype) for t in SH.kv_full([cache["k"], cache["v"]],
@@ -180,9 +182,10 @@ def cache_phase(q: Tensor, cache: dict, positions: Tensor,
             q, k, v, old_kpos, positions, scale=scale, window=window,
             softcap=softcap, return_stats=True)
     L.paged_invalidate(cache["positions"], block_table, pos0[:, 0] - 1)
-    return ops.paged_decode_attention(
-        q, k, v, cache["positions"], block_table, positions, scale=scale,
-        window=window, softcap=softcap, return_stats=True)
+    return ops.outside_graph(
+        "paged_decode_attention", q, k, v, cache["positions"], block_table,
+        positions, scale=scale, window=window, softcap=softcap,
+        return_stats=True)
 
 
 # ---------------------------------------------------------------------------

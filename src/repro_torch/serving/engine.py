@@ -120,6 +120,7 @@ from repro_torch.core import spec_decode as SD
 from repro_torch.models.registry import extras_on, get_model
 from repro_torch.serving import cache_ops
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.verify_graph import VerifyGraph, eager, engages
 from repro_torch.sharding import utils as SH
 from repro_torch.sharding.rules import serve_param_specs
 from repro_torch.sharding.utils import serving_mesh
@@ -418,6 +419,10 @@ class Engine:
         # host mirror of the lowest position each slot's steps write: set at
         # admission, and a slot's positions only grow
         self._slot_floor = [0] * batch
+        # the target's verify forward, replayed from CUDA graphs on one card
+        # (``serving/verify_graph.py``)
+        self.verify = (VerifyGraph() if engages(self.device, self.mesh)
+                       else eager)
 
     @_in_mesh
     def _state_template(self, batch: int, *, device, **kw) -> dict:
@@ -1215,7 +1220,8 @@ class Engine:
                 self.model, self.tcfg, self.dcfg, self.ecfg, self.tparams,
                 self.dparams, state, active_mask=dev(active, torch.bool),
                 max_new=dev(max_new, torch.int32),
-                k_row=dev(k_row, torch.int32), greedy_only=greedy_only)
+                k_row=dev(k_row, torch.int32), greedy_only=greedy_only,
+                verify=self.verify)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -1327,7 +1333,7 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
                      k_row: Optional[Tensor] = None,
                      # eager PyTorch: no trace to specialize
                      greedy_only: bool = False,  # repro-lint: disable=TRACE01
-                     ) -> dict:
+                     verify=eager) -> dict:
     """One iteration: draft K -> verify K+1 -> accept -> commit.
 
     ``active_mask`` (B,) bool masks out free or stalled slots and
@@ -1348,7 +1354,9 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
     from the row-warped drafter distribution (``draft_keys``) and hand it
     to the verifier as q; otherwise q is the one-hot of the argmax drafts.
     ``greedy_only`` skips the sampled lane altogether (no warp, sort or
-    threefry op); for greedy rows both lanes give the same tokens."""
+    threefry op); for greedy rows both lanes give the same tokens.
+    ``verify`` runs the target's verify forward, called as
+    ``model.forward`` is: ``eager``, or an engine's ``VerifyGraph``."""
     B = state["tokens"].shape[0]
     K = ecfg.K if ecfg.drafter_mode != "none" else 0
     c = state["last"]
@@ -1379,10 +1387,10 @@ def speculative_step(model, tcfg: ModelConfig, dcfg: Optional[DrafterConfig],
         vt = torch.cat([tok_next[:, None], drafts], dim=1)
         positions = c[:, None] + torch.arange(K + 1, dtype=torch.int32,
                                               device=c.device)[None]
-        tout = model.forward(tparams, vt, mode="decode", positions=positions,
-                             cache=state["tcache"],
-                             collect_taps=ecfg.drafter_mode != "none",
-                             block_table=table, snapshots=model.recurrent)
+        tout = verify(model, tparams, vt, mode="decode", positions=positions,
+                      cache=state["tcache"],
+                      collect_taps=ecfg.drafter_mode != "none",
+                      block_table=table, snapshots=model.recurrent)
     with tracing.span("step.accept"):
         if K == 0:
             accept_len = torch.zeros((B,), dtype=torch.int32,

@@ -24,7 +24,8 @@ Semantics:
   returns it;
 - ``health()`` reports queue depth, running slots, pool occupancy, wait
   percentiles (interpolated) and the program's counters
-  (``tracing.counters()``).
+  (``tracing.counters()``, the verify forwards captured, replayed from a
+  CUDA graph and run eagerly among them).
 
 Everything runs on one event loop. Only the dispatch task launches work on
 the device, one blocking sync at a time; ``submit``, ``abort`` and

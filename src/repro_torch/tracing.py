@@ -22,7 +22,9 @@ reader of the device trace would count as an operation.
 
 Counters are always on, plain integer adds (``count``): steps, admissions
 and their prompt tokens, page claims, host syncs and the bytes they read
-back. ``counters()`` returns them beside the kernels' launch counts
+back, and the verify forwards captured, replayed and run eagerly
+(``serving/verify_graph.py``, whose replays are ``verify.replay`` spans).
+``counters()`` returns them beside the kernels' launch counts
 (``kernels.ops.launches``) and the collectives' (``sharding.utils
 .counters()``), read where they are kept.
 
@@ -168,7 +170,8 @@ def clear() -> None:
 
 _counts = {"steps": 0, "admissions": 0, "admitted_prompt_tokens": 0,
            "page_claims": 0, "pages_claimed": 0, "host_syncs": 0,
-           "readback_bytes": 0}
+           "readback_bytes": 0, "verify_graph.captures": 0,
+           "verify_graph.replays": 0, "verify_graph.eager": 0}
 
 
 def count(name: str, n: int = 1) -> None:

@@ -7,10 +7,13 @@ bitwise swap round trip), the streaming front end (streamed equals its
 virtual twin, an abort frees pages and pinned bytes) and the round-based
 baseline's flash launches, the threefry PRNG's words on the card against
 the CPU's, the chi-square
-losslessness of rejection verification on the card, gemma2's softcap in
-the decode and paged kernels at its shapes (a wrapped ring too) and flash
-with softcap and window past 4096, reduced gemma2's rings through the
-kernels, the flash training
+losslessness of rejection verification on the card, the verify forward
+replayed from CUDA graphs in pieces bitwise equal to eager (dense, MoE and
+recurrent targets, both layouts, both drafters, greedy and mixed; the
+paged calls still seen by a wrapper on ``ops``),
+gemma2's softcap in the decode and paged kernels at its shapes (a
+wrapped ring too) and flash with softcap and window past 4096, reduced
+gemma2's rings through the kernels, the flash training
 attention's gradients, and reduced training steps through the MTP kernel;
 on a machine with 2 or 4 cards, storage-sharded serving, the sharded
 train step and ``AsyncEngine`` with rank 0 deciding over ``nccl``, one
@@ -894,6 +897,85 @@ def test_sampled_paged_serve_matches_contiguous_engine(card):
         diff = np.flatnonzero(r["tokens"] != w)
         if len(diff):
             assert log.min_margin(sp.seed, P, P + int(diff[0])) < 1e-4
+
+
+@pytest.mark.parametrize("arch,layout,mode,mixed,dtype", [
+    ("qwen2-1.5b", "paged", "parallel", False, None),
+    ("qwen2-1.5b", "paged", "parallel", False, "bfloat16"),
+    ("qwen2-1.5b", "contiguous", "parallel", True, None),
+    ("qwen2-1.5b", "paged", "ar", True, None),
+    ("qwen2-1.5b", "contiguous", "ar", False, "bfloat16"),
+    ("dbrx-132b", "paged", "parallel", False, None),        # MoE
+    ("mamba2-780m", "paged", "parallel", True, None),       # recurrent
+])
+def test_verify_replay_equals_eager(card, monkeypatch, arch, layout, mode,
+                                    mixed, dtype):
+    """Reduced width: a scheduler whose engine replays the verify forward
+    from CUDA graphs streams, session after session, bitwise the tokens
+    and logprobs of the same engine run eagerly, over more than 64 steps
+    (a paged pool small enough to preempt; greedy, or even requests greedy
+    and odd ones sampled), with the same kernel launch counts and the same
+    paged attention calls seen by a wrapper on ``ops`` (the pieces leave
+    them eager). Each session captures once (its first step is eager, its
+    second captures) and replays every later step; the graphs' pool holds
+    at least the verify's float32 logits."""
+    from repro_torch import tracing
+    from repro_torch.launch.serve import build_engine, request_policy
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request, Scheduler
+    from repro_torch.serving.verify_graph import VerifyGraph, eager
+    B, K, NEW = 3, 3, 72
+    eng = build_engine(arch=arch, reduced=True, mode=mode, K=K, max_new=NEW,
+                       max_len=160, batch=B, seed=0, device=card,
+                       dtype=dtype, kv_layout=layout, page_size=8,
+                       pool_pages=28)
+    ref = Engine(eng.tcfg, eng.dcfg, eng.tparams, eng.dparams, eng.ecfg, B,
+                 device=card)
+    ref.verify = eager
+    assert isinstance(eng.verify, VerifyGraph)
+    paged = []
+    plain = ops.paged_decode_attention
+
+    def seen(q, *a, **kw):
+        paged.append(tuple(q.shape))
+        return plain(q, *a, **kw)
+    monkeypatch.setattr(ops, "paged_decode_attention", seen)
+
+    def requests():
+        rng = np.random.default_rng(3)
+        return [Request(rng.integers(1, eng.tcfg.vocab_size - 1,
+                                     12 + 4 * i).astype(np.int32),
+                        max_new_tokens=NEW - 4 * i,
+                        sampling=request_policy(
+                            i, temperature=0.8 if mixed else 0.0, top_k=50,
+                            top_p=0.95, mixed=True))
+                for i in range(4)]
+
+    def serve(sched):
+        ops.reset_launches()
+        paged.clear()
+        before = dict(tracing.counters()["serving"])
+        rep = sched.serve(requests())
+        after = tracing.counters()["serving"]
+        counts = {k: after[f"verify_graph.{k}"] - before[f"verify_graph.{k}"]
+                  for k in ("captures", "replays", "eager")}
+        return (rep, dict(ops.launches), list(paged),
+                after["steps"] - before["steps"], counts)
+    want, want_launches, want_paged, want_steps, counts = serve(
+        Scheduler(ref))
+    assert counts == {"captures": 0, "replays": 0, "eager": want_steps}
+    sched = Scheduler(eng)
+    for session in (1, 2):
+        got, launches, got_paged, steps, counts = serve(sched)
+        assert steps >= 64
+        assert counts == {"captures": 1, "eager": 1, "replays": steps - 2}
+        assert launches == want_launches
+        assert got_paged == want_paged
+        assert (layout == "paged") == bool(got_paged)
+        assert eng.verify.pool_bytes >= B * (K + 1) * eng.tcfg.vocab_size * 4
+        for g, w in zip(got["results"], want["results"]):
+            np.testing.assert_array_equal(g["tokens"], w["tokens"])
+            np.testing.assert_array_equal(g["logprobs"], w["logprobs"])
 
 
 def _mtp_inputs(card, dtype, B, H, KV, hd, n, K, r, mult=64):

@@ -116,6 +116,7 @@ def serving_child(rank, world, setup, expected):
     streams."""
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.scheduler import Request, Scheduler
+    from repro_torch.serving.verify_graph import eager
     from repro_torch.sharding import utils as SH
 
     tcfg, dcfg, tp, dp, kw, prompts, work = setup
@@ -156,6 +157,8 @@ def serving_child(rank, world, setup, expected):
             np.testing.assert_array_equal(
                 s1["tokens"][:, :P + new].numpy(), jrun[:, :P + new],
                 err_msg=mode)
+        # a meshed engine runs every verify eagerly, never a graph
+        assert e1.verify is eager, mode
         # (iii): no use() gathered more than one layer (or the top-level
         # leaves); each rank holds 1/world of the K/V bytes
         top = max(_unit_bytes(tp), _unit_bytes(dp))
